@@ -1,0 +1,21 @@
+"""plangen_tpu_torch — the PyTorch + CUDA port of plangen_tpu for NVIDIA Hopper.
+
+The JAX package `plangen_tpu` is the reference: every module here is held
+against its counterpart there on the same weights and inputs
+(tests/test_torch_*.py). This package imports `torch` and never `jax`; it
+shares only the JAX-free host modules `plangen_tpu.config` and
+`plangen_tpu.text` (and `plangen_tpu.convert.jax_to_torch` for weights).
+
+Layout mirrors the JAX package:
+
+  * `ops/`      — attention, sampling, and the wrapper of the hand-written
+                  prefix decode-attention kernel (`ops/decode_attention.py`).
+  * `models/`   — `nn.Module`s named like HF `MultiModalityCausalLM`
+                  (LLaMA backbone, gen_head / gen_aligner, VQ decoder).
+  * `runtime/`  — fixed-buffer KV cache, prefill and the image decode loop.
+  * `tasks/`    — the layout-to-image pipeline and its host-side processor.
+  * `convert/`  — weights from the JAX parameter tree, seeded random init.
+  * `csrc/`     — CUDA sources (sm_90a); `kernels/` builds and loads them.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,211 @@
+"""LLaMA decoder (Janus-Pro language backbone) as PyTorch modules.
+
+Port of `plangen_tpu/models/llama.py`. Submodule names follow HF
+`LlamaForCausalLM` (`model.layers.{i}.self_attn.q_proj`, ...), so
+`load_state_dict` takes the HF-named state dict directly.
+
+Numerics mirror the JAX package:
+  * RMSNorm in fp32, output cast back to the input dtype.
+  * RoPE tables in fp32 (HF half-split layout), applied in fp32, cast back.
+  * Attention softmax in fp32 (ops.attention / ops.decode_attention).
+  * Positions are ABSOLUTE indices into the left-padded sequence (HF
+    cache_position), not derived from the pad mask.
+
+With a cache, prefill (Q > 1) writes its rows and attends over the full
+cache buffer with a causal + pad bias, as the JAX package's XLA branch does;
+a decode step (Q == 1) writes its row and reads the live prefix through the
+prefix decode-attention kernel. The JAX package's `growing_cache` and
+`paged` options are two read strategies of this one function, so the port
+has no branch for them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from plangen_tpu.config import LlamaConfig
+from plangen_tpu_torch.ops.attention import dot_product_attention, make_causal_bias
+from plangen_tpu_torch.ops.decode_attention import prefix_decode_attention
+
+KVCache = Dict[str, torch.Tensor]
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def rope_cos_sin(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (fp32) for absolute positions [Q] -> [Q, D]."""
+    exponent = torch.arange(
+        0, head_dim, 2, dtype=torch.float32, device=positions.device
+    ) / head_dim
+    inv_freq = 1.0 / (theta ** exponent)
+    freqs = positions.float()[..., None] * inv_freq  # [Q, D/2]
+    emb = torch.cat([freqs, freqs], dim=-1)  # HF half-split layout
+    return emb.cos(), emb.sin()
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """HF-style rotate_half RoPE. x: [B, Q, H, D]; cos/sin: [Q, D]."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    return (x.float() * c + rotated.float() * s).to(x.dtype)
+
+
+def _linear(in_dim: int, out_dim: int, dtype, device) -> nn.Linear:
+    return nn.Linear(in_dim, out_dim, bias=False, dtype=dtype, device=device)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float, dtype=None, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.eps)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig, dtype=None, device=None):
+        super().__init__()
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = _linear(h, i, dtype, device)
+        self.up_proj = _linear(h, i, dtype, device)
+        self.down_proj = _linear(i, h, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, dtype=None, device=None):
+        super().__init__()
+        h = cfg.hidden_size
+        self.q_proj = _linear(h, cfg.q_dim, dtype, device)
+        self.k_proj = _linear(h, cfg.kv_dim, dtype, device)
+        self.v_proj = _linear(h, cfg.kv_dim, dtype, device)
+        self.o_proj = _linear(cfg.q_dim, h, dtype, device)
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, cfg: LlamaConfig, dtype=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.self_attn = LlamaAttention(cfg, dtype, device)
+        self.mlp = LlamaMLP(cfg, dtype, device)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
+        self.post_attention_layernorm = RMSNorm(
+            cfg.hidden_size, cfg.rms_norm_eps, dtype, device
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, Q, hidden]
+        cos: torch.Tensor,
+        sin: torch.Tensor,
+        bias: Optional[torch.Tensor],  # [B, 1, Q, S]; None for decode steps
+        positions: torch.Tensor,  # [Q] int32 absolute positions
+        attn_mask: torch.Tensor,  # [B, S] pad mask of the cache (or [B, Q])
+        cache: Optional[KVCache] = None,
+        layer_idx: int = 0,
+    ) -> torch.Tensor:
+        cfg = self.cfg
+        B, Q, _ = x.shape
+        attn_in = self.input_layernorm(x)
+        sa = self.self_attn
+        q = sa.q_proj(attn_in).reshape(B, Q, cfg.num_heads, cfg.head_dim)
+        k = sa.k_proj(attn_in).reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
+        v = sa.v_proj(attn_in).reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        if cache is None:
+            attn = dot_product_attention(q, k, v, bias=bias)
+        else:
+            # in-place row writes at the absolute positions; index_copy_ takes
+            # the device tensor, so no host sync and no cache copy
+            k_layer, v_layer = cache["k"][layer_idx], cache["v"][layer_idx]
+            write_idx = positions.long()
+            k_layer.index_copy_(1, write_idx, k.to(k_layer.dtype))
+            v_layer.index_copy_(1, write_idx, v.to(v_layer.dtype))
+            if Q == 1:
+                attn = prefix_decode_attention(
+                    q, cache["k"], cache["v"], attn_mask, layer_idx, positions
+                )
+            else:
+                attn = dot_product_attention(q, k_layer, v_layer, bias=bias)
+        x = x + sa.o_proj(attn.reshape(B, Q, cfg.q_dim))
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, cfg: LlamaConfig, dtype=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(
+            cfg.vocab_size, cfg.hidden_size, dtype=dtype, device=device
+        )
+        self.layers = nn.ModuleList(
+            LlamaDecoderLayer(cfg, dtype, device) for _ in range(cfg.num_layers)
+        )
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
+
+    def forward(
+        self,
+        inputs_embeds: torch.Tensor,  # [B, Q, hidden]
+        attn_mask: torch.Tensor,  # [B, Q] pad mask (no cache) or [B, S] (cache)
+        positions: Optional[torch.Tensor] = None,  # [Q] absolute positions
+        kv_cache: Optional[KVCache] = None,  # written in place
+    ) -> torch.Tensor:
+        """Run the decoder stack (final RMSNorm applied, no head).
+
+        Without a cache: causal + pad attention over the Q queries. With a
+        cache: the queries' rows are written at `positions`; prefill attends
+        over the whole buffer with a causal + pad bias, a decode step
+        (Q == 1) reads the live prefix through the prefix kernel with
+        `q_pos = positions`. Returns hidden [B, Q, hidden]."""
+        B, Q, _ = inputs_embeds.shape
+        device = inputs_embeds.device
+        if positions is None:
+            positions = torch.arange(Q, dtype=torch.int32, device=device)
+        if kv_cache is None:
+            bias = make_causal_bias(attn_mask, positions, positions)
+        elif Q == 1:
+            bias = None  # the prefix kernel masks by pad and position itself
+        else:
+            S = kv_cache["k"].shape[2]
+            kv_positions = torch.arange(S, dtype=torch.int32, device=device)
+            bias = make_causal_bias(attn_mask, positions, kv_positions)
+        cos, sin = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        x = inputs_embeds
+        for i, layer in enumerate(self.layers):
+            x = layer(x, cos, sin, bias, positions, attn_mask, kv_cache, i)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    def __init__(self, cfg: LlamaConfig, dtype=None, device=None):
+        super().__init__()
+        self.model = LlamaModel(cfg, dtype, device)
+        self.lm_head = _linear(cfg.hidden_size, cfg.vocab_size, dtype, device)
+
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.model.embed_tokens(ids)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """LM logits in fp32."""
+        return self.lm_head(hidden).float()
+
+    def forward(self, inputs_embeds, attn_mask, positions=None, kv_cache=None):
+        return self.model(inputs_embeds, attn_mask, positions, kv_cache)

@@ -1,0 +1,176 @@
+"""Prefix decode attention: one query per row over the live cache prefix.
+
+Port of `plangen_tpu/ops/pallas_decode_attention.py` (and its `_v3`
+variant, which computes the same function). `prefix_decode_attention` keeps
+the Pallas signature: the cache is the runtime's stacked [L, B, S, H, D]
+buffer and the layer index and query position select what is read.
+
+  * On a CUDA tensor it launches the hand-written kernel
+    `csrc/prefix_decode_attention.cu` (built at first use) or raises.
+  * On a CPU tensor it runs `prefix_decode_attention_reference`, the plain
+    version of the same math over the masked full buffer.
+
+`prefix_decode_attention.launches` counts kernel launches and
+`prefix_decode_attention_reference.calls` counts plain-version calls, so a
+run can show which one carried it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Union
+
+import torch
+
+from plangen_tpu_torch.ops.attention import NEG_INF
+
+CHUNK = 128
+KERNEL_NAME = "prefix_decode_attention"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+
+
+def prefix_decode_attention_reference(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_cache: torch.Tensor,  # [L, B, S, H, D]
+    v_cache: torch.Tensor,
+    pad_mask: torch.Tensor,  # [B, S]
+    layer: int,
+    q_pos: Union[int, torch.Tensor],  # scalar or [1]
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version: the kernel's math over the masked full buffer.
+
+    q is scaled in fp32 before the dot (the TPU kernel's order), slots past
+    `q_pos` or under a pad are masked with NEG_INF, the softmax is fp32 and
+    the probabilities are rounded to the cache dtype before the PV product.
+    Returns [B, 1, H, D] in q.dtype."""
+    prefix_decode_attention_reference.calls += 1
+    D = q.shape[-1]
+    S = k_cache.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    k = k_cache[layer].float()  # [B, S, H, D]
+    v = v_cache[layer]
+    s = torch.einsum("bhd,bshd->bhs", q[:, 0].float() * scale, k)
+    slots = torch.arange(S, device=q.device)
+    ok = (pad_mask[:, None, :] > 0) & (slots <= q_pos)[None, None, :]
+    s = torch.where(ok, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l_sum = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhs,bshd->bhd", p.to(v.dtype).float(), v.float())
+    return (out / l_sum.clamp_min(1e-30)).to(q.dtype)[:, None]
+
+
+prefix_decode_attention_reference.calls = 0
+
+
+def _check_inputs(q, k_cache, v_cache, pad_mask, layer, q_pos) -> None:
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be [B, 1, H, D], got {tuple(q.shape)}")
+    if k_cache.dim() != 5 or k_cache.shape != v_cache.shape:
+        raise ValueError(
+            "k_cache and v_cache must both be [L, B, S, H, D], got "
+            f"{tuple(k_cache.shape)} and {tuple(v_cache.shape)}"
+        )
+    L, B, S, H, D = k_cache.shape
+    if tuple(q.shape) != (B, 1, H, D):
+        raise ValueError(
+            f"q {tuple(q.shape)} does not match the cache {tuple(k_cache.shape)}"
+            " (the kernel assumes MHA: as many KV heads as query heads)"
+        )
+    if S % CHUNK:
+        raise ValueError(f"prefix decode attention needs S ({S}) % {CHUNK} == 0")
+    if tuple(pad_mask.shape) != (B, S):
+        raise ValueError(f"pad_mask must be [{B}, {S}], got {tuple(pad_mask.shape)}")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"layer {layer} out of range for {L} cached layers")
+    if q.dtype != k_cache.dtype or q.dtype != v_cache.dtype:
+        raise TypeError(
+            f"q, k_cache, v_cache dtypes differ: {q.dtype}, {k_cache.dtype}, "
+            f"{v_cache.dtype}"
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    """The kernel's C entry point, built and loaded at first use."""
+    from plangen_tpu_torch.kernels import load_library
+
+    fn = load_library(KERNEL_NAME).lib.plangen_prefix_decode_attention
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_kernel(q, k_cache, v_cache, pad_mask, layer, q_pos, scale):
+    L, B, S, H, D = k_cache.shape
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, not {D}")
+    if pad_mask.dtype != torch.int32:
+        raise TypeError(f"pad_mask must be int32 on the card, not {pad_mask.dtype}")
+    if not (isinstance(q_pos, torch.Tensor) and q_pos.dtype == torch.int32
+            and q_pos.numel() == 1):
+        raise TypeError(
+            "q_pos must be a one-element int32 CUDA tensor (the kernel reads "
+            "it from device memory)"
+        )
+    tensors = (q, k_cache, v_cache, pad_mask, q_pos)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all inputs must be on the same CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("all inputs must be contiguous")
+
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"inputs on {q.device} but the current device is "
+            f"cuda:{torch.cuda.current_device()}"
+        )
+
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    err = _kernel_fn()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        pad_mask.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        B, S, H, D, int(layer), float(scale), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"prefix_decode_attention kernel launch failed: "
+                           f"cudaError {err}")
+    prefix_decode_attention.launches += 1
+    return out
+
+
+def prefix_decode_attention(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_cache: torch.Tensor,  # [L, B, S, H, D]
+    v_cache: torch.Tensor,
+    pad_mask: torch.Tensor,  # [B, S]
+    layer: int,
+    q_pos: Union[int, torch.Tensor],  # one-element int32 tensor on the card
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-step decode attention over layer `layer`'s live cache prefix.
+
+    Requires S % 128 == 0 and as many KV heads as query heads. Returns
+    [B, 1, H, D] in q.dtype. CUDA inputs launch the kernel (float32 or
+    bfloat16, head_dim 64 or 128, contiguous, int32 mask and q_pos on the
+    device) and raise on anything else; CPU inputs run the plain version."""
+    _check_inputs(q, k_cache, v_cache, pad_mask, layer, q_pos)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return prefix_decode_attention_reference(
+            q, k_cache, v_cache, pad_mask, layer, q_pos, scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"no prefix decode attention for device {q.device}")
+    return _launch_kernel(q, k_cache, v_cache, pad_mask, layer, q_pos, scale)
+
+
+prefix_decode_attention.launches = 0
