@@ -6,19 +6,29 @@
 Phases; each passes or raises, and the script exits non-zero on any failure:
 
   1. header: torch / CUDA versions, the card's name and power limit, TF32 off;
-  2. build: compile the prefix decode-attention kernel from csrc/ (nvcc)
-     and print its registers and spills;
-  3. kernel vs its plain PyTorch version at Janus-Pro-1B decode shapes
+  2. build: compile every kernel source in csrc/ (one nvcc each, started
+     together) and print nvcc seconds, registers and spills;
+  3. K1 vs its plain PyTorch version at Janus-Pro-1B decode shapes
      (L=24, B=8, S=1024, H=16, D=128), bf16 and fp32, left-padded rows,
      with CUDA-event timings taken in turns (plain, kernel, kernel, plain);
-  4. the slice: `PlanGenPipeline.layout_to_image` at Janus-Pro-1B width
+  4. the bf16 slice: `PlanGenPipeline.layout_to_image` at Janus-Pro-1B width
      (seeded random bf16 weights, byte-fallback tokenizer) on 4 requests
      and then on 1, checking shapes, ranges, and that every decode-attention
-     call of each run went through the kernel (576 x 24 launches, no plain
-     calls); before that, the kernel is checked on the cache the prefill
-     wrote, and one cached decode step against the uncached forward.
+     call of each run went through K1 (576 x 24 launches, no plain calls);
+     before that, K1 is checked on the cache the prefill wrote, and one
+     cached decode step against the uncached forward;
+  5. K2 (W4A16) and K4 (W4A8) int4 matmuls vs their plain versions at the
+     1B decode shapes (R = 8; fused qkv, o, fused gate|up, down, gen_head
+     fc2) and R = 256 at gate|up, timed in turns;
+  6. K1-q8 (decode attention over the int8 cache) vs its plain version at
+     the phase-3 shapes;
+  7. the quantized slice: the same seeded model quantized in place to
+     `int4`, K1-q8 checked on the int8 cache its prefill wrote, then
+     `layout_to_image` on the 4 requests; a fresh seeded model quantized to
+     `int4_a8` on 1 request. Every decode-step projection goes through K2
+     (or K4), every decode attention through K1-q8, no plain version runs.
 
-The last two lines are a JSON object describing the kernel and
+The last two lines are a JSON object describing the kernels and
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -34,6 +44,13 @@ import time
 PEAK_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KERNEL_SHAPE = dict(L=24, B=8, S=1024, H=16, D=128)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
+KERNEL_SOURCES = ("prefix_decode_attention", "int4_matmul")
+# (name, I, O) of the int4 matmuls of a Janus-Pro-1B decode step
+INT4_SHAPES = (("qkv_proj", 2048, 6144), ("o_proj", 2048, 2048),
+               ("gate_up_proj", 2048, 11264), ("down_proj", 5632, 2048),
+               ("gen_head.fc2", 2048, 16384))
+INT4_TOLERANCE = 2e-2  # K2 in bf16 (rtol and atol): it sums in another order
+L2_BYTES = 50 * 2**20  # H100 L2: weights rotate through more than this
 LEFT_PADS = (0, 5, 37, 100, 0, 64, 120, 3)  # per row; all < 127 so no row is
 # fully masked at the smallest q_pos tested
 CAPTIONS = [
@@ -92,23 +109,36 @@ def phase_header(torch) -> str:
 
 
 def phase_build() -> None:
-    from plangen_tpu_torch.kernels import load_library
+    from plangen_tpu_torch.kernels import load_libraries
 
     t0 = time.perf_counter()
-    built = load_library("prefix_decode_attention")
-    log(f"[2] built {built.path.name} in {built.build_seconds:.2f} s of nvcc "
-        f"({time.perf_counter() - t0:.2f} s with loading)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[2]   {line.strip()}")
+    built = load_libraries(KERNEL_SOURCES)
+    log(f"[2] built {len(built)} kernel libraries in {time.perf_counter() - t0:.2f} s "
+        "(nvcc runs in parallel, loading included)")
+    for lib in built.values():
+        log(f"[2] {lib.path.name}: {lib.build_seconds:.2f} s of nvcc")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[2]   {line.strip()}")
 
 
-def time_ms(torch, fn, iters: int) -> float:
-    """Mean ms per call over `iters` calls between two CUDA events."""
+def time_ms(torch, fn, iters: int, host_ahead: bool = False) -> float:
+    """Mean ms per call over `iters` calls between two CUDA events.
+
+    With `host_ahead` the card first spins (`torch.cuda._sleep`) for longer
+    than the host takes to enqueue the calls, so the calls run back to back
+    and the events time the device alone, not the Python of each call."""
     fn(0)  # warm up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if host_ahead:
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda._sleep(int(3e9 * enqueue_s) + 1_000_000)  # ~2 GHz SM clock
     start.record()
     for i in range(iters):
         fn(i)
@@ -179,7 +209,8 @@ def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> di
                 ms=headline["ms"], plain_ms=headline["plain_ms"])
 
 
-def build_pipeline(torch, dev, output_uint8: bool, model=None, cfg=None):
+def build_pipeline(torch, dev, output_uint8: bool, model=None, cfg=None,
+                   quantize=None):
     from plangen_tpu.config import GenerationConfig, PlanGenModelConfig
     from plangen_tpu.text.tokenizer import ByteFallbackTokenizer
     from plangen_tpu_torch.convert import init_params
@@ -188,7 +219,8 @@ def build_pipeline(torch, dev, output_uint8: bool, model=None, cfg=None):
     from plangen_tpu_torch.tasks.processor import PlanGenProcessor
 
     cfg = cfg or PlanGenModelConfig()  # default: Janus-Pro-1B widths
-    gen = GenerationConfig(cfg_weight=5.0, temperature=1.0, output_uint8=output_uint8)
+    gen = GenerationConfig(cfg_weight=5.0, temperature=1.0, output_uint8=output_uint8,
+                           quantize=quantize)
     tok = ByteFallbackTokenizer(vocab_size=cfg.llama.vocab_size)
     proc = PlanGenProcessor(tok, image_tokens=cfg.image_seq_len, gen=gen)
     if model is None:
@@ -254,26 +286,67 @@ def check_prefill_cache_and_decode_step(torch, pipe, cfg, step_tol=None) -> None
               f"{dtype} cached vs uncached decode step: rel err {rel:.3e}")
 
 
-def run_slice(torch, pipe, cfg, captions, groundings, seeds):
-    from plangen_tpu_torch.ops.decode_attention import (
-        prefix_decode_attention, prefix_decode_attention_reference,
-    )
+def kernel_counters():
+    """{kernel name: (wrapper, its plain version)} of every kernel."""
+    from plangen_tpu_torch.ops import decode_attention as da
+    from plangen_tpu_torch.ops import int4_matmul as im
 
+    return {
+        "prefix_decode_attention": (da.prefix_decode_attention,
+                                    da.prefix_decode_attention_reference),
+        "prefix_decode_attention_q8": (da.prefix_decode_attention_q8,
+                                       da.prefix_decode_attention_q8_reference),
+        "int4_matmul_w16": (im.int4_matmul_w16, im.int4_matmul_w16_reference),
+        "int4_matmul_a8": (im.int4_matmul_w4a8, im.int4_matmul_w4a8_reference),
+    }
+
+
+def expected_launches(cfg, quantize, n_rows: int, prompt_len: int) -> dict:
+    """Kernel launches of one `layout_to_image` call, from the code: each of
+    the 576 steps runs gen_head (fc2 quantized) and one decoder step whose
+    24 layers each make 1 decode attention and 4 quantized matmuls (q|k|v,
+    o, gate|up, down); the prefill's matmuls take the kernel only at
+    <= 256 rows (2B x prompt), else the dense route."""
+    from plangen_tpu_torch.ops.int4_matmul import MAX_KERNEL_ROWS
+
+    N, L = cfg.image_seq_len, cfg.llama.num_layers
+    want = dict.fromkeys(kernel_counters(), 0)
+    if quantize is None:
+        want["prefix_decode_attention"] = N * L
+        return want
+    want["prefix_decode_attention_q8"] = N * L
+    matmul = "int4_matmul_a8" if quantize == "int4_a8" else "int4_matmul_w16"
+    prefill = 4 * L if n_rows * prompt_len <= MAX_KERNEL_ROWS else 0
+    want[matmul] = N * (4 * L + 1) + prefill
+    return want
+
+
+def run_slice(torch, pipe, cfg, captions, groundings, seeds):
+    """One `layout_to_image` call with every kernel's counts set to 0 just
+    before it and read just after; returns the launches by kernel."""
+    counters = kernel_counters()
     n = len(captions)
+    ids, mask = pipe.proc.uni_batch(list(captions), list(groundings))
+    prompt_len = pipe.proc.cfg_batch(ids, mask)[0].shape[1]
     sync = torch.cuda.synchronize if pipe.device.type == "cuda" else (lambda: None)
     sync()
-    prefix_decode_attention.launches = 0
-    prefix_decode_attention_reference.calls = 0
+    for wrapper, plain in counters.values():
+        wrapper.launches = 0
+        plain.calls = 0
     t0 = time.perf_counter()
     out = pipe.layout_to_image(captions, groundings, seeds=seeds)
     sync()
     seconds = time.perf_counter() - t0
-    launches = prefix_decode_attention.launches
-    plain_calls = prefix_decode_attention_reference.calls
+    launches = {k: w.launches for k, (w, _) in counters.items()}
+    plain_calls = sum(p.calls for _, p in counters.values())
 
-    expected = cfg.image_seq_len * cfg.llama.num_layers
-    check(launches == expected, f"{launches} K1 launches, expected {expected}")
-    check(plain_calls == 0, f"the plain version ran {plain_calls} times on the main path")
+    mode = pipe.gen.quantize or "bf16"
+    want = expected_launches(cfg, pipe.gen.quantize, 2 * n, prompt_len)
+    for name, count in launches.items():
+        log(f"[{4 if mode == 'bf16' else 7}] {mode}: {name} launches {count} "
+            f"(expected from the code: {want[name]})")
+    check(launches == want, f"{mode}: launches {launches}, expected {want}")
+    check(plain_calls == 0, f"the plain versions ran {plain_calls} times on the main path")
     toks = out.image_tokens
     check(toks.shape == (n, cfg.image_seq_len), f"tokens shape {toks.shape}")
     check(int(toks.min()) >= 0 and int(toks.max()) < cfg.image_token_size,
@@ -287,12 +360,203 @@ def run_slice(torch, pipe, cfg, captions, groundings, seeds):
         import numpy as np
 
         check(bool(np.isfinite(imgs).all()), "non-finite pixels")
-    log(f"[4] {n} request(s): {seconds:.2f} s/call, "
-        f"{n * cfg.image_seq_len / seconds:.1f} image tokens/s, "
-        f"K1 launches {launches} (= {cfg.image_seq_len} x {cfg.llama.num_layers}), "
-        f"plain calls {plain_calls}, tokens {toks.shape} in [{toks.min()}, {toks.max()}], "
+    log(f"[{4 if mode == 'bf16' else 7}] {mode}, {n} request(s): {seconds:.3f} s/call, "
+        f"{n * cfg.image_seq_len / seconds:.1f} image tokens/s, plain calls {plain_calls}, "
+        f"tokens {toks.shape} in [{toks.min()}, {toks.max()}], "
         f"images {imgs.shape} {imgs.dtype} in [{imgs.min()}, {imgs.max()}]")
     return launches
+
+
+def rotating(make, nbytes: int):
+    """Enough copies of an input to rotate through more than the L2 cache."""
+    return [make() for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
+
+
+def timed_pair(torch, kernel, plain, iters: int):
+    """(kernel ms, plain ms, the four readings), in turns plain, kernel,
+    kernel, plain; device time (host_ahead)."""
+    p1 = time_ms(torch, plain, iters, host_ahead=True)
+    k1 = time_ms(torch, kernel, iters, host_ahead=True)
+    k2 = time_ms(torch, kernel, iters, host_ahead=True)
+    p2 = time_ms(torch, plain, iters, host_ahead=True)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+
+
+def phase_int4_vs_plain(torch, dev) -> dict:
+    """K2 and K4 against their plain versions at the 1B decode shapes."""
+    from plangen_tpu_torch.ops import int4_matmul as im
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rows = []
+    cases = [(name, 8, I, O) for name, I, O in INT4_SHAPES] + [("gate_up_proj", 256, 2048, 11264)]
+    for name, R, I, O in cases:
+        OH = O // 2
+
+        def weight():
+            return {"w_p4": torch.randint(-128, 128, (I, OH), generator=gen, device=dev,
+                                          dtype=torch.int8),
+                    "s_lo": torch.rand((1, OH), generator=gen, device=dev) * 0.02,
+                    "s_hi16": torch.rand((1, OH), generator=gen, device=dev) * 0.02 / 16}
+
+        ws = rotating(weight, I * OH)
+        x = torch.randn((R, I), generator=gen, device=dev).to(torch.bfloat16)
+        x8, xs = im.quantize_activations_int8(x)
+        args = lambda i: (ws[i % len(ws)]["w_p4"], ws[i % len(ws)]["s_lo"], ws[i % len(ws)]["s_hi16"])
+        err16 = err8 = 0.0
+        for i in range(min(3, len(ws))):
+            got = im.int4_matmul_w16(x, *args(i))
+            want = im.int4_matmul_w16_reference(x, *args(i))
+            check(got.shape == (R, O) and got.dtype == torch.bfloat16, f"K2 output {got.shape}")
+            check(bool(torch.isfinite(got).all()), f"non-finite K2 output at {name}")
+            torch.testing.assert_close(got.float(), want.float(), rtol=INT4_TOLERANCE,
+                                       atol=INT4_TOLERANCE)
+            err16 = max(err16, (got.float() - want.float()).abs().max().item())
+            got8 = im.int4_matmul_w4a8(x8, xs, *args(i), torch.bfloat16)
+            want8 = im.int4_matmul_w4a8_reference(x8, xs, *args(i), torch.bfloat16)
+            err8 = max(err8, (got8.float() - want8.float()).abs().max().item())
+        check(err8 == 0.0, f"K4 at {name} R={R} differs from its plain version: {err8:.3e}")
+
+        iters = min(64, 4 * len(ws))
+        k16, p16, r16 = timed_pair(torch, lambda i: im.int4_matmul_w16(x, *args(i)),
+                                   lambda i: im.int4_matmul_w16_reference(x, *args(i)), iters)
+        k8, p8, r8 = timed_pair(torch, lambda i: im.int4_matmul_w4a8(x8, xs, *args(i), torch.bfloat16),
+                                lambda i: im.int4_matmul_w4a8_reference(x8, xs, *args(i), torch.bfloat16),
+                                iters)
+        for tag, k_ms, p_ms, r, err in (("K2", k16, p16, r16, err16), ("K4", k8, p8, r8, err8)):
+            gbps = I * OH / (k_ms * 1e-3) / 1e9
+            rows.append(dict(kernel=tag, name=name, R=R, err=err, ms=k_ms, plain_ms=p_ms))
+            log(f"[5] {tag} {name:13s} R={R:3d} I={I} O={O}: max_abs_err={err:.3e} "
+                f"kernel {k_ms * 1e3:8.2f} us ({r[1] * 1e3:.2f}/{r[2] * 1e3:.2f}) "
+                f"plain {p_ms * 1e3:9.2f} us ({r[0] * 1e3:.2f}/{r[3] * 1e3:.2f}) "
+                f"weights {gbps:7.1f} GB/s = {100 * gbps * 1e9 / PEAK_HBM_BYTES_PER_S:.1f}% "
+                f"of 3.35 TB/s")
+        del ws
+    out = {}
+    for tag in ("K2", "K4"):
+        mine = [r for r in rows if r["kernel"] == tag and r["R"] == 8]
+        out[tag] = dict(max_abs_err=max(r["err"] for r in rows if r["kernel"] == tag),
+                        ms=sum(r["ms"] for r in mine) / len(mine),
+                        plain_ms=sum(r["plain_ms"] for r in mine) / len(mine))
+    return out
+
+
+def q8_cache(torch, shape, dev, gen):
+    """Random rows quantized into an int8 cache (codes and fp32 scales)."""
+    from plangen_tpu_torch.ops.attention import quantize_kv
+
+    L, B, S, H, D = (shape[k] for k in "LBSHD")
+    cache = {}
+    for layer in range(L):
+        k = torch.randn((B, S, H, D), generator=gen, device=dev)
+        v = torch.randn((B, S, H, D), generator=gen, device=dev)
+        parts = quantize_kv(k, v)
+        for name, part in zip(("k", "k_scale", "v", "v_scale"), parts):
+            if name not in cache:
+                cache[name] = torch.empty((L,) + tuple(part.shape), dtype=part.dtype, device=dev)
+            cache[name][layer] = part
+    return cache
+
+
+def phase_k1_q8_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> dict:
+    """K1-q8 against its plain version at the decode shapes of Janus-Pro-1B."""
+    from plangen_tpu_torch.ops.decode_attention import (
+        prefix_decode_attention, prefix_decode_attention_q8,
+        prefix_decode_attention_q8_reference,
+    )
+
+    L, B, S, H, D = (shape[k] for k in "LBSHD")
+    gen = torch.Generator(device=dev).manual_seed(5678)
+    mask = left_padded_mask(torch, B, S, min(prompt_len + 576, S), dev)
+    cache = q8_cache(torch, shape, dev, gen)
+    c = (cache["k"], cache["k_scale"], cache["v"], cache["v_scale"])
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    # the bf16 cache K1 reads, for its device time at the same shapes
+    kv16 = [torch.randn((L, B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2)]
+    rows = []
+    for qp in [prompt_len, 127, 128, prompt_len + 287, S - 1]:
+        q_pos = torch.tensor([qp], dtype=torch.int32, device=dev)
+        err = 0.0
+        for layer in (0, L // 2, L - 1):
+            got = prefix_decode_attention_q8(q, *c, mask, layer, q_pos)
+            want = prefix_decode_attention_q8_reference(q, *c, mask, layer, q_pos)
+            check(bool(torch.isfinite(got).all()), f"non-finite K1-q8 output q_pos={qp}")
+            err = max(err, (got.float() - want.float()).abs().max().item())
+        check(err <= TOLERANCE["bfloat16"], f"K1-q8 vs plain q_pos={qp}: max abs err {err:.3e}")
+        k_ms, p_ms, r = timed_pair(
+            torch, lambda i: prefix_decode_attention_q8(q, *c, mask, i % L, q_pos),
+            lambda i: prefix_decode_attention_q8_reference(q, *c, mask, i % L, q_pos), 2 * L)
+        k1_ms = time_ms(torch, lambda i: prefix_decode_attention(q, *kv16, mask, i % L, q_pos),
+                        2 * L, host_ahead=True)
+        gbps = B * (qp + 1) * H * (2 * D + 8) / (k_ms * 1e-3) / 1e9
+        rows.append(dict(q_pos=qp, err=err, ms=k_ms, plain_ms=p_ms))
+        log(f"[6] int8 cache q_pos={qp:5d} max_abs_err={err:.3e} "
+            f"kernel {k_ms * 1e3:8.2f} us ({r[1] * 1e3:.2f}/{r[2] * 1e3:.2f}) "
+            f"plain {p_ms * 1e3:9.2f} us ({r[0] * 1e3:.2f}/{r[3] * 1e3:.2f}) "
+            f"kernel {gbps:7.1f} GB/s = {100 * gbps * 1e9 / PEAK_HBM_BYTES_PER_S:.1f}% of 3.35 TB/s; "
+            f"K1 on a bf16 cache {k1_ms * 1e3:.2f} us")
+    del cache, c, kv16
+    headline = next(r for r in rows if r["q_pos"] == prompt_len + 287)
+    return dict(max_abs_err=max(r["err"] for r in rows),
+                ms=headline["ms"], plain_ms=headline["plain_ms"])
+
+
+def check_q8_prefill_cache(torch, pipe, cfg) -> float:
+    """K1-q8 on the int8 cache the quantized slice's prefill wrote."""
+    import torch.nn.functional as F
+
+    from plangen_tpu_torch.ops.decode_attention import (
+        prefix_decode_attention_q8, prefix_decode_attention_q8_reference,
+    )
+    from plangen_tpu_torch.runtime.generate import cache_length, prefill
+    from plangen_tpu_torch.runtime.kvcache import init_kv_cache
+
+    with torch.inference_mode():
+        prep = pipe.prepare_layout_to_image(CAPTIONS, GROUNDINGS, seeds=SEEDS)
+        B2, L0, _ = prep.embeds.shape
+        S = cache_length(L0, cfg.image_seq_len)
+        mask = F.pad(prep.cfg_mask, (0, S - prep.cfg_mask.shape[1])).contiguous()
+        cache = init_kv_cache(cfg.llama, B2, S, dtype=prep.embeds.dtype,
+                              device=prep.embeds.device, quantized=True)
+        prefill(pipe.model, prep.embeds, mask, cache)
+        c = (cache["k"], cache["k_scale"], cache["v"], cache["v_scale"])
+        q = torch.randn((B2, 1, cfg.llama.num_heads, cfg.llama.head_dim),
+                        generator=torch.Generator(device=mask.device).manual_seed(7),
+                        device=mask.device).to(prep.embeds.dtype)
+        err = 0.0
+        for qp in (L0 - 1, L0 + 287):
+            q_pos = torch.tensor([qp], dtype=torch.int32, device=mask.device)
+            for layer in (0, cfg.llama.num_layers - 1):
+                got = prefix_decode_attention_q8(q, *c, mask, layer, q_pos)
+                want = prefix_decode_attention_q8_reference(q, *c, mask, layer, q_pos)
+                err = max(err, (got.float() - want.float()).abs().max().item())
+    log(f"[7] K1-q8 on the int8 prefill cache (2B={B2}, L={L0}, S={S}): max abs err {err:.3e}")
+    check(err <= TOLERANCE["bfloat16"], f"K1-q8 on the prefill cache: err {err:.3e}")
+    return err
+
+
+def quantized_pipeline(torch, dev, quantize, model=None):
+    """A pipeline whose model (the given one, or a fresh seeded one) is
+    quantized in place at construction; prints the quantization time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe, cfg = build_pipeline(torch, dev, output_uint8=False, model=model, quantize=quantize)
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in pipe.model.buffers())
+    log(f"[7] {quantize}: model quantized in place in {time.perf_counter() - t0:.2f} s; "
+        f"buffers {nbytes / 2**30:.3f} GiB, parameters "
+        f"{sum(p.numel() * p.element_size() for p in pipe.model.parameters()) / 2**30:.3f} GiB")
+    return pipe, cfg
+
+
+def device_line(torch) -> dict:
+    """The last line: the run drives cuda:0 only, so it used one card,
+    whatever `torch.cuda.device_count()` says the machine shows."""
+    return {"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": 1,
+    }}
 
 
 def main() -> int:
@@ -326,26 +590,54 @@ def main() -> int:
     check_prefill_cache_and_decode_step(torch, pipe, cfg)
 
     torch.cuda.reset_peak_memory_stats()
-    launches = run_slice(torch, pipe, cfg, CAPTIONS, GROUNDINGS, SEEDS)
+    bf16 = run_slice(torch, pipe, cfg, CAPTIONS, GROUNDINGS, SEEDS)
     pipe_u8, _ = build_pipeline(torch, dev, output_uint8=True, model=pipe.model)
-    launches += run_slice(torch, pipe_u8, cfg, CAPTIONS[:1], GROUNDINGS[:1], SEEDS[:1])
+    bf16_1 = run_slice(torch, pipe_u8, cfg, CAPTIONS[:1], GROUNDINGS[:1], SEEDS[:1])
     log(f"[4] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {k: bf16[k] + bf16_1[k] for k in bf16}
+    del pipe_u8
 
+    int4 = phase_int4_vs_plain(torch, dev)
+    k1q8 = phase_k1_q8_vs_plain(torch, prompt_len, dev)
+
+    # the same seeded model, quantized in place (the bf16 phases are done)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qpipe, _ = quantized_pipeline(torch, dev, "int4", model=pipe.model)
+    del pipe
+    k1q8["max_abs_err"] = max(k1q8["max_abs_err"], check_q8_prefill_cache(torch, qpipe, cfg))
+    q4 = run_slice(torch, qpipe, cfg, CAPTIONS, GROUNDINGS, SEEDS)
+    log(f"[7] int4: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del qpipe
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    apipe, _ = quantized_pipeline(torch, dev, "int4_a8")
+    a8 = run_slice(torch, apipe, cfg, CAPTIONS[:1], GROUNDINGS[:1], SEEDS[:1])
+    log(f"[7] int4_a8: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in launches:
+        launches[name] += q4[name] + a8[name]
+
+    kernels = [
+        ("prefix_decode_attention", "prefix_decode_attention.cu",
+         "plangen_tpu/ops/pallas_decode_attention.py:31", k1),
+        ("prefix_decode_attention_q8", "prefix_decode_attention.cu",
+         "plangen_tpu/ops/pallas_decode_attention.py:31", k1q8),
+        ("int4_matmul_w16", "int4_matmul.cu",
+         "plangen_tpu/ops/pallas_int4_matmul.py:101", int4["K2"]),
+        ("int4_matmul_a8", "int4_matmul.cu",
+         "plangen_tpu/ops/pallas_int4_matmul.py:112", int4["K4"]),
+    ]
     log(json.dumps({"kernels": [{
-        "name": "prefix_decode_attention",
+        "name": name,
         "route": "cuda",
-        "source": "plangen_tpu_torch/csrc/prefix_decode_attention.cu",
-        "replaces": "plangen_tpu/ops/pallas_decode_attention.py:31",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+        "source": f"plangen_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": stats["max_abs_err"],
+        "ms": stats["ms"],
+        "plain_ms": stats["plain_ms"],
+    } for name, source, replaces, stats in kernels]}))
+    log(json.dumps(device_line(torch)))
     return 0
 
 

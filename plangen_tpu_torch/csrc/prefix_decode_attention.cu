@@ -30,6 +30,16 @@
 // q_pos is read from device memory so that a decode step captured in a CUDA
 // graph can advance it without rebuilding the launch.
 //
+// The int8 cache (K1-q8): the same kernel reads k/v int8 [L, B, S, H, D] with
+// fp32 scales k_scale/v_scale [L, B, S, H] (one per slot and head). It is
+// the port's counterpart of the XLA paths the JAX package takes over that
+// cache (plangen_tpu/ops/attention.py::segmented_decode_attention with int8
+// segments and ::dot_product_attention_q8), in their order: q is NOT
+// pre-scaled; logit = (q . k_q8) * k_scale * D^-0.5; each chunk's
+// probabilities are multiplied by v_scale and rounded to the query dtype
+// before the PV product with v_q8 in fp32. A slot then costs 2 * D + 8 bytes
+// against 4 * D in bf16, so a call reads about half of K1's bytes.
+//
 // Left for later work: split-KV across SMs (B * H = 128 blocks leave the card
 // under-filled at batch 8), cp.async/TMA staging of the chunks, and tuning for
 // B = 8.
@@ -37,6 +47,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,6 +61,16 @@ constexpr float kMasked = -1e30f;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+// int8 -> float without I2F (a quarter-rate conversion): the byte, offset
+// to unsigned, becomes the low mantissa bits of 2^23, and one exact FADD
+// removes 2^23 + 128. `word` holds 4 bytes; `i` picks one.
+__device__ __forceinline__ float s8_to_float(uint32_t word, int i) {
+  const uint32_t u = __byte_perm(word ^ 0x80808080u, 0x4B000000u, 0x7540 + i);
+  return __int_as_float(u) - 8388736.f;
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return s8_to_float((uint32_t)(uint8_t)x, 0);
 }
 
 template <typename T>
@@ -105,17 +128,22 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return r;
 }
 
-template <typename T, int D>
+// T: query / output dtype; C: cache dtype, T itself or int8_t (K1-q8, which
+// also reads the per-slot scales k_scale / v_scale [L, B, S, H]).
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kThreads)
     prefix_decode_attention_kernel(const T* __restrict__ q,  // [B, H, D]
-                                   const T* __restrict__ k,  // [L, B, S, H, D]
-                                   const T* __restrict__ v,  // [L, B, S, H, D]
+                                   const C* __restrict__ k,  // [L, B, S, H, D]
+                                   const C* __restrict__ v,  // [L, B, S, H, D]
+                                   const float* __restrict__ k_scale,  // q8
+                                   const float* __restrict__ v_scale,  // q8
                                    const int* __restrict__ mask,   // [B, S]
                                    const int* __restrict__ q_pos,  // [1]
                                    T* __restrict__ out,            // [B, H, D]
                                    int B, int S, int H, int layer,
                                    float scale) {
   static_assert(D % 32 == 0 && kThreads % D == 0, "unsupported head dim");
+  constexpr bool kQ8 = std::is_same<C, int8_t>::value;
   constexpr int kPerLane = D / 32;       // elements of a K row per lane
   constexpr int kGroups = kThreads / D;  // PV: slot groups per output dim
 
@@ -136,17 +164,21 @@ __global__ void __launch_bounds__(kThreads)
 
   const size_t slot_stride = (size_t)H * D;
   const size_t base = (((size_t)layer * B + b) * S * H + h) * D;
-  const T* kb = k + base;
-  const T* vb = v + base;
+  const C* kb = k + base;
+  const C* vb = v + base;
   const int* mb = mask + (size_t)b * S;
+  // q8 scales: slot t of this (layer, row, head) sits at sb + t * H
+  const size_t sb = ((size_t)layer * B + b) * S * H + h;
 
-  // this lane's slice of the scaled query, in fp32
+  // this lane's slice of the query in fp32; the dense cache pre-scales it
+  // (the TPU kernel's order), the int8 cache scales the logit instead
   float qr[kPerLane];
   {
     const Vec<T, kPerLane> qv = *reinterpret_cast<const Vec<T, kPerLane>*>(
         q + ((size_t)b * H + h) * D + lane * kPerLane);
 #pragma unroll
-    for (int e = 0; e < kPerLane; ++e) qr[e] = to_float(qv.v[e]) * scale;
+    for (int e = 0; e < kPerLane; ++e)
+      qr[e] = kQ8 ? to_float(qv.v[e]) : to_float(qv.v[e]) * scale;
   }
 
   float m_run = -INFINITY;  // running max (uniform over the block)
@@ -155,25 +187,40 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int c = 0; c < n_chunks; ++c) {
     const int start = c * kChunk;
+    const int t = start + tid;  // this thread's slot; t < S always
+
+    // the int8 cache's scales of slot t, loaded before the score loop so
+    // their latency hides behind it
+    float ks = 0.f, vs = 0.f;
+    if (kQ8) {
+      ks = k_scale[sb + (size_t)t * H];
+      vs = v_scale[sb + (size_t)t * H];
+    }
 
     // scores: warp w handles slots start + w*32 + j; lane j keeps slot j's
     float score = 0.f;
 #pragma unroll 8
     for (int j = 0; j < 32; ++j) {
-      const int t = start + warp * 32 + j;
+      const int tj = start + warp * 32 + j;
       float dot = 0.f;
-      if (t <= last) {  // uniform over the warp
-        const Vec<T, kPerLane> kv = *reinterpret_cast<const Vec<T, kPerLane>*>(
-            kb + (size_t)t * slot_stride + lane * kPerLane);
+      if (tj <= last) {  // uniform over the warp
+        const C* row = kb + (size_t)tj * slot_stride + lane * kPerLane;
+        if constexpr (kQ8 && kPerLane == 4) {  // 4 int8 as one 32-bit word
+          const uint32_t w4 = *reinterpret_cast<const uint32_t*>(row);
 #pragma unroll
-        for (int e = 0; e < kPerLane; ++e) dot += qr[e] * to_float(kv.v[e]);
+          for (int e = 0; e < 4; ++e) dot += qr[e] * s8_to_float(w4, e);
+        } else {
+          const Vec<C, kPerLane> kv = *reinterpret_cast<const Vec<C, kPerLane>*>(row);
+#pragma unroll
+          for (int e = 0; e < kPerLane; ++e) dot += qr[e] * to_float(kv.v[e]);
+        }
       }
       dot = warp_sum(dot);
       if (lane == j) score = dot;
     }
 
-    const int t = start + tid;
     const bool ok = t <= last && mb[t] > 0;
+    if (kQ8) score = score * ks * scale;
     const float s = ok ? score : kMasked;
 
     const float m_new = fmaxf(m_run, block_max(s, red));
@@ -181,7 +228,13 @@ __global__ void __launch_bounds__(kThreads)
     const float p = expf(s - m_new);
     l_run = l_run * alpha + block_sum(p, red);
     m_run = m_new;
-    p_sh[tid] = to_float(from_float<T>(p));  // rounded like p.astype(v.dtype)
+    if (kQ8) {
+      // p * v_scale rounded like (p * v_scale).astype(q.dtype); p is 0 at
+      // the dead slots after `last`
+      p_sh[tid] = to_float(from_float<T>(p * vs));
+    } else {
+      p_sh[tid] = to_float(from_float<T>(p));  // rounded like p.astype(v.dtype)
+    }
     __syncthreads();
 
     const int n_live = min(kChunk, last - start + 1);
@@ -205,38 +258,61 @@ __global__ void __launch_bounds__(kThreads)
     out[((size_t)b * H + h) * D + d] = from_float<T>(acc / fmaxf(l_run, 1e-30f));
 }
 
-template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, const int* mask,
-            const int* q_pos, void* out, int B, int S, int H, int layer,
-            float scale, cudaStream_t stream) {
-  prefix_decode_attention_kernel<T, D><<<B * H, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, q_pos, static_cast<T*>(out), B, S, H,
-      layer, scale);
+template <typename T, typename C, int D>
+void launch(const void* q, const void* k, const void* v, const float* k_scale,
+            const float* v_scale, const int* mask, const int* q_pos, void* out,
+            int B, int S, int H, int layer, float scale, cudaStream_t stream) {
+  prefix_decode_attention_kernel<T, C, D><<<B * H, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const C*>(k),
+      static_cast<const C*>(v), k_scale, v_scale, mask, q_pos,
+      static_cast<T*>(out), B, S, H, layer, scale);
+}
+
+// cache dtype C = T (dense) or int8_t (K1-q8); T by `dtype`, D by `D`
+template <bool kQ8>
+int dispatch(const void* q, const void* k, const void* v, const float* k_scale,
+             const float* v_scale, const int* mask, const int* q_pos, void* out,
+             int B, int S, int H, int D, int layer, float scale, int dtype,
+             void* stream) {
+  using Bf = __nv_bfloat16;
+  using CBf = typename std::conditional<kQ8, int8_t, Bf>::type;
+  using CF = typename std::conditional<kQ8, int8_t, float>::type;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 128)
+    launch<Bf, CBf, 128>(q, k, v, k_scale, v_scale, mask, q_pos, out, B, S, H, layer, scale, st);
+  else if (dtype == 1 && D == 64)
+    launch<Bf, CBf, 64>(q, k, v, k_scale, v_scale, mask, q_pos, out, B, S, H, layer, scale, st);
+  else if (dtype == 0 && D == 128)
+    launch<float, CF, 128>(q, k, v, k_scale, v_scale, mask, q_pos, out, B, S, H, layer, scale, st);
+  else if (dtype == 0 && D == 64)
+    launch<float, CF, 64>(q, k, v, k_scale, v_scale, mask, q_pos, out, B, S, H, layer, scale, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. Every pointer is device memory;
+// Plain C entry points, loaded with ctypes. Every pointer is device memory;
 // the arrays are contiguous: q/out [B, H, D], k/v [L, B, S, H, D], mask
-// [B, S] int32, q_pos one int32. dtype: 0 = float32, 1 = bfloat16.
-// Returns cudaGetLastError() after the launch (0 = success).
+// [B, S] int32, q_pos one int32. dtype (of q, out and the dense cache):
+// 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch
+// (0 = success).
 extern "C" int plangen_prefix_decode_attention(const void* q, const void* k,
                                                const void* v, const int* mask,
                                                const int* q_pos, void* out,
                                                int B, int S, int H, int D,
                                                int layer, float scale,
                                                int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128)
-    launch<__nv_bfloat16, 128>(q, k, v, mask, q_pos, out, B, S, H, layer, scale, st);
-  else if (dtype == 1 && D == 64)
-    launch<__nv_bfloat16, 64>(q, k, v, mask, q_pos, out, B, S, H, layer, scale, st);
-  else if (dtype == 0 && D == 128)
-    launch<float, 128>(q, k, v, mask, q_pos, out, B, S, H, layer, scale, st);
-  else if (dtype == 0 && D == 64)
-    launch<float, 64>(q, k, v, mask, q_pos, out, B, S, H, layer, scale, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, k, v, nullptr, nullptr, mask, q_pos, out, B, S, H,
+                         D, layer, scale, dtype, stream);
+}
+
+// K1-q8: k/v int8 [L, B, S, H, D], k_scale/v_scale fp32 [L, B, S, H].
+extern "C" int plangen_prefix_decode_attention_q8(
+    const void* q, const void* k, const float* k_scale, const void* v,
+    const float* v_scale, const int* mask, const int* q_pos, void* out, int B,
+    int S, int H, int D, int layer, float scale, int dtype, void* stream) {
+  return dispatch<true>(q, k, v, k_scale, v_scale, mask, q_pos, out, B, S, H,
+                        D, layer, scale, dtype, stream);
 }

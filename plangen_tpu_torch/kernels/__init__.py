@@ -3,7 +3,8 @@
 from plangen_tpu_torch.kernels.build import (
     BuiltLibrary,
     KernelBuildError,
+    load_libraries,
     load_library,
 )
 
-__all__ = ["BuiltLibrary", "KernelBuildError", "load_library"]
+__all__ = ["BuiltLibrary", "KernelBuildError", "load_libraries", "load_library"]

@@ -21,7 +21,9 @@ import pathlib
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from typing import Dict, Sequence
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -113,3 +115,10 @@ def load_library(name: str) -> BuiltLibrary:
     """Build (if needed) and load the kernel library `name`, once a process."""
     path, log, seconds = compile_library(name)
     return BuiltLibrary(ctypes.CDLL(str(path)), path, log, seconds)
+
+
+def load_libraries(names: Sequence[str]) -> Dict[str, BuiltLibrary]:
+    """Build and load several kernel libraries, one nvcc per source, all
+    started together (each build waits on its own subprocess)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load_library, names)))

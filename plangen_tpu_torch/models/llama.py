@@ -16,7 +16,14 @@ cache buffer with a causal + pad bias, as the JAX package's XLA branch does;
 a decode step (Q == 1) writes its row and reads the live prefix through the
 prefix decode-attention kernel. The JAX package's `growing_cache` and
 `paged` options are two read strategies of this one function, so the port
-has no branch for them.
+has no branch for them. With the int8 cache (`k_scale` in the cache) the
+rows are written quantized (`quantize_kv`), prefill attends over the
+quantized K/V it has just written (`dot_product_attention_q8`), and a decode
+step reads through the int8-cache kernel K1-q8.
+
+`ops/quant.py::quantize_model_` may replace the projections by quantized
+modules, with same-input projections fused (`qkv_proj`, `k_v_proj`,
+`gate_up_proj`); the layer slices the fused outputs as the JAX layer does.
 """
 
 from __future__ import annotations
@@ -28,8 +35,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from plangen_tpu.config import LlamaConfig
-from plangen_tpu_torch.ops.attention import dot_product_attention, make_causal_bias
-from plangen_tpu_torch.ops.decode_attention import prefix_decode_attention
+from plangen_tpu_torch.ops.attention import (
+    dot_product_attention, dot_product_attention_q8, make_causal_bias, quantize_kv,
+)
+from plangen_tpu_torch.ops.decode_attention import (
+    prefix_decode_attention, prefix_decode_attention_q8,
+)
 
 KVCache = Dict[str, torch.Tensor]
 
@@ -86,7 +97,13 @@ class LlamaMLP(nn.Module):
         self.down_proj = _linear(i, h, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if hasattr(self, "gate_up_proj"):  # fused int4 pair
+            gu = self.gate_up_proj(x)
+            half = gu.shape[-1] // 2
+            gate, up = F.silu(gu[..., :half]), gu[..., half:]
+        else:
+            gate, up = F.silu(self.gate_proj(x)), self.up_proj(x)
+        return self.down_proj(gate * up)
 
 
 class LlamaAttention(nn.Module):
@@ -97,6 +114,19 @@ class LlamaAttention(nn.Module):
         self.k_proj = _linear(h, cfg.kv_dim, dtype, device)
         self.v_proj = _linear(h, cfg.kv_dim, dtype, device)
         self.o_proj = _linear(cfg.q_dim, h, dtype, device)
+
+    def qkv(self, x: torch.Tensor, cfg: LlamaConfig):
+        """Flat q, k, v projections of x, from the split or fused modules."""
+        if hasattr(self, "qkv_proj"):  # fused int4 triple (MHA)
+            qkv = self.qkv_proj(x)
+            qd, kd = cfg.q_dim, cfg.kv_dim
+            return qkv[..., :qd], qkv[..., qd:qd + kd], qkv[..., qd + kd:]
+        q = self.q_proj(x)
+        if hasattr(self, "k_v_proj"):  # GQA: only k|v fuse
+            kv = self.k_v_proj(x)
+            kd = kv.shape[-1] // 2
+            return q, kv[..., :kd], kv[..., kd:]
+        return q, self.k_proj(x), self.v_proj(x)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -125,13 +155,16 @@ class LlamaDecoderLayer(nn.Module):
         B, Q, _ = x.shape
         attn_in = self.input_layernorm(x)
         sa = self.self_attn
-        q = sa.q_proj(attn_in).reshape(B, Q, cfg.num_heads, cfg.head_dim)
-        k = sa.k_proj(attn_in).reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
-        v = sa.v_proj(attn_in).reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
+        q, k, v = sa.qkv(attn_in, cfg)
+        q = q.reshape(B, Q, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if cache is None:
             attn = dot_product_attention(q, k, v, bias=bias)
+        elif "k_scale" in cache:
+            attn = self._attend_q8(q, k, v, bias, positions, attn_mask, cache, layer_idx)
         else:
             # in-place row writes at the absolute positions; index_copy_ takes
             # the device tensor, so no host sync and no cache copy
@@ -147,6 +180,23 @@ class LlamaDecoderLayer(nn.Module):
                 attn = dot_product_attention(q, k_layer, v_layer, bias=bias)
         x = x + sa.o_proj(attn.reshape(B, Q, cfg.q_dim))
         return x + self.mlp(self.post_attention_layernorm(x))
+
+    @staticmethod
+    def _attend_q8(q, k, v, bias, positions, attn_mask, cache, layer_idx):
+        """Write the quantized rows into the int8 cache, then attend over it
+        (prefill reads the quantized K/V it has just written, as JAX does)."""
+        k_q8, k_s, v_q8, v_s = quantize_kv(k, v)
+        write_idx = positions.long()
+        names = ("k", "k_scale", "v", "v_scale")
+        for name, rows in zip(names, (k_q8, k_s, v_q8, v_s)):
+            cache[name][layer_idx].index_copy_(1, write_idx, rows)
+        if q.shape[1] == 1:
+            return prefix_decode_attention_q8(
+                q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
+                attn_mask, layer_idx, positions,
+            )
+        k_l, ks_l, v_l, vs_l = (cache[name][layer_idx] for name in names)
+        return dot_product_attention_q8(q, k_l, ks_l, v_l, vs_l, bias=bias)
 
 
 class LlamaModel(nn.Module):

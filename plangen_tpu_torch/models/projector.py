@@ -4,6 +4,8 @@ Port of `plangen_tpu/models/projector.py`: `forward` is `MlpProjector`,
 `gen_head_forward` is `GenHead`. Module names follow HF Janus
 (`layers.{0,2}` of an `nn.Sequential` with the GELU at index 1;
 `output_mlp_projector` / `vision_head`). GELU is the exact (erf) form.
+Under a quantized serving mode `vision_head` (fc2) is an `Int8Linear` or
+`Int4Linear` carrying the dense bias (`ops/quant.py`); the logits stay fp32.
 """
 
 from __future__ import annotations

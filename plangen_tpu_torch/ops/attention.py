@@ -1,14 +1,15 @@
 """Attention primitives in plain PyTorch.
 
 Port of `plangen_tpu/ops/attention.py`: `dot_product_attention` (einsum with
-an fp32 softmax) and `make_causal_bias`. Prefill runs through these, as it
-runs through plain XLA in the JAX package; decode steps go to the prefix
-kernel in `ops/decode_attention.py`.
+an fp32 softmax), `make_causal_bias`, and for the int8 KV cache `quantize_kv`
+and `dot_product_attention_q8` (without the TPU-only `a8` option). Prefill
+runs through these, as it runs through plain XLA in the JAX package; decode
+steps go to the prefix kernels in `ops/decode_attention.py`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,3 +58,51 @@ def make_causal_bias(
     zero = torch.zeros((), dtype=torch.float32, device=pad_mask.device)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=pad_mask.device)
     return torch.where(allowed, zero, neg)[:, None]
+
+
+def dot_product_attention_q8(
+    q: torch.Tensor,  # [B, Q, H, D]
+    k_q8: torch.Tensor,  # [B, S, Hkv, D] int8
+    k_scale: torch.Tensor,  # [B, S, Hkv] fp32
+    v_q8: torch.Tensor,  # [B, S, Hkv, D] int8
+    v_scale: torch.Tensor,  # [B, S, Hkv] fp32
+    bias: Optional[torch.Tensor] = None,  # [B, 1|H, Q, S] additive
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention over an int8 KV cache with per-(position, head) scales.
+
+    The scales fold into the softmax instead of dequantizing K/V:
+    logits = (q . k_q8) * k_scale * scale + bias in fp32, then
+    out = ((softmax * v_scale) in q.dtype) . v_q8 with fp32 accumulation."""
+    B, Q, H, D = q.shape
+    Hkv = k_q8.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    if Hkv != H:
+        rep = H // Hkv
+        k_q8, v_q8 = k_q8.repeat_interleave(rep, 2), v_q8.repeat_interleave(rep, 2)
+        k_scale = k_scale.repeat_interleave(rep, 2)
+        v_scale = v_scale.repeat_interleave(rep, 2)
+    logits = torch.einsum("bqhd,bshd->bhqs", q.float(), k_q8.float())
+    logits = logits * k_scale.transpose(1, 2)[:, :, None, :]  # [B, H, 1, S]
+    logits = logits * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1) * v_scale.transpose(1, 2)[:, :, None, :]
+    out = torch.einsum("bhqs,bshd->bqhd", probs.to(q.dtype).float(), v_q8.float())
+    return out.to(q.dtype)
+
+
+def quantize_kv(
+    k: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of K/V rows, one scale per (batch,
+    position, head) over D: (k_q8, k_scale, v_q8, v_scale), scales fp32."""
+
+    # k and v in one pass: every op below is elementwise or per row, so
+    # stacking them changes no value and halves the launches of a step
+    xf = torch.stack([k, v]).float()
+    absmax = xf.abs().amax(dim=-1)
+    s = torch.where(absmax > 0, absmax / 127.0, 1.0)
+    q = torch.round(xf / s[..., None]).clamp_(-127, 127).to(torch.int8)
+    return q[0], s[0], q[1], s[1]

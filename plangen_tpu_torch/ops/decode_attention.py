@@ -10,9 +10,15 @@ buffer and the layer index and query position select what is read.
   * On a CPU tensor it runs `prefix_decode_attention_reference`, the plain
     version of the same math over the masked full buffer.
 
-`prefix_decode_attention.launches` counts kernel launches and
-`prefix_decode_attention_reference.calls` counts plain-version calls, so a
-run can show which one carried it.
+`prefix_decode_attention_q8` is the same read over the int8 cache (K1-q8):
+k/v int8 [L, B, S, H, D] with fp32 scales [L, B, S, H], in the order of the
+JAX package's XLA paths over that cache (`dot_product_attention_q8`,
+`segmented_decode_attention`): the logits take `k_scale` and then the
+softmax scale, and each chunk's probabilities take `v_scale` before they
+are rounded to the query dtype.
+
+`<wrapper>.launches` counts kernel launches and `<plain>.calls` counts
+plain-version calls, so a run can show which one carried it.
 """
 
 from __future__ import annotations
@@ -106,8 +112,8 @@ def _kernel_fn():
     return fn
 
 
-def _launch_kernel(q, k_cache, v_cache, pad_mask, layer, q_pos, scale):
-    L, B, S, H, D = k_cache.shape
+def _check_cuda_common(q, pad_mask, q_pos, D, tensors) -> None:
+    """What both CUDA kernels need beyond the shapes."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, not {q.dtype}")
     if D not in _HEAD_DIMS:
@@ -120,18 +126,20 @@ def _launch_kernel(q, k_cache, v_cache, pad_mask, layer, q_pos, scale):
             "q_pos must be a one-element int32 CUDA tensor (the kernel reads "
             "it from device memory)"
         )
-    tensors = (q, k_cache, v_cache, pad_mask, q_pos)
     if any(t.device != q.device for t in tensors):
         raise ValueError("all inputs must be on the same CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
-
     if q.device.index != torch.cuda.current_device():
         raise ValueError(
             f"inputs on {q.device} but the current device is "
             f"cuda:{torch.cuda.current_device()}"
         )
 
+
+def _launch_kernel(q, k_cache, v_cache, pad_mask, layer, q_pos, scale):
+    L, B, S, H, D = k_cache.shape
+    _check_cuda_common(q, pad_mask, q_pos, D, (q, k_cache, v_cache, pad_mask, q_pos))
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     err = _kernel_fn()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -174,3 +182,126 @@ def prefix_decode_attention(
 
 
 prefix_decode_attention.launches = 0
+
+
+# ------------------------------------------------------ the int8 cache (K1-q8)
+
+
+def prefix_decode_attention_q8_reference(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_q8: torch.Tensor,  # [L, B, S, H, D] int8
+    k_scale: torch.Tensor,  # [L, B, S, H] fp32
+    v_q8: torch.Tensor,
+    v_scale: torch.Tensor,
+    pad_mask: torch.Tensor,  # [B, S]
+    layer: int,
+    q_pos: Union[int, torch.Tensor],
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1-q8 over the masked full buffer.
+
+    logit = (q . k_q8) * k_scale * scale in fp32 (q not pre-scaled); masked
+    slots get NEG_INF; the probabilities (fp32, not normalized) are
+    multiplied by v_scale and rounded to q.dtype before the PV product with
+    v_q8; the output is acc / max(l, 1e-30) in q.dtype."""
+    prefix_decode_attention_q8_reference.calls += 1
+    D = q.shape[-1]
+    S = k_q8.shape[2]
+    if scale is None:
+        scale = D ** -0.5
+    s = torch.einsum("bhd,bshd->bhs", q[:, 0].float(), k_q8[layer].float())
+    s = s * k_scale[layer].transpose(1, 2) * scale
+    slots = torch.arange(S, device=q.device)
+    ok = (pad_mask[:, None, :] > 0) & (slots <= q_pos)[None, None, :]
+    s = torch.where(ok, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l_sum = p.sum(dim=-1, keepdim=True)
+    pv = (p * v_scale[layer].transpose(1, 2)).to(q.dtype).float()
+    out = torch.einsum("bhs,bshd->bhd", pv, v_q8[layer].float())
+    return (out / l_sum.clamp_min(1e-30)).to(q.dtype)[:, None]
+
+
+prefix_decode_attention_q8_reference.calls = 0
+
+
+def _check_q8_inputs(q, k_q8, k_scale, v_q8, v_scale, pad_mask, layer) -> None:
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be [B, 1, H, D], got {tuple(q.shape)}")
+    if k_q8.dim() != 5 or k_q8.shape != v_q8.shape:
+        raise ValueError(
+            "k_q8 and v_q8 must both be [L, B, S, H, D], got "
+            f"{tuple(k_q8.shape)} and {tuple(v_q8.shape)}"
+        )
+    L, B, S, H, D = k_q8.shape
+    if tuple(q.shape) != (B, 1, H, D):
+        raise ValueError(
+            f"q {tuple(q.shape)} does not match the cache {tuple(k_q8.shape)}"
+            " (the kernel assumes MHA: as many KV heads as query heads)"
+        )
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(sc.shape) != (L, B, S, H) or sc.dtype != torch.float32:
+            raise ValueError(f"{name} must be fp32 [{L}, {B}, {S}, {H}], got "
+                             f"{sc.dtype} {tuple(sc.shape)}")
+    if k_q8.dtype != torch.int8 or v_q8.dtype != torch.int8:
+        raise TypeError(f"k_q8 and v_q8 must be int8, got {k_q8.dtype}, {v_q8.dtype}")
+    if S % CHUNK:
+        raise ValueError(f"prefix decode attention needs S ({S}) % {CHUNK} == 0")
+    if tuple(pad_mask.shape) != (B, S):
+        raise ValueError(f"pad_mask must be [{B}, {S}], got {tuple(pad_mask.shape)}")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"layer {layer} out of range for {L} cached layers")
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn_q8():
+    from plangen_tpu_torch.kernels import load_library
+
+    fn = load_library(KERNEL_NAME).lib.plangen_prefix_decode_attention_q8
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def prefix_decode_attention_q8(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_q8: torch.Tensor,  # [L, B, S, H, D] int8
+    k_scale: torch.Tensor,  # [L, B, S, H] fp32
+    v_q8: torch.Tensor,
+    v_scale: torch.Tensor,
+    pad_mask: torch.Tensor,  # [B, S]
+    layer: int,
+    q_pos: Union[int, torch.Tensor],  # one-element int32 tensor on the card
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-step decode attention over layer `layer`'s live int8 cache
+    prefix (K1-q8). Requirements as `prefix_decode_attention`, with int8 k/v
+    and fp32 scales; CPU inputs run the plain version."""
+    _check_q8_inputs(q, k_q8, k_scale, v_q8, v_scale, pad_mask, layer)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return prefix_decode_attention_q8_reference(
+            q, k_q8, k_scale, v_q8, v_scale, pad_mask, layer, q_pos, scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"no prefix decode attention for device {q.device}")
+    L, B, S, H, D = k_q8.shape
+    _check_cuda_common(q, pad_mask, q_pos, D,
+                       (q, k_q8, k_scale, v_q8, v_scale, pad_mask, q_pos))
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    err = _kernel_fn_q8()(
+        q.data_ptr(), k_q8.data_ptr(), k_scale.data_ptr(), v_q8.data_ptr(),
+        v_scale.data_ptr(), pad_mask.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        B, S, H, D, int(layer), float(scale), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"prefix_decode_attention_q8 kernel launch failed: "
+                           f"cudaError {err}")
+    prefix_decode_attention_q8.launches += 1
+    return out
+
+
+prefix_decode_attention_q8.launches = 0

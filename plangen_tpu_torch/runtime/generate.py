@@ -15,6 +15,11 @@ step that writes and attends at position `L + i`. The last step's hidden
 state is unused, as in the JAX loop, so a generation makes exactly
 `num_tokens * num_layers` decode-attention calls.
 
+With `quantized_cache` the cache is the int8 layout of `runtime/kvcache.py`
+(the JAX package's `quantized_cache=True`, which every quantized serving
+mode sets): prefill writes quantized rows and attends over them, and each
+decode step reads through the int8-cache kernel K1-q8.
+
 The loop is plain Python over eager ops; capturing a step in a CUDA graph
 is later work.
 """
@@ -68,6 +73,7 @@ def generate_image_tokens(
     gt_tokens: Optional[torch.Tensor] = None,  # [B, num_tokens] forced ids
     regen_mask: Optional[torch.Tensor] = None,  # [B, num_tokens] 1 = sample
     num_tokens: int = 576,
+    quantized_cache: bool = False,  # int8 KV cache with fp32 scales
 ) -> torch.Tensor:
     """Prefill + `num_tokens` KV-cached CFG decode steps; [B, N] int64 ids."""
     B2, L, _ = cfg_embeds.shape
@@ -88,7 +94,8 @@ def generate_image_tokens(
     S = cache_length(L, num_tokens)
     mask = torch.as_tensor(attn_mask, device=device).to(torch.int32)
     mask = F.pad(mask, (0, S - mask.shape[1])).contiguous()  # zero tail
-    cache = init_kv_cache(cfg.llama, B2, S, dtype=cfg_embeds.dtype, device=device)
+    cache = init_kv_cache(cfg.llama, B2, S, dtype=cfg_embeds.dtype, device=device,
+                          quantized=quantized_cache)
     last_hidden = prefill(model, cfg_embeds, mask, cache)
 
     positions = torch.arange(L, L + num_tokens, dtype=torch.int32, device=device)

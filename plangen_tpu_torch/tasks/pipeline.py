@@ -6,15 +6,24 @@ Port of `plangen_tpu/tasks/pipeline.py`: `PlanGenPipeline` with
 (copied to `tasks/processor.py`); the device work is the embed, the decode
 loop of `runtime/generate.py` and the VQ decode.
 
+Quantized serving (`GenerationConfig.quantize`): 'int8', 'int4' and
+'int4_a8' quantize the model's matmuls in place at construction
+(`ops/quant.py::quantize_model_`, the counterpart of `tasks/eval.py::
+_apply_quantize`); 'int8_kv' keeps bf16 weights. All four decode over the
+int8 KV cache. A model that is already quantized keeps its form: with
+`quantize=None` the pipeline engages that form and the int8 cache, and any
+other mode raises, as the JAX package does.
+
 Options the port does not have yet raise `NotImplementedError` instead of
-being ignored: `GenerationConfig.quantize`, `kv_a8`, `speculative`,
-`fast_edit`, `jacobi`, and teacher forcing from `gt_images` / `edit_region`
-(it needs the VQ encoder). `growing_cache` needs no branch: both of its values compute the
-same function, which the port's fixed cache and prefix kernel compute.
+being ignored: `quantize='auto'`, `kv_a8`, `speculative`, `fast_edit`,
+`jacobi`, and teacher forcing from `gt_images` / `edit_region` (it needs the
+VQ encoder). `growing_cache` needs no branch: both of its values compute the
+same function, which the port's fixed cache and prefix kernels compute.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -23,6 +32,7 @@ import torch
 
 from plangen_tpu.config import GenerationConfig, PlanGenModelConfig
 from plangen_tpu_torch.models.vlm import PlanGenModel
+from plangen_tpu_torch.ops.quant import MODES, quant_form, quantize_model_
 from plangen_tpu_torch.ops.sampling import Generators
 from plangen_tpu_torch.runtime.generate import generate_image_tokens
 from plangen_tpu_torch.tasks.processor import PlanGenProcessor
@@ -30,7 +40,7 @@ from plangen_tpu_torch.tasks.processor import PlanGenProcessor
 
 def _unsupported_options(gen: GenerationConfig) -> List[str]:
     names = []
-    if gen.quantize is not None:
+    if gen.quantize not in (None,) + MODES:
         names.append(f"quantize={gen.quantize!r}")
     for flag in ("kv_a8", "speculative", "fast_edit", "jacobi"):
         if getattr(gen, flag):
@@ -85,16 +95,35 @@ class PlanGenPipeline:
         self.model = model
         self.cfg = model_cfg
         self.proc = processor
-        self.gen = gen_cfg or processor.gen
-        unsupported = _unsupported_options(self.gen)
+        gen = gen_cfg or processor.gen
+        unsupported = _unsupported_options(gen)
         if unsupported:
             raise NotImplementedError(
                 "plangen_tpu_torch does not implement "
                 + ", ".join(unsupported) + " yet"
             )
+        have = quant_form(model)
+        if have is None:
+            if gen.quantize is not None:
+                quantize_model_(model, gen.quantize)
+        elif gen.quantize is None:
+            # a quantized model engages its own serving form, int8 cache
+            # included, rather than running with a dense cache
+            gen = dataclasses.replace(gen, quantize=have)
+        elif gen.quantize != have:
+            raise ValueError(
+                f"the model is already {have}-quantized but "
+                f"GenerationConfig.quantize={gen.quantize!r}"
+            )
+        self.gen = gen
         self.device = model.language_model.model.embed_tokens.weight.device
         # the image-token grid is the VQ downsampling of the image (24 at 384px)
         self.grid = model_cfg.vision.image_size // model_cfg.vq.downsample_factor
+
+    @property
+    def _quantized_cache(self) -> bool:
+        """Every quantized serving mode decodes over the int8 KV cache."""
+        return self.gen.quantize in MODES
 
     @torch.inference_mode()
     def _detokenize(self, tokens: torch.Tensor) -> np.ndarray:
@@ -183,6 +212,7 @@ class PlanGenPipeline:
             cfg_weight=self.gen.cfg_weight,
             temperature=self.gen.temperature,
             num_tokens=self.cfg.image_seq_len,
+            quantized_cache=self._quantized_cache,
         )
         return GenerationOutput(
             images=self._detokenize(tokens),

@@ -230,7 +230,7 @@ def test_sampled_layout_to_image_is_reproducible_per_seed():
 
 
 @pytest.mark.parametrize("option", [
-    dict(quantize="int4"), dict(speculative=True), dict(kv_a8=True, quantize="int8"),
+    dict(quantize="auto"), dict(speculative=True), dict(kv_a8=True, quantize="int8"),
     dict(fast_edit=True), dict(jacobi=True),
 ], ids=["quantize", "speculative", "kv_a8", "fast_edit", "jacobi"])
 def test_unported_options_raise(option):

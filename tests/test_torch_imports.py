@@ -16,7 +16,8 @@ def test_port_never_imports_jax():
 
     names = [m.name for m in pkgutil.walk_packages(
         plangen_tpu_torch.__path__, prefix="plangen_tpu_torch.")]
-    assert "plangen_tpu_torch.ops.decode_attention" in names
+    for name in ("ops.decode_attention", "ops.int4_matmul", "ops.quant"):
+        assert "plangen_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"
         f"for name in {['plangen_tpu_torch'] + names!r}:\n"
@@ -48,3 +49,34 @@ def test_chip_smoke_never_imports_jax_and_needs_a_card():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_last_line_counts_the_card_it_used():
+    """The run drives cuda:0 only: the last line says one card, whatever
+    `torch.cuda.device_count()` reports on the machine."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+
+    class FakeCuda:
+        count = 4
+
+        @staticmethod
+        def get_device_name(index):
+            assert index == 0
+            return "NVIDIA H100 80GB HBM3"
+
+        @classmethod
+        def device_count(cls):
+            return cls.count
+
+    class FakeTorch:
+        cuda = FakeCuda
+
+    for count in (1, 4, 8):
+        FakeCuda.count = count
+        line = chip_smoke.device_line(FakeTorch)
+        assert line == {"ok": True, "device": {
+            "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
