@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run plangen_tpu_torch's layout-to-image path once on one NVIDIA card.
+"""Run plangen_tpu_torch's layout-to-image and training paths once on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,20 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      `int4`, K1-q8 checked on the int8 cache its prefill wrote, then
      `layout_to_image` on the 4 requests; a fresh seeded model quantized to
      `int4_a8` on 1 request. Every decode-step projection goes through K2
-     (or K4), every decode attention through K1-q8, no plain version runs.
+     (or K4), every decode attention through K1-q8, no plain version runs;
+  8. K3 (flash attention, forward and backward) vs its plain version at the
+     training shapes: causal left-padded [3, 736, 16, 128], causal
+     [3, 1024, 16, 128], non-causal [3, 576, 16, 64], bf16 and fp32, every
+     row and every gradient; device times taken in turns;
+  9. the training slice: the `Trainer` at Janus-Pro-1B width (seeded random
+     fp32 masters, bf16 compute, stage3, the recipe's uni 3 / mmu 3 / plan 2
+     flows on the `toy` data, use_flash_attention) takes 7 steps of its own
+     loop (the body of `Trainer.fit`, without the final save of ~24 GB of
+     state); step-0 losses and gradient norm held against the plain
+     attention path; every step's K3 calls counted (24 SigLIP + 3 x 24 LLaMA
+     layers, forward and backward, no plain call); the VQ left bit-for-bit
+     unchanged, every trainable tensor changed, the loss falling; s/step,
+     tokens/s, peak memory and the model-FLOPs share printed.
 
 The last two lines are a JSON object describing the kernels and
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
@@ -44,7 +58,7 @@ import time
 PEAK_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KERNEL_SHAPE = dict(L=24, B=8, S=1024, H=16, D=128)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
-KERNEL_SOURCES = ("prefix_decode_attention", "int4_matmul")
+KERNEL_SOURCES = ("prefix_decode_attention", "int4_matmul", "flash_attention")
 # (name, I, O) of the int4 matmuls of a Janus-Pro-1B decode step
 INT4_SHAPES = (("qkv_proj", 2048, 6144), ("o_proj", 2048, 2048),
                ("gate_up_proj", 2048, 11264), ("down_proj", 5632, 2048),
@@ -70,6 +84,16 @@ GROUNDINGS = [
     "<ref>cliff</ref><box>[0, 620, 1000, 1000]</box></grounding>",
 ]
 SEEDS = [11, 22, 33, 44]
+# K3 at the training shapes: (label, B, S, H, D, causal, left pads per row)
+FLASH_CASES = (
+    ("uni LLaMA", 3, 736, 16, 128, True, (5, 37, 100)),
+    ("mmu LLaMA", 3, 1024, 16, 128, True, (0, 0, 0)),
+    ("SigLIP", 3, 576, 16, 64, False, (0, 0, 0)),
+)
+FLASH_TOLERANCE = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}  # (out, grads)
+TRAIN_STEPS = 7  # step 0 and 6 more: step 6's loss is the loss after 6 updates
+TRAIN_REL_TOL = 2e-2  # step 0, K3 vs the plain attention path
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 data sheet
 
 
 class SmokeFailure(RuntimeError):
@@ -289,6 +313,7 @@ def check_prefill_cache_and_decode_step(torch, pipe, cfg, step_tol=None) -> None
 def kernel_counters():
     """{kernel name: (wrapper, its plain version)} of every kernel."""
     from plangen_tpu_torch.ops import decode_attention as da
+    from plangen_tpu_torch.ops import flash_attention as fa
     from plangen_tpu_torch.ops import int4_matmul as im
 
     return {
@@ -298,7 +323,15 @@ def kernel_counters():
                                        da.prefix_decode_attention_q8_reference),
         "int4_matmul_w16": (im.int4_matmul_w16, im.int4_matmul_w16_reference),
         "int4_matmul_a8": (im.int4_matmul_w4a8, im.int4_matmul_w4a8_reference),
+        "flash_attention_fwd": (fa.flash_attention_fwd, fa.flash_attention_reference),
+        "flash_attention_bwd": (fa.flash_attention_bwd, fa.flash_attention_reference),
     }
+
+
+def reset_counters(counters) -> None:
+    for wrapper, plain in counters.values():
+        wrapper.launches = 0
+        plain.calls = 0
 
 
 def expected_launches(cfg, quantize, n_rows: int, prompt_len: int) -> dict:
@@ -330,9 +363,7 @@ def run_slice(torch, pipe, cfg, captions, groundings, seeds):
     prompt_len = pipe.proc.cfg_batch(ids, mask)[0].shape[1]
     sync = torch.cuda.synchronize if pipe.device.type == "cuda" else (lambda: None)
     sync()
-    for wrapper, plain in counters.values():
-        wrapper.launches = 0
-        plain.calls = 0
+    reset_counters(counters)
     t0 = time.perf_counter()
     out = pipe.layout_to_image(captions, groundings, seeds=seeds)
     sync()
@@ -549,6 +580,225 @@ def quantized_pipeline(torch, dev, quantize, model=None):
     return pipe, cfg
 
 
+def _within(got, want, tol: float) -> bool:
+    return bool(((got.float() - want.float()).abs() <= tol + tol * want.float().abs()).all())
+
+
+def phase_flash_vs_plain(torch, dev) -> dict:
+    """K3 forward and backward against the plain version (autograd through
+    the bias path) at the training shapes; every row is compared, those with
+    no allowed key included. bf16 device times, taken in turns."""
+    from plangen_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    stats = {"fwd": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0),
+             "bwd": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol_out, tol_grad = FLASH_TOLERANCE[name]
+        for label, B, S, H, D, causal, pads in FLASH_CASES:
+            q, k, v, dout = (torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+                             for _ in range(4))
+            mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+            for r, pad in enumerate(pads):
+                mask[r, :pad] = 0
+            mine = [t.clone().requires_grad_() for t in (q, k, v)]
+            plain = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fa.flash_attention(*mine, mask, causal=causal)
+            out.backward(dout)
+            want = fa.flash_attention_reference(*plain, mask, causal=causal)
+            want.backward(dout)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out).all()), f"K3 {label} {name}: non-finite output")
+            err_f = (out.float() - want.float()).abs().max().item()
+            check(_within(out, want, tol_out), f"K3 {label} {name}: output err {err_f:.3e}")
+            err_b = 0.0
+            for g, a, b in zip("qkv", mine, plain):
+                check(bool(torch.isfinite(a.grad).all()), f"K3 {label} {name}: non-finite d{g}")
+                err_b = max(err_b, (a.grad.float() - b.grad.float()).abs().max().item())
+                check(_within(a.grad, b.grad, tol_grad),
+                      f"K3 {label} {name}: d{g} err {err_b:.3e}")
+            stats["fwd"]["max_abs_err"] = max(stats["fwd"]["max_abs_err"], err_f)
+            stats["bwd"]["max_abs_err"] = max(stats["bwd"]["max_abs_err"], err_b)
+            line = (f"[8] K3 {label} [{B}, {S}, {H}, {D}] {'causal' if causal else 'full'} "
+                    f"pads {pads} {name}: out max_abs_err {err_f:.3e}, dq/dk/dv {err_b:.3e}")
+            if dtype == torch.bfloat16:
+                scale = D ** -0.5
+                o, lse = fa.flash_attention_fwd(q, k, v, mask, causal, scale)
+                ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                ref_out = fa.flash_attention_reference(*ref_leaves, mask, causal, scale)
+                fwd = timed_pair(
+                    torch, lambda i: fa.flash_attention_fwd(q, k, v, mask, causal, scale),
+                    lambda i: fa.flash_attention_reference(q, k, v, mask, causal, scale), 20)
+                bwd = timed_pair(
+                    torch, lambda i: fa.flash_attention_bwd(q, k, v, mask, o, dout, lse,
+                                                            causal, scale),
+                    lambda i: torch.autograd.grad(ref_out, ref_leaves, dout,
+                                                  retain_graph=True), 10)
+                for key, r in (("fwd", fwd), ("bwd", bwd)):
+                    stats[key]["ms"] += r[0]
+                    stats[key]["plain_ms"] += r[1]
+                    line += (f"; {key} kernel {r[0] * 1e3:.2f} us ({r[2][1] * 1e3:.2f}/"
+                             f"{r[2][2] * 1e3:.2f}) plain {r[1] * 1e3:.2f} us "
+                             f"({r[2][0] * 1e3:.2f}/{r[2][3] * 1e3:.2f})")
+                del ref_out, ref_leaves
+            log(line)
+    log(f"[8] K3 bf16, the three shapes summed (one layer of uni, mmu and SigLIP): "
+        f"forward {stats['fwd']['ms'] * 1e3:.2f} us vs plain {stats['fwd']['plain_ms'] * 1e3:.2f}"
+        f" us; backward ({fa.BACKWARD_KERNELS_PER_CALL} kernels a call: Delta, dK/dV, dQ) "
+        f"{stats['bwd']['ms'] * 1e3:.2f} us vs plain {stats['bwd']['plain_ms'] * 1e3:.2f} us")
+    return stats
+
+
+def train_flops(model, cfg, batches) -> tuple:
+    """Model FLOPs of one train step over the trained path, as 3 x the
+    forward's (the backward is 2 x): 2 x parameters x positions for every
+    matmul (LLaMA layers on every position; lm_head on the text positions;
+    gen_head, gen_aligner on the image positions; SigLIP and the aligner on
+    the patches) plus attention (causal 2 S^2 H D a row and layer, SigLIP
+    4 N^2 width). The frozen VQ encoder's forward is left out."""
+    def n(mod):
+        return sum(p.numel() for p in mod.parameters())
+
+    lm, vis, N = cfg.llama, cfg.vision, cfg.image_seq_len
+    uni, mmu, plan = batches[0], batches[1], batches[2]
+    B_uni, B_mmu = uni["input_ids"].shape[0], mmu["input_ids"].shape[0]
+    positions = sum(b["attn_mask"].numel() for b in batches.values())
+    text = uni["input_ids"].numel() + mmu["input_ids"].numel() + plan["input_ids"].numel()
+    parts = {
+        "LLaMA layers": 2 * n(model.language_model.model.layers) * positions,
+        "lm_head": 2 * n(model.language_model.lm_head) * text,
+        "gen_head": 2 * n(model.gen_head) * B_uni * (N + 1),
+        "gen_aligner": 2 * n(model.gen_aligner) * B_uni * N,
+        "SigLIP + aligner": 2 * (n(model.vision_model) + n(model.aligner)) * B_mmu * vis.num_patches,
+        "LLaMA attention": sum(2 * b["attn_mask"].shape[0] * b["attn_mask"].shape[1] ** 2
+                               * lm.num_heads * lm.head_dim * lm.num_layers
+                               for b in batches.values()),
+        "SigLIP attention": 4 * B_mmu * vis.num_patches ** 2 * vis.width * vis.layers,
+    }
+    total = 3 * sum(parts.values())
+    return total, ", ".join(f"{k} {3 * v / 1e12:.2f}" for k, v in parts.items())
+
+
+def phase_training(torch, dev) -> dict:
+    """The Trainer at Janus-Pro-1B width, K3 on every attention."""
+    import dataclasses
+    import math
+    import shutil
+    import statistics
+    import tempfile
+
+    from plangen_tpu.config import FlowConfig, PlanGenConfig, apply_overrides
+    from plangen_tpu_torch.data.loader import infinite
+    from plangen_tpu_torch.ops import flash_attention as fa
+    from plangen_tpu_torch.train.step import make_loss_fn
+    from plangen_tpu_torch.train.trainer import Trainer
+
+    out_dir = tempfile.mkdtemp(prefix="plangen_train_")
+    try:
+        cfg = apply_overrides(PlanGenConfig(), {
+            "train.tuning_mode": "stage3",
+            "train.train_data": (FlowConfig("uni", "toy", 3), FlowConfig("mmu", "toy", 3),
+                                 FlowConfig("plan", "toy", 2)),
+            "train.use_flash_attention": True,
+            "train.output_dir": out_dir,
+            "train.num_workers": 0,
+            "train.prefetch_depth": 0,
+        })
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device=dev)
+        trainer.logger.close()
+        model, mask = trainer.model, trainer.mask
+        n_train = sum(p.numel() for n, p in model.named_parameters() if mask[n])
+        log(f"[9] Trainer built in {time.perf_counter() - t0:.2f} s: "
+            f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B fp32 parameters, "
+            f"{n_train / 1e9:.3f} B trainable (stage3), AdamW moments allocated")
+        loader = infinite(trainer.build_dataloader())
+        batches = trainer.device_batches(next(loader))
+        shapes = {f: tuple(b["attn_mask"].shape) for f, b in batches.items()}
+        positions = sum(b["attn_mask"].numel() for b in batches.values())
+        real = sum(int(b["attn_mask"].sum()) for b in batches.values())
+        log(f"[9] batch: attn_mask shapes {shapes}: {positions} positions, {real} real tokens")
+
+        # step 0 from the same weights and batch: K3 against the plain path
+        pad_id = trainer.tokenizer.special.pad_id
+        ref = {}
+        for flash in (True, False):
+            tcfg = dataclasses.replace(cfg.train, use_flash_attention=flash)
+            loss_fn = make_loss_fn(cfg.model, tcfg, pad_id, trainer.flows, trainable_mask=mask)
+            model.zero_grad(set_to_none=True)
+            loss, ld = loss_fn(model, batches)
+            loss.backward()
+            gnorm = math.sqrt(sum(float(torch.sum(p.grad * p.grad))
+                                  for p in model.parameters() if p.grad is not None))
+            ref[flash] = ({"loss": loss.item(), **{k: v.item() for k, v in ld.items()}}, gnorm)
+            del loss, ld
+            model.zero_grad(set_to_none=True)
+        (lf, gf), (lp, gp) = ref[True], ref[False]
+        log(f"[9] step 0 losses, K3: {json.dumps(lf)}; plain: {json.dumps(lp)} "
+            f"(ln {cfg.model.image_token_size} = {math.log(cfg.model.image_token_size):.2f}, "
+            f"ln {cfg.model.llama.vocab_size} = {math.log(cfg.model.llama.vocab_size):.2f})")
+        log(f"[9] step 0 gradient global norm (trainable): K3 {gf:.6e}, plain {gp:.6e}")
+        for k in lf:
+            check(abs(lf[k] - lp[k]) <= TRAIN_REL_TOL * abs(lp[k]),
+                  f"step 0 {k}: K3 {lf[k]} vs plain {lp[k]}")
+        check(abs(gf - gp) <= TRAIN_REL_TOL * gp, f"step 0 gradient norm: K3 {gf} vs plain {gp}")
+
+        vq = {n: p.detach().clone() for n, p in model.gen_vision_model.named_parameters()}
+        before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()
+                  if mask[n]}
+        n_calls = cfg.model.vision.layers + len(trainer.flows) * cfg.model.llama.num_layers
+        counters = kernel_counters()
+        torch.cuda.reset_peak_memory_stats()  # the training run's own peak
+        reset_counters(counters)
+        losses, seconds = [], []
+        for step in range(TRAIN_STEPS):
+            counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, metrics = trainer.step_fn(trainer.state,
+                                                     trainer.device_batches(next(loader)))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            losses.append(metrics["loss"])
+            calls = (fa.flash_attention_fwd.launches - counts[0],
+                     fa.flash_attention_bwd.launches - counts[1])
+            log(f"[9] step {step}: {seconds[-1]:.3f} s, K3 forward/backward calls {calls}, "
+                f"{json.dumps(metrics)}")
+            check(all(math.isfinite(v) for v in metrics.values()), f"step {step}: non-finite loss")
+            check(calls == (n_calls, n_calls),
+                  f"step {step}: K3 calls {calls}, expected {n_calls} each")
+        launches = {k: w.launches for k, (w, _) in counters.items()}
+        plain_calls = fa.flash_attention_reference.calls
+        check(plain_calls == 0, f"the plain attention ran {plain_calls} times in training")
+        check(trainer.state.step == TRAIN_STEPS, f"train state step {trainer.state.step}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
+        for n, p in model.gen_vision_model.named_parameters():
+            check(torch.equal(p, vq[n]), f"frozen gen_vision_model.{n} changed")
+        unchanged = [n for n, p in model.named_parameters()
+                     if mask[n] and torch.equal(p.detach().cpu(), before[n])]
+        check(not unchanged, f"trainable tensors unchanged: {unchanged[:5]}")
+        log(f"[9] K3 calls a step {n_calls} forward and {n_calls} backward (each backward call "
+            f"launches {fa.BACKWARD_KERNELS_PER_CALL} kernels), plain calls 0; gen_vision_model "
+            f"bit-for-bit unchanged; all {len(before)} trainable tensors changed; loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f} after {TRAIN_STEPS - 1} updates")
+
+        s_step = statistics.median(seconds[1:])
+        flops, parts = train_flops(model, cfg.model, batches)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[9] {s_step:.4f} s/step (median of steps 1-{TRAIN_STEPS - 1}; step 0 "
+            f"{seconds[0]:.3f} s), {positions / s_step:.1f} positions/s, "
+            f"{real / s_step:.1f} real tokens/s, peak device memory {peak / 2**30:.2f} GiB")
+        log(f"[9] model FLOPs a step {flops / 1e12:.2f} T ({parts}), "
+            f"{flops / s_step / 1e12:.1f} TFLOP/s = {flops / s_step / PEAK_BF16_FLOPS:.3%} "
+            f"of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16")
+        del trainer, model, before, vq
+        return launches
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def device_line(torch) -> dict:
     """The last line: the run drives cuda:0 only, so it used one card,
     whatever `torch.cuda.device_count()` says the machine shows."""
@@ -616,6 +866,14 @@ def main() -> int:
     log(f"[7] int4_a8: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name in launches:
         launches[name] += q4[name] + a8[name]
+    del apipe
+    torch.cuda.empty_cache()
+
+    flash = phase_flash_vs_plain(torch, dev)
+    torch.cuda.empty_cache()
+    trained = phase_training(torch, dev)
+    for name in launches:
+        launches[name] += trained[name]
 
     kernels = [
         ("prefix_decode_attention", "prefix_decode_attention.cu",
@@ -626,6 +884,10 @@ def main() -> int:
          "plangen_tpu/ops/pallas_int4_matmul.py:101", int4["K2"]),
         ("int4_matmul_a8", "int4_matmul.cu",
          "plangen_tpu/ops/pallas_int4_matmul.py:112", int4["K4"]),
+        ("flash_attention_fwd", "flash_attention.cu",
+         "plangen_tpu/ops/pallas_attention.py:36", flash["fwd"]),
+        ("flash_attention_bwd", "flash_attention.cu",
+         "plangen_tpu/ops/pallas_attention.py:249", flash["bwd"]),
     ]
     log(json.dumps({"kernels": [{
         "name": name,

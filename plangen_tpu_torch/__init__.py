@@ -8,12 +8,16 @@ shares only the JAX-free host modules `plangen_tpu.config` and
 
 Layout mirrors the JAX package:
 
-  * `ops/`      — attention, sampling, and the wrapper of the hand-written
-                  prefix decode-attention kernel (`ops/decode_attention.py`).
+  * `ops/`      — attention, sampling, and the wrappers of the hand-written
+                  kernels: decode attention (`decode_attention.py`), the
+                  int4 matmuls (`int4_matmul.py`), flash attention forward
+                  and backward for training (`flash_attention.py`).
   * `models/`   — `nn.Module`s named like HF `MultiModalityCausalLM`
-                  (LLaMA backbone, gen_head / gen_aligner, VQ decoder).
+                  (LLaMA backbone, gen_head / aligners, SigLIP, VQ).
   * `runtime/`  — fixed-buffer KV cache, prefill and the image decode loop.
   * `tasks/`    — the layout-to-image pipeline and its host-side processor.
+  * `train/`    — losses, the multi-task train step, AdamW, checkpoints and
+                  the `Trainer`; `data/` — the training data it reads.
   * `convert/`  — weights from the JAX parameter tree, seeded random init.
   * `csrc/`     — CUDA sources (sm_90a); `kernels/` builds and loads them.
 """

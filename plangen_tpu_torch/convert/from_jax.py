@@ -3,9 +3,8 @@
 `load_jax_params` turns a JAX `vlm.init`-style tree into the HF-named state
 dict with `plangen_tpu.convert.jax_to_torch.export_state_dict` (linear
 [in, out] -> [out, in], conv HWIO -> OIHW, stacked [L, ...] unstacked; it
-imports no jax) and loads the keys this slice's modules own with
-`strict=True`. A real Janus-Pro checkpoint, being HF-named, loads by the
-same `load_state_dict`.
+imports no jax) and loads every exported key with `strict=True`. A real
+Janus-Pro checkpoint, being HF-named, loads by the same `load_state_dict`.
 
 `load_jax_quantized_params` loads a tree that the JAX package's
 `quantize_lm_params` (int8 `{w_q8, scale}` leaves) or
@@ -28,18 +27,14 @@ from torch import nn
 
 from plangen_tpu.config import PlanGenModelConfig
 from plangen_tpu_torch.models.llama import RMSNorm
+from plangen_tpu_torch.models.siglip import VisionTransformer
 from plangen_tpu_torch.ops.quant import (
     LM_QUANT_KEYS, quant_form, quantized_structure_,
 )
 
-# HF-named prefixes of modules that belong to later slices: SigLIP, the
-# understanding aligner and the VQ encoder side.
-SKIPPED_PREFIXES = (
-    "vision_model.",
-    "aligner.",
-    "gen_vision_model.encoder.",
-    "gen_vision_model.quant_conv.",
-)
+# HF-named prefixes of exported keys the port's model does not own: none,
+# since the model holds every module of the JAX tree.
+SKIPPED_PREFIXES: tuple = ()
 
 
 def load_jax_params(
@@ -162,9 +157,11 @@ def load_jax_quantized_params(
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights at the JAX `init` scales.
 
-    Linear and conv weights: normal * fan_in^-0.5; embeddings: normal * 0.02;
-    the VQ codebook: uniform(-1/N, 1/N); norm scales 1 and biases 0. Draws
-    go through `generator` (on the parameters' device) in module order."""
+    Linear and conv weights: normal * fan_in^-0.5, except SigLIP's patch
+    embedding: normal * 0.02; embeddings and SigLIP's pos_embed: normal *
+    0.02; the VQ codebook: uniform(-1/N, 1/N); norm scales 1 and biases 0.
+    Draws go through `generator` (on the parameters' device) in module
+    order."""
 
     def normal(p: torch.Tensor, std: float) -> None:
         p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * std)
@@ -172,9 +169,11 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, mod in model.named_modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
             fan_in = mod.weight[0].numel()
-            normal(mod.weight, fan_in ** -0.5)
+            normal(mod.weight, 0.02 if name.endswith("patch_embed.proj") else fan_in ** -0.5)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, VisionTransformer):
+            normal(mod.pos_embed, 0.02)
         elif isinstance(mod, nn.Embedding):
             if name.endswith("quantize.embedding"):
                 n = mod.weight.shape[0]
@@ -185,7 +184,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 normal(mod.weight, 0.02)
         elif isinstance(mod, RMSNorm):
             mod.weight.fill_(1.0)
-        elif isinstance(mod, nn.GroupNorm):
+        elif isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
     return model

@@ -11,6 +11,11 @@ Numerics mirror the JAX package:
   * Positions are ABSOLUTE indices into the left-padded sequence (HF
     cache_position), not derived from the pad mask.
 
+Without a cache (training) the attention is causal + pad over the Q
+queries, through the bias or, with `use_flash` and the JAX package's own
+condition (head_dim 128, a [B, Q] mask), through the flash kernel
+(`ops/flash_attention.py`).
+
 With a cache, prefill (Q > 1) writes its rows and attends over the full
 cache buffer with a causal + pad bias, as the JAX package's XLA branch does;
 a decode step (Q == 1) writes its row and reads the live prefix through the
@@ -41,6 +46,7 @@ from plangen_tpu_torch.ops.attention import (
 from plangen_tpu_torch.ops.decode_attention import (
     prefix_decode_attention, prefix_decode_attention_q8,
 )
+from plangen_tpu_torch.ops.flash_attention import flash_attention
 
 KVCache = Dict[str, torch.Tensor]
 
@@ -150,6 +156,7 @@ class LlamaDecoderLayer(nn.Module):
         attn_mask: torch.Tensor,  # [B, S] pad mask of the cache (or [B, Q])
         cache: Optional[KVCache] = None,
         layer_idx: int = 0,
+        flash_mask: Optional[torch.Tensor] = None,  # [B, Q]: no cache, flash kernel
     ) -> torch.Tensor:
         cfg = self.cfg
         B, Q, _ = x.shape
@@ -161,7 +168,9 @@ class LlamaDecoderLayer(nn.Module):
         v = v.reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        if cache is None:
+        if cache is None and flash_mask is not None:
+            attn = flash_attention(q, k, v, flash_mask, causal=True)
+        elif cache is None:
             attn = dot_product_attention(q, k, v, bias=bias)
         elif "k_scale" in cache:
             attn = self._attend_q8(q, k, v, bias, positions, attn_mask, cache, layer_idx)
@@ -217,10 +226,13 @@ class LlamaModel(nn.Module):
         attn_mask: torch.Tensor,  # [B, Q] pad mask (no cache) or [B, S] (cache)
         positions: Optional[torch.Tensor] = None,  # [Q] absolute positions
         kv_cache: Optional[KVCache] = None,  # written in place
+        use_flash: bool = False,  # the flash kernel on the no-cache path
     ) -> torch.Tensor:
         """Run the decoder stack (final RMSNorm applied, no head).
 
-        Without a cache: causal + pad attention over the Q queries. With a
+        Without a cache: causal + pad attention over the Q queries, through
+        the flash kernel when `use_flash`, head_dim is 128 and the mask is
+        [B, Q] (the JAX package's condition), else through the bias. With a
         cache: the queries' rows are written at `positions`; prefill attends
         over the whole buffer with a causal + pad bias, a decode step
         (Q == 1) reads the live prefix through the prefix kernel with
@@ -229,7 +241,11 @@ class LlamaModel(nn.Module):
         device = inputs_embeds.device
         if positions is None:
             positions = torch.arange(Q, dtype=torch.int32, device=device)
-        if kv_cache is None:
+        flash_mask = None
+        if kv_cache is None and use_flash and self.cfg.head_dim == 128 \
+                and attn_mask.shape[1] == Q:
+            flash_mask, bias = attn_mask, None
+        elif kv_cache is None:
             bias = make_causal_bias(attn_mask, positions, positions)
         elif Q == 1:
             bias = None  # the prefix kernel masks by pad and position itself
@@ -240,7 +256,7 @@ class LlamaModel(nn.Module):
         cos, sin = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, bias, positions, attn_mask, kv_cache, i)
+            x = layer(x, cos, sin, bias, positions, attn_mask, kv_cache, i, flash_mask)
         return self.norm(x)
 
 
@@ -257,5 +273,6 @@ class LlamaForCausalLM(nn.Module):
         """LM logits in fp32."""
         return self.lm_head(hidden).float()
 
-    def forward(self, inputs_embeds, attn_mask, positions=None, kv_cache=None):
-        return self.model(inputs_embeds, attn_mask, positions, kv_cache)
+    def forward(self, inputs_embeds, attn_mask, positions=None, kv_cache=None,
+                use_flash=False):
+        return self.model(inputs_embeds, attn_mask, positions, kv_cache, use_flash)

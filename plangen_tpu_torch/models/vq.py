@@ -1,12 +1,13 @@
-"""LlamaGen VQ-16 image tokenizer, decode side, as PyTorch modules.
+"""LlamaGen VQ-16 image tokenizer as PyTorch modules.
 
-Port of the decoder half of `plangen_tpu/models/vq.py` (`conv2d`,
-`group_norm`, `swish`, `resblock`, `attnblock`, `upsample_nearest2x`,
-`decoder_forward`, `_normalized_codebook`, `decode_code`,
-`decode_code_uint8`). Module names follow HF Janus `VQModel`
-(`decoder.conv_blocks.{i}.res.{j}`, `decoder.mid.{0,1,2}`,
-`quantize.embedding`, `post_quant_conv`). The encoder and `quant_conv` wait
-for the editing slice.
+Port of `plangen_tpu/models/vq.py`: the decoder (`conv2d`, `group_norm`,
+`swish`, `resblock`, `attnblock`, `upsample_nearest2x`, `decoder_forward`,
+`_normalized_codebook`, `decode_code`, `decode_code_uint8`) and the encoder
+side (`downsample`, `encoder_forward`, `quant_conv`, `quantize`,
+`encode_to_indices`), which gives the training labels of the image flows.
+Module names follow HF Janus `VQModel` (`decoder.conv_blocks.{i}.res.{j}`,
+`encoder.conv_blocks.{i}.downsample.conv`, `decoder.mid.{0,1,2}`,
+`quantize.embedding`, `quant_conv`, `post_quant_conv`).
 
 The public functions keep the JAX package's NHWC layout; inside, tensors
 are channels-first, PyTorch's own layout. Numerics mirror the JAX package:
@@ -174,8 +175,72 @@ class VectorQuantizer(nn.Module):
         )
 
 
-class VQDecoderModel(nn.Module):
-    """The decode side of `VQModel`: codebook -> post_quant_conv -> decoder."""
+class Downsample(nn.Module):
+    """Pad the bottom and right by one pixel, then a 3x3 stride-2 conv."""
+
+    def __init__(self, c: int, dtype=None, device=None):
+        super().__init__()
+        self.conv = nn.Conv2d(c, c, 3, stride=2, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x.to(self.conv.weight.dtype), (0, 1, 0, 1)))
+
+
+class EncoderLevel(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.res = nn.ModuleList()
+        self.attn = nn.ModuleList()
+
+
+class Encoder(nn.Module):
+    """Levels run shallowest-first: num_res_blocks ResnetBlocks each,
+    attention at the deepest, a downsample after every level but the last;
+    then mid = res, attn, res and GroupNorm + swish + conv_out."""
+
+    def __init__(self, cfg: VQConfig, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        n_levels = len(cfg.ch_mult)
+        in_mult = (1,) + tuple(cfg.ch_mult)
+        self.conv_in = Conv2d(3, cfg.ch, 3, **kw)
+        self.conv_blocks = nn.ModuleList()
+        c = cfg.ch
+        for i in range(n_levels):
+            level = EncoderLevel()
+            c = cfg.ch * in_mult[i]
+            cout = cfg.ch * cfg.ch_mult[i]
+            for _ in range(cfg.num_res_blocks):
+                level.res.append(ResnetBlock(c, cout, cfg, **kw))
+                c = cout
+                if i == n_levels - 1:
+                    level.attn.append(AttnBlock(c, cfg, **kw))
+            if i != n_levels - 1:
+                level.downsample = Downsample(c, **kw)
+            self.conv_blocks.append(level)
+        self.mid = nn.ModuleList([
+            ResnetBlock(c, c, cfg, **kw), AttnBlock(c, cfg, **kw), ResnetBlock(c, c, cfg, **kw),
+        ])
+        self.norm_out = _group_norm(c, cfg, dtype, device)
+        self.conv_out = Conv2d(c, cfg.z_channels, 3, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x)
+        for level in self.conv_blocks:
+            for b, res in enumerate(level.res):
+                h = res(h)
+                if len(level.attn):
+                    h = level.attn[b](h)
+            if hasattr(level, "downsample"):
+                h = level.downsample(h)
+        for block in self.mid:
+            h = block(h)
+        return self.conv_out(swish(self.norm_out(h)))
+
+
+class VQModel(nn.Module):
+    """`VQModel`: encoder -> quant_conv -> nearest code, and codebook ->
+    post_quant_conv -> decoder."""
 
     def __init__(self, cfg: VQConfig, dtype=None, device=None):
         super().__init__()
@@ -183,6 +248,8 @@ class VQDecoderModel(nn.Module):
         self.decoder = Decoder(cfg, dtype, device)
         self.quantize = VectorQuantizer(cfg, device)
         self.post_quant_conv = Conv2d(cfg.codebook_dim, cfg.z_channels, 1, dtype, device)
+        self.encoder = Encoder(cfg, dtype, device)
+        self.quant_conv = Conv2d(cfg.z_channels, cfg.codebook_dim, 1, dtype, device)
 
     def normalized_codebook(self) -> torch.Tensor:
         cb = self.quantize.embedding.weight.float()
@@ -208,3 +275,22 @@ class VQDecoderModel(nn.Module):
         JAX package's `clip((x + 1) * 127.5, 0, 255).astype(uint8)`."""
         img = self.decode_code(indices, grid_hw).float()
         return ((img + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+
+    def quantize_latents(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """z [B, e, h, w] -> (z_q [B, h, w, e] fp32, indices [B, h*w]): both z
+        and the codebook l2-normalised, the nearest code by squared distance
+        |z|^2 + |e|^2 - 2 z.e (first index on ties), as `vq.quantize`."""
+        B, e, h, w = z.shape
+        zf = z.float().permute(0, 2, 3, 1).reshape(B * h * w, e)
+        if self.cfg.l2_norm:
+            zf = zf / zf.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        cb = self.normalized_codebook()
+        d = ((zf * zf).sum(dim=1, keepdim=True) + (cb * cb).sum(dim=1)[None, :]
+             - 2.0 * (zf @ cb.T))
+        idx = d.argmin(dim=1)
+        return cb[idx].reshape(B, h, w, e), idx.reshape(B, h * w)
+
+    def encode_to_indices(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B, H, W, 3] (NHWC, in [-1, 1]) -> VQ token ids [B, (H/16)*(W/16)]."""
+        h = self.quant_conv(self.encoder(images.permute(0, 3, 1, 2)))
+        return self.quantize_latents(h)[1]

@@ -1,0 +1,176 @@
+"""The training loop: the JAX package's `Trainer` on one device.
+
+Port of `plangen_tpu/train/trainer.py`: build the tokenizer, processor,
+model (fp32 masters) and AdamW; iterate the flows' data; run the multi-task
+step; log JSONL metrics; check the loss for non-finite values at the logging
+cadence (save and raise); save every `checkpointing_steps` with FIFO
+rotation; resume from the latest checkpoint; save at the end.
+
+Not ported, and raising `NotImplementedError`: gradient checkpointing,
+FSDP, a mesh of more than one device, LoRA, bf16 masters, weights loaded
+from `params_path` / `janus_path` / `finetune_path` (pass `model=`
+instead), and a `validate_fn`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from plangen_tpu.config import PlanGenConfig, validate_config
+from plangen_tpu.text.tokenizer import load_tokenizer
+from plangen_tpu_torch.convert.from_jax import init_params
+from plangen_tpu_torch.data.collate import collate_flows
+from plangen_tpu_torch.data.loader import BatchLoader, CombinedLoader, PrefetchLoader, infinite
+from plangen_tpu_torch.data.registry import get_dataset
+from plangen_tpu_torch.models.vlm import PlanGenModel
+from plangen_tpu_torch.tasks.processor import PlanGenProcessor
+from plangen_tpu_torch.train.checkpoint import PlanGenCheckpointer
+from plangen_tpu_torch.train.metrics import MetricsLogger
+from plangen_tpu_torch.train.optim import count_params, make_optimizer
+from plangen_tpu_torch.train.step import init_train_state, make_train_step
+
+
+def _check_supported(cfg: PlanGenConfig, model_given: bool) -> None:
+    tcfg = cfg.train
+    if tcfg.fsdp:
+        raise NotImplementedError("fsdp is not ported: the port trains on one device")
+    if any(size > 1 for size in tcfg.mesh_shape.values()):
+        raise NotImplementedError(
+            f"mesh_shape {tcfg.mesh_shape}: the port trains on one device")
+    if tcfg.tuning_mode in ("lora", "lora_tokens"):
+        raise NotImplementedError("tuning_mode 'lora' is not ported")
+    if tcfg.master_dtype != "float32":
+        raise NotImplementedError(f"master_dtype {tcfg.master_dtype!r}: fp32 masters only")
+    if not model_given and (cfg.params_path or cfg.janus_path or cfg.finetune_path):
+        raise NotImplementedError(
+            "loading weights in the Trainer is not ported; pass model= instead")
+
+
+class Trainer:
+    def __init__(self, cfg: PlanGenConfig, model: Optional[PlanGenModel] = None,
+                 device: Optional[torch.device] = None):
+        validate_config(cfg)
+        _check_supported(cfg, model is not None)
+        self.cfg = cfg
+        tcfg = cfg.train
+        self.device = torch.device(device if device is not None else "cpu")
+
+        # the tokenizer loader imports no jax; without janus_path it falls
+        # back to the byte-level tokenizer
+        self.tokenizer = load_tokenizer(
+            cfg.janus_path,
+            vocab_size=cfg.model.llama.vocab_size,
+            use_special_tokens=cfg.use_special_tokens,
+            use_numhw=cfg.use_numhw_tokens,
+        )
+        self.processor = PlanGenProcessor(
+            self.tokenizer,
+            image_tokens=cfg.model.image_seq_len,
+            max_seq_len=tcfg.max_seq_len,
+            gen=cfg.generation,
+        )
+
+        if model is None:
+            model = PlanGenModel(cfg.model, dtype=torch.float32, device=self.device)
+            g = torch.Generator(device=self.device).manual_seed(tcfg.seed)
+            with torch.no_grad():
+                init_params(model, g)
+        self.model = model.to(device=self.device, dtype=torch.float32)
+
+        opt, self.mask = make_optimizer(tcfg.optim, self.model, tcfg.tuning_mode)
+        counts = count_params(self.model, self.mask)
+        print(f"params: total={counts['total'] / 1e6:.1f}M "
+              f"trainable={counts['trainable'] / 1e6:.1f}M "
+              f"(tuning_mode={tcfg.tuning_mode})")
+        self._dump_trainable_names()
+
+        self.flows = tuple((i, f.task_type) for i, f in enumerate(tcfg.train_data))
+        self.flow_tasks = dict(self.flows)
+        self.state = init_train_state(self.model, opt)
+        self.step_fn = make_train_step(
+            cfg.model, tcfg, pad_id=self.tokenizer.special.pad_id, flows=self.flows,
+            trainable_mask=self.mask,
+        )
+        self.ckpt = PlanGenCheckpointer(os.path.join(tcfg.output_dir, "checkpoints"),
+                                        total_limit=tcfg.checkpoints_total_limit)
+        self.logger = MetricsLogger(tcfg.output_dir)
+
+    def _dump_trainable_names(self) -> None:
+        """Trainable parameter names and shapes to params.jsonl."""
+        os.makedirs(self.cfg.train.output_dir, exist_ok=True)
+        with open(os.path.join(self.cfg.train.output_dir, "params.jsonl"), "w") as f:
+            for name, p in self.model.named_parameters():
+                if self.mask[name]:
+                    f.write(json.dumps({"name": name, "shape": list(p.shape)}) + "\n")
+
+    # ------------------------------------------------------------------ data
+
+    def build_dataloader(self):
+        tcfg = self.cfg.train
+        loaders = {}
+        for fid, flow in enumerate(tcfg.train_data):
+            ds = get_dataset(self.cfg, flow.data_name, is_test=False)
+            loaders[fid] = BatchLoader(ds, flow.batch_size, shuffle=True, seed=tcfg.seed + fid,
+                                       workers=tcfg.num_workers)
+            print(f"flow {fid}: task={flow.task_type} data={flow.data_name} "
+                  f"len={len(ds)} bs={flow.batch_size}")
+        combined = CombinedLoader(loaders)
+        if tcfg.prefetch_depth > 0:
+            combined = PrefetchLoader(combined, depth=tcfg.prefetch_depth)
+        return combined
+
+    def device_batches(self, flow_samples):
+        batches = collate_flows(flow_samples, self.flow_tasks, self.processor)
+        return {fid: {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                      for k, v in b.items()} for fid, b in batches.items()}
+
+    # ----------------------------------------------------------------- train
+
+    def maybe_resume(self) -> int:
+        if self.cfg.train.resume is None:
+            return 0
+        restored = self.ckpt.restore(self.state)
+        if restored is None:
+            return 0
+        print(f"resumed from step {restored.step}")
+        return restored.step
+
+    def fit(self, max_steps: Optional[int] = None, validate_fn=None) -> Dict[str, float]:
+        if validate_fn is not None:
+            raise NotImplementedError("in-training validation is not ported")
+        tcfg = self.cfg.train
+        max_steps = max_steps or tcfg.max_train_steps
+        start = self.maybe_resume()
+        loader = infinite(self.build_dataloader())
+        last_metrics: Dict[str, float] = {}
+        t_step = time.perf_counter()
+        last_logged = start - 1
+        for step in range(start, max_steps):
+            batches = self.device_batches(next(loader))
+            self.state, metrics = self.step_fn(self.state, batches)
+            if (step + 1) % 10 == 0 or step == start:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                dt = (time.perf_counter() - t_step) / max(1, step - last_logged)
+                t_step = time.perf_counter()
+                last_logged = step
+                metrics["sec_per_step"] = dt
+                self.logger.log(step + 1, metrics)
+                last_metrics = metrics
+                # a non-finite loss has already poisoned the Adam state: save
+                # a post-mortem checkpoint and stop
+                if not np.isfinite(metrics["loss"]):
+                    self.ckpt.save(step + 1, self.state)
+                    raise FloatingPointError(
+                        f"non-finite loss {metrics['loss']} at step {step + 1}"
+                        f" (metrics: {metrics}); state checkpointed for post-mortem")
+            if (step + 1) % tcfg.checkpointing_steps == 0:
+                self.ckpt.save(step + 1, self.state)
+        if self.ckpt.latest_step() != max_steps:
+            self.ckpt.save(max_steps, self.state)
+        return last_metrics

@@ -286,3 +286,185 @@ def test_quantized_decode_loop_on_card_equals_cpu(cuda, mode):
     assert wrapper.launches - launches[0] == n * (4 * L + 1) + 4 * L  # prefill: 48 rows
     assert da.prefix_decode_attention_q8.launches - launches[1] == n * L
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# ------------------------------------------------ K3 (flash attention)
+
+from plangen_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+
+def _flash_inputs(dev, dtype, B=3, S=200, H=3, D=128, left_pads=True, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+                     for _ in range(4))
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    if left_pads:
+        mask[1, :7] = 0
+        mask[2, :70] = 0  # more than one 64-key tile of pads
+    return q, k, v, mask, dout
+
+
+@pytest.mark.parametrize("left_pads", [False, True], ids=["dense", "left_pads"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k3_matches_plain_version(cuda, dtype, D, causal, left_pads):
+    """Every row, those with no allowed key included (they follow the bias
+    path: the mean of V over all keys, with its gradients)."""
+    q, k, v, mask, dout = _flash_inputs(cuda, dtype, D=D, left_pads=left_pads)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    launches = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    got = fa.flash_attention(*leaves, mask, causal=causal)
+    got.backward(dout)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    want = fa.flash_attention_reference(*plain, mask, causal=causal)
+    want.backward(dout)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol_f, tol_g = (1e-4, 1e-3) if dtype == torch.float32 else (2e-2, 2e-2)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol_f, atol=tol_f)
+    for name, a, b in zip("qkv", leaves, plain):
+        assert bool(torch.isfinite(a.grad).all()), name
+        torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=tol_g, atol=tol_g,
+                                   msg=lambda m, n=name: f"d{n}: {m}")
+
+
+def test_k3_gqa_sums_over_each_group(cuda):
+    q, k, v, mask, dout = _flash_inputs(cuda, torch.float32, H=4)
+    k, v = k[:, :, :2].contiguous(), v[:, :, :2].contiguous()
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*a, mask).backward(dout)
+    fa.flash_attention_reference(*b, mask).backward(dout)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_k3_fully_padded_row_follows_bias_path(cuda, causal):
+    """A sequence with no unpadded key at all: every row is the mean of V,
+    forward and backward as the plain version (S 130 spans three tiles)."""
+    q, k, v, mask, dout = _flash_inputs(cuda, torch.float32, S=130, D=64)
+    mask[0] = 0
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = fa.flash_attention(*a, mask, causal=causal)
+    got.backward(dout)
+    want = fa.flash_attention_reference(*b, mask, causal=causal)
+    want.backward(dout)
+    torch.testing.assert_close(got[0], v[0].mean(dim=0, keepdim=True).expand_as(got[0]),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("bad", ["fp16", "head_dim_32", "float_mask", "k_on_cpu",
+                                 "fwd_strided", "fwd_mask_int64"])
+def test_k3_wrappers_raise(cuda, bad):
+    q, k, v, mask, _ = _flash_inputs(cuda, torch.float32)
+    call = lambda: fa.flash_attention(q, k, v, mask)  # noqa: E731
+    if bad == "fp16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "head_dim_32":
+        q, k, v = (t[..., :32].contiguous() for t in (q, k, v))
+    elif bad == "float_mask":
+        mask = mask.float()
+    elif bad == "k_on_cpu":
+        k = k.cpu()
+    elif bad == "fwd_strided":
+        call = lambda: fa.flash_attention_fwd(q.transpose(1, 2), k, v, mask, True, 0.1)  # noqa: E731
+    elif bad == "fwd_mask_int64":
+        call = lambda: fa.flash_attention_fwd(q, k, v, mask.long(), True, 0.1)  # noqa: E731
+    launches = fa.flash_attention_fwd.launches
+    with pytest.raises((TypeError, ValueError)):
+        call()
+    assert fa.flash_attention_fwd.launches == launches
+
+
+# ------------------------------------- the training step (K3 forward + backward)
+
+
+def _train_config():
+    tiny = PlanGenModelConfig.tiny()
+    return dataclasses.replace(  # LLaMA head_dim 128 and SigLIP head_dim 64: both on K3
+        tiny,
+        llama=dataclasses.replace(tiny.llama, num_heads=2, num_kv_heads=1, head_dim=128,
+                                  hidden_size=256, intermediate_size=256),
+        vision=dataclasses.replace(tiny.vision, width=128, heads=2),
+        aligner=dataclasses.replace(tiny.aligner, input_dim=128, n_embed=256),
+        gen_aligner=dataclasses.replace(tiny.gen_aligner, n_embed=256),
+    )
+
+
+def _train_batches(cfg, dev, B=2, L=8):
+    rs = np.random.RandomState(0)
+    n, size = cfg.image_seq_len, cfg.vision.image_size
+    ids = rs.randint(3, 100, size=(B, L))
+    text_mask = np.ones((B, L), np.int32)
+    text_mask[1, :3] = 0  # a left-padded row: its last pad is read by the LM loss
+    ids[1, :3] = 2
+    seq_mask = np.zeros((B, L), bool)
+    seq_mask[:, 1:1 + n] = True
+    img = rs.uniform(-1, 1, size=(B, size, size, 3)).astype(np.float32)
+    b = {0: {"input_ids": ids, "images": img,
+             "attn_mask": np.concatenate([text_mask, np.ones((B, n), np.int32)], 1)},
+         1: {"input_ids": ids, "attn_mask": np.ones((B, L), np.int32), "images": img,
+             "images_seq_mask": seq_mask},
+         2: {"input_ids": ids, "attn_mask": text_mask}}
+    return {f: {k: torch.from_numpy(np.array(v)).to(dev) for k, v in d.items()}
+            for f, d in b.items()}
+
+
+def test_tiny_train_step_on_card_equals_cpu(cuda):
+    """One stage3 train step with use_flash_attention, fp32 compute: on the
+    card every attention goes through K3 forward and backward; the losses,
+    gradients and updated weights equal the CPU step's (plain version)."""
+    from plangen_tpu.config import TrainConfig
+    from plangen_tpu_torch.ops import flash_attention as fa
+    from plangen_tpu_torch.train.optim import make_optimizer
+    from plangen_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = _train_config()
+    tcfg = TrainConfig(use_flash_attention=True)
+    flows = ((0, "uni"), (1, "mmu"), (2, "plan"))
+    cpu_model = init_params(PlanGenModel(cfg, dtype=torch.float32),
+                            torch.Generator().manual_seed(0))
+    card_model = PlanGenModel(cfg, dtype=torch.float32, device=cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    results = {}
+    for dev, model in ((torch.device("cpu"), cpu_model), (cuda, card_model)):
+        opt, mask = make_optimizer(tcfg.optim, model, "stage3")
+        step = make_train_step(cfg, tcfg, 2, flows, compute_dtype=torch.float32,
+                               trainable_mask=mask)
+        grads = {}
+        real = opt.step
+        opt.step = lambda g, real=real, grads=grads: (grads.update(
+            {n: t.detach().cpu().clone() for n, t in g.items() if t is not None}), real(g))
+        counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
+                  fa.flash_attention_reference.calls)
+        state, metrics = step(init_train_state(model, opt), _train_batches(cfg, dev))
+        counts = (fa.flash_attention_fwd.launches - counts[0],
+                  fa.flash_attention_bwd.launches - counts[1],
+                  fa.flash_attention_reference.calls - counts[2])
+        results[dev.type] = ({k: float(v) for k, v in metrics.items()}, grads,
+                             {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                             counts)
+    n_attn = cfg.vision.layers + 3 * cfg.llama.num_layers
+    assert results["cpu"][3] == (0, 0, n_attn)
+    assert results["cuda"][3] == (n_attn, n_attn, 0)
+    for k, v in results["cpu"][0].items():
+        np.testing.assert_allclose(results["cuda"][0][k], v, rtol=1e-4, atol=1e-5, err_msg=k)
+    assert sorted(results["cuda"][1]) == sorted(results["cpu"][1])
+    for k, g in results["cpu"][1].items():
+        torch.testing.assert_close(results["cuda"][1][k], g, rtol=1e-3, atol=1e-4,
+                                   msg=lambda m, k=k: f"grad {k}: {m}")
+    # Adam moves a weight by up to lr whatever the gradient's size, so a
+    # gradient at rounding-noise level may move the two copies 2 lr apart
+    lr = tcfg.optim.learning_rate
+    for k, w in results["cpu"][2].items():
+        torch.testing.assert_close(results["cuda"][2][k], w, rtol=0, atol=2 * lr,
+                                   msg=lambda m, k=k: f"weight {k}: {m}")

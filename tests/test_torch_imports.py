@@ -16,7 +16,10 @@ def test_port_never_imports_jax():
 
     names = [m.name for m in pkgutil.walk_packages(
         plangen_tpu_torch.__path__, prefix="plangen_tpu_torch.")]
-    for name in ("ops.decode_attention", "ops.int4_matmul", "ops.quant"):
+    for name in ("ops.decode_attention", "ops.int4_matmul", "ops.quant", "ops.flash_attention",
+                 "models.siglip", "data.collate", "data.loader", "data.registry", "data.toy",
+                 "train.checkpoint", "train.loss", "train.metrics", "train.optim",
+                 "train.step", "train.trainer"):
         assert "plangen_tpu_torch." + name in names
     code = (
         "import importlib, sys\n"

@@ -233,15 +233,18 @@ def test_bf16_prefill_and_decode_step_logits():
 
 
 def test_load_jax_params_skips_only_later_slices():
+    """Every exported key loads strictly: no module is left for a later
+    slice, SigLIP, the understanding aligner and the VQ encoder included."""
     cfg, params, model, skipped = _load("tiny")
-    # the keys left for later slices: SigLIP, the understanding aligner and
-    # the VQ encoder side; every other exported key was loaded strictly
-    assert skipped and all(k.startswith(SKIPPED_PREFIXES) for k in skipped)
-    for prefix in SKIPPED_PREFIXES:
-        assert any(k.startswith(prefix) for k in skipped), prefix
-    assert "gen_vision_model.quant_conv.weight" in skipped
-    assert "vision_model.vision_tower.pos_embed" in skipped
-    assert not any(k.startswith(SKIPPED_PREFIXES) for k in model.state_dict())
+    assert SKIPPED_PREFIXES == () and skipped == []
+    from plangen_tpu.convert.jax_to_torch import export_state_dict
+
+    exported = export_state_dict(jax.tree_util.tree_map(np.asarray, params), cfg)
+    assert set(exported) == set(model.state_dict())
+    for key in ("gen_vision_model.quant_conv.weight", "vision_model.vision_tower.pos_embed",
+                "aligner.layers.0.weight", "gen_vision_model.encoder.conv_in.weight"):
+        assert key in exported, key
+        np.testing.assert_array_equal(_np(model.state_dict()[key]), exported[key])
     np.testing.assert_array_equal(
         _np(model.language_model.model.layers[1].self_attn.q_proj.weight),
         np.asarray(params["language_model"]["layers"]["q_proj"][1]).T,

@@ -190,8 +190,7 @@ def test_quantize_model_equals_loaded_jax_tree(mode):
     jparams, quantized = _pair(mode)
     loaded = PlanGenModel(CFG, dtype=torch.float32)
     skipped = load_jax_quantized_params(loaded, jparams, CFG)
-    assert skipped and all(k.startswith(("vision_model.", "aligner.", "gen_vision_model.e",
-                                         "gen_vision_model.quant_conv.")) for k in skipped)
+    assert skipped == []  # every exported key loads, SigLIP and the VQ encoder included
     assert quant_form(loaded) == mode
     a, b = quantized.state_dict(), loaded.state_dict()
     assert sorted(a) == sorted(b)
