@@ -8,10 +8,15 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
 
   1. header: torch / CUDA versions, the card's name and power limit, TF32 off;
   2. build: compile every kernel source in csrc/ (one nvcc each, started
-     together) and print nvcc seconds, registers and spills;
+     together) and print nvcc seconds, registers and spills; then the SASS
+     (`cuobjdump`) must show HGMMA in the bf16 K3 forward and HMMA in the
+     bf16 K3 dK/dV and dQ kernels (the tensor cores);
   3. K1 vs its plain PyTorch version at Janus-Pro-1B decode shapes
      (L=24, B=8, S=1024, H=16, D=128), bf16 and fp32, left-padded rows,
-     with CUDA-event timings taken in turns (plain, kernel, kernel, plain);
+     with device times (the host enqueues ahead) taken in turns (plain,
+     kernel, kernel, plain); in bf16 also the one-call counterpart
+     (`scaled_dot_product_attention` of the query over the layer's live
+     prefix with the pad mask), between the two kernel turns;
   4. the bf16 slice: `PlanGenPipeline.layout_to_image` at Janus-Pro-1B width
      (seeded random bf16 weights, byte-fallback tokenizer) on 4 requests
      and then on 1, checking shapes, ranges, and that every decode-attention
@@ -30,27 +35,37 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      (or K4), every decode attention through K1-q8, no plain version runs;
   8. K3 (flash attention, forward and backward) vs its plain version at the
      training shapes: causal left-padded [3, 736, 16, 128], causal
-     [3, 1024, 16, 128], non-causal [3, 576, 16, 64], bf16 and fp32, every
-     row and every gradient; device times taken in turns;
+     [3, 1024, 16, 128], non-causal [3, 576, 16, 64], bf16 (tensor cores)
+     and fp32 (CUDA cores), every row and every gradient; in bf16 also
+     against `scaled_dot_product_attention` (the default backend, named from
+     one profiler pass) on the rows that have an allowed key; device times
+     of kernel, plain and SDPA taken in turns;
   9. the training slice: the `Trainer` at Janus-Pro-1B width (seeded random
      fp32 masters, bf16 compute, stage3, the recipe's uni 3 / mmu 3 / plan 2
      flows on the `toy` data, use_flash_attention) takes 7 steps of its own
      loop (the body of `Trainer.fit`, without the final save of ~24 GB of
      state); step-0 losses and gradient norm held against the plain
      attention path; every step's K3 calls counted (24 SigLIP + 3 x 24 LLaMA
-     layers, forward and backward, no plain call); the VQ left bit-for-bit
+     layers, forward and backward, all on the tensor-core route, no plain
+     call); the VQ left bit-for-bit
      unchanged, every trainable tensor changed, the loss falling; s/step,
-     tokens/s, peak memory and the model-FLOPs share printed.
+     tokens/s, peak memory and the model-FLOPs share printed; then one more
+     step under `torch.profiler`: device busy time against the step's
+     wall time, and device time by kernel group.
 
-The last two lines are a JSON object describing the kernels and
-`{"ok": true, "device": {...}}`. Without a CUDA device the script exits
-non-zero before printing any result.
+The last two lines are a JSON object describing the kernels (each with its
+launches on the main path, error, time, plain time, the one-call
+counterpart's time or null, and `bound_ms`: the least time the card could
+take, from `roofline_ms`) and `{"ok": true, "device": {...}}`. Without a
+CUDA device the script exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -94,10 +109,25 @@ FLASH_TOLERANCE = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}  # (out, g
 TRAIN_STEPS = 7  # step 0 and 6 more: step 6's loss is the loss after 6 updates
 TRAIN_REL_TOL = 2e-2  # step 0, K3 vs the plain attention path
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 data sheet
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 data sheet
+# SASS instruction each bf16 K3 kernel must contain: the tensor cores
+TENSOR_CORE_SASS = {"flash_fwd_tc_kernel": "HGMMA", "flash_bwd_dkdv_tc_kernel": "HMMA",
+                    "flash_bwd_dq_tc_kernel": "HMMA"}
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def roofline_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> float:
+    """The least time (ms) the card could take for work of `flops`
+    operations over `nbytes` of memory traffic (each input read once, each
+    output written once): the larger of the two times at the peak rates."""
+    return max(flops / peak_flops, nbytes / PEAK_HBM_BYTES_PER_S) * 1e3
+
+
+def bound_by(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> str:
+    return "operations" if flops / peak_flops > nbytes / PEAK_HBM_BYTES_PER_S else "bytes"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -144,14 +174,48 @@ def phase_build() -> None:
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[2]   {line.strip()}")
+    check_tensor_core_sass(built["flash_attention"].path)
+
+
+def sass_counts(path: pathlib.Path, instructions) -> dict:
+    """{kernel function (mangled): {instruction: count}} from cuobjdump."""
+    from plangen_tpu_torch.kernels.build import find_nvcc
+
+    cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = dict.fromkeys(instructions, 0)
+        elif name is not None:
+            for ins in instructions:
+                counts[name][ins] += bool(re.search(rf"\b{ins}\b", line))
+    return counts
+
+
+def check_tensor_core_sass(path: pathlib.Path) -> None:
+    """Every instantiation (head dim 64 / 128, causal or not) of the bf16 K3
+    kernels holds its tensor-core instruction in the built library."""
+    counts = sass_counts(path, ("HGMMA", "HMMA"))
+    for kernel, ins in TENSOR_CORE_SASS.items():
+        found = {n: c for n, c in counts.items() if kernel in n}
+        check(len(found) == 4, f"SASS: {len(found)} instantiations of {kernel}, expected 4")
+        for name, c in sorted(found.items()):
+            m = re.search(r"ILi(\d+)ELb([01])E", name)
+            what = f"D={m.group(1)} causal={m.group(2)}" if m else name
+            log(f"[2] SASS {kernel} {what}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
+            check(c[ins] > 0, f"SASS: no {ins} in {kernel} ({what})")
 
 
 def time_ms(torch, fn, iters: int, host_ahead: bool = False) -> float:
     """Mean ms per call over `iters` calls between two CUDA events.
 
-    With `host_ahead` the card first spins (`torch.cuda._sleep`) for longer
-    than the host takes to enqueue the calls, so the calls run back to back
-    and the events time the device alone, not the Python of each call."""
+    With `host_ahead` the card first spins (`torch.cuda._sleep`) for about
+    three times as long as the host took to enqueue the calls, so the calls
+    run back to back and the events time the device alone, not the Python
+    of each call (a slow or busy host still finishes enqueuing in time)."""
     fn(0)  # warm up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -162,7 +226,7 @@ def time_ms(torch, fn, iters: int, host_ahead: bool = False) -> float:
             fn(i)
         torch.cuda.synchronize()
         enqueue_s = time.perf_counter() - t0
-        torch.cuda._sleep(int(3e9 * enqueue_s) + 1_000_000)  # ~2 GHz SM clock
+        torch.cuda._sleep(int(6e9 * enqueue_s) + 2_000_000)  # ~2 GHz SM clock
     start.record()
     for i in range(iters):
         fn(i)
@@ -178,8 +242,19 @@ def left_padded_mask(torch, B: int, S: int, live: int, device):
     return mask
 
 
+def decode_bound(B: int, live: int, H: int, D: int, kv_bytes_per_row: int) -> tuple:
+    """(operations, bytes) of one decode-attention call: the query against
+    `live` cache slots (2 D multiply-adds per slot and head: q.k and p.v),
+    reading the live K and V rows (`kv_bytes_per_row` per slot and head),
+    the bf16 query and mask once and writing the bf16 output once."""
+    return 4 * D * B * H * live, B * H * live * kv_bytes_per_row + 4 * B * H * D + 4 * B * live
+
+
 def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> dict:
-    """K1 against its plain version at the decode shapes of Janus-Pro-1B."""
+    """K1 against its plain version at the decode shapes of Janus-Pro-1B;
+    in bf16 also SDPA of the query over the layer's live prefix."""
+    import torch.nn.functional as F
+
     from plangen_tpu_torch.ops.decode_attention import (
         prefix_decode_attention, prefix_decode_attention_reference,
     )
@@ -212,31 +287,57 @@ def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> di
             def plain(i):
                 prefix_decode_attention_reference(q, k, v, mask, i % L, q_pos)
 
+            # the one-call counterpart: SDPA of the query over the live
+            # prefix [0, q_pos] of the layer, with the pad mask
+            allowed = (mask[:, None, None, :qp + 1] > 0)
+
+            def library(i):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k[i % L, :, :qp + 1].transpose(1, 2),
+                    v[i % L, :, :qp + 1].transpose(1, 2), attn_mask=allowed).transpose(1, 2)
+
             iters = 2 * L
-            p1 = time_ms(torch, plain, iters)
-            k1 = time_ms(torch, kernel, iters)
-            k2 = time_ms(torch, kernel, iters)
-            p2 = time_ms(torch, plain, iters)
+            p1 = time_ms(torch, plain, iters, host_ahead=True)
+            k1 = time_ms(torch, kernel, iters, host_ahead=True)
+            lib_ms = lib_err = None
+            if dtype == torch.bfloat16:
+                lib_err = max((library(layer).float() - prefix_decode_attention(
+                    q, k, v, mask, layer, q_pos).float()).abs().max().item()
+                    for layer in (0, L // 2, L - 1))
+                check(lib_err <= TOLERANCE[name], f"SDPA vs K1 q_pos={qp}: {lib_err:.3e}")
+                lib_ms = (time_ms(torch, library, iters, host_ahead=True)
+                          + time_ms(torch, library, iters, host_ahead=True)) / 2
+            k2 = time_ms(torch, kernel, iters, host_ahead=True)
+            p2 = time_ms(torch, plain, iters, host_ahead=True)
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
             nbytes = 2 * B * (qp + 1) * H * D * k.element_size()
             gbps = nbytes / (k_ms * 1e-3) / 1e9
-            rows.append(dict(dtype=name, q_pos=qp, err=err, ms=k_ms, plain_ms=p_ms))
+            ops, traffic = decode_bound(B, qp + 1, H, D, 2 * D * k.element_size())
+            bound = roofline_ms(ops, traffic)
+            rows.append(dict(dtype=name, q_pos=qp, err=err, ms=k_ms, plain_ms=p_ms,
+                             library_ms=lib_ms, bound_ms=bound,
+                             bound_by=bound_by(ops, traffic)))
             log(f"[3] {name:8s} q_pos={qp:5d} max_abs_err={err:.3e} "
                 f"kernel {k_ms * 1e3:8.2f} us ({k1 * 1e3:.2f}/{k2 * 1e3:.2f}) "
                 f"plain {p_ms * 1e3:9.2f} us ({p1 * 1e3:.2f}/{p2 * 1e3:.2f}) "
                 f"kernel {gbps:7.1f} GB/s = "
-                f"{100 * gbps * 1e9 / PEAK_HBM_BYTES_PER_S:.1f}% of 3.35 TB/s")
+                f"{100 * gbps * 1e9 / PEAK_HBM_BYTES_PER_S:.1f}% of 3.35 TB/s; bound "
+                f"{bound * 1e3:.2f} us ({bound_by(ops, traffic)}) = {100 * bound / k_ms:.1f}% "
+                "of the kernel's time"
+                + ("" if lib_ms is None else
+                   f"; SDPA {lib_ms * 1e3:.2f} us (max abs diff to K1 {lib_err:.3e})"))
         del k, v, q
     headline = next(r for r in rows
                     if r["dtype"] == "bfloat16" and r["q_pos"] == prompt_len + 287)
     return dict(max_abs_err=max(r["err"] for r in rows),
-                ms=headline["ms"], plain_ms=headline["plain_ms"])
+                **{key: headline[key] for key in
+                   ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
 
 def build_pipeline(torch, dev, output_uint8: bool, model=None, cfg=None,
                    quantize=None):
-    from plangen_tpu.config import GenerationConfig, PlanGenModelConfig
-    from plangen_tpu.text.tokenizer import ByteFallbackTokenizer
+    from plangen_tpu_torch.config import GenerationConfig, PlanGenModelConfig
+    from plangen_tpu_torch.text.tokenizer import ByteFallbackTokenizer
     from plangen_tpu_torch.convert import init_params
     from plangen_tpu_torch.models.vlm import PlanGenModel
     from plangen_tpu_torch.tasks.pipeline import PlanGenPipeline
@@ -331,6 +432,8 @@ def kernel_counters():
 def reset_counters(counters) -> None:
     for wrapper, plain in counters.values():
         wrapper.launches = 0
+        if hasattr(wrapper, "routes"):
+            wrapper.routes = dict.fromkeys(wrapper.routes, 0)
         plain.calls = 0
 
 
@@ -453,21 +556,33 @@ def phase_int4_vs_plain(torch, dev) -> dict:
         k8, p8, r8 = timed_pair(torch, lambda i: im.int4_matmul_w4a8(x8, xs, *args(i), torch.bfloat16),
                                 lambda i: im.int4_matmul_w4a8_reference(x8, xs, *args(i), torch.bfloat16),
                                 iters)
+        # bytes: packed weights, both scale rows, the activations (bf16, or
+        # int8 plus a scale per row for K4), the bf16 output
+        weights = I * OH + 2 * OH * 4 + 2 * R * O
+        work = {"K2": (2 * R * I * O, weights + 2 * R * I, PEAK_BF16_FLOPS),
+                "K4": (2 * R * I * O, weights + R * I + 4 * R, PEAK_INT8_OPS)}
         for tag, k_ms, p_ms, r, err in (("K2", k16, p16, r16, err16), ("K4", k8, p8, r8, err8)):
             gbps = I * OH / (k_ms * 1e-3) / 1e9
-            rows.append(dict(kernel=tag, name=name, R=R, err=err, ms=k_ms, plain_ms=p_ms))
+            bound = roofline_ms(*work[tag])
+            rows.append(dict(kernel=tag, name=name, R=R, err=err, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=bound, bound_by=bound_by(*work[tag])))
             log(f"[5] {tag} {name:13s} R={R:3d} I={I} O={O}: max_abs_err={err:.3e} "
                 f"kernel {k_ms * 1e3:8.2f} us ({r[1] * 1e3:.2f}/{r[2] * 1e3:.2f}) "
                 f"plain {p_ms * 1e3:9.2f} us ({r[0] * 1e3:.2f}/{r[3] * 1e3:.2f}) "
                 f"weights {gbps:7.1f} GB/s = {100 * gbps * 1e9 / PEAK_HBM_BYTES_PER_S:.1f}% "
-                f"of 3.35 TB/s")
+                f"of 3.35 TB/s; bound {bound * 1e3:.2f} us ({bound_by(*work[tag])})")
         del ws
     out = {}
     for tag in ("K2", "K4"):
         mine = [r for r in rows if r["kernel"] == tag and r["R"] == 8]
+        # no one PyTorch call computes a matmul over the packed int4 format
         out[tag] = dict(max_abs_err=max(r["err"] for r in rows if r["kernel"] == tag),
                         ms=sum(r["ms"] for r in mine) / len(mine),
-                        plain_ms=sum(r["plain_ms"] for r in mine) / len(mine))
+                        plain_ms=sum(r["plain_ms"] for r in mine) / len(mine),
+                        bound_ms=sum(r["bound_ms"] for r in mine) / len(mine),
+                        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in mine)
+                        else "operations",
+                        library_ms=None)
     return out
 
 
@@ -520,16 +635,20 @@ def phase_k1_q8_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> dic
         k1_ms = time_ms(torch, lambda i: prefix_decode_attention(q, *kv16, mask, i % L, q_pos),
                         2 * L, host_ahead=True)
         gbps = B * (qp + 1) * H * (2 * D + 8) / (k_ms * 1e-3) / 1e9
-        rows.append(dict(q_pos=qp, err=err, ms=k_ms, plain_ms=p_ms))
+        ops, traffic = decode_bound(B, qp + 1, H, D, 2 * D + 8)  # int8 rows + 2 fp32 scales
+        rows.append(dict(q_pos=qp, err=err, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=roofline_ms(ops, traffic), bound_by=bound_by(ops, traffic)))
         log(f"[6] int8 cache q_pos={qp:5d} max_abs_err={err:.3e} "
             f"kernel {k_ms * 1e3:8.2f} us ({r[1] * 1e3:.2f}/{r[2] * 1e3:.2f}) "
             f"plain {p_ms * 1e3:9.2f} us ({r[0] * 1e3:.2f}/{r[3] * 1e3:.2f}) "
             f"kernel {gbps:7.1f} GB/s = {100 * gbps * 1e9 / PEAK_HBM_BYTES_PER_S:.1f}% of 3.35 TB/s; "
-            f"K1 on a bf16 cache {k1_ms * 1e3:.2f} us")
+            f"K1 on a bf16 cache {k1_ms * 1e3:.2f} us; bound "
+            f"{roofline_ms(ops, traffic) * 1e3:.2f} us ({bound_by(ops, traffic)})")
     del cache, c, kv16
     headline = next(r for r in rows if r["q_pos"] == prompt_len + 287)
-    return dict(max_abs_err=max(r["err"] for r in rows),
-                ms=headline["ms"], plain_ms=headline["plain_ms"])
+    # no one PyTorch call reads the int8 cache with its scales
+    return dict(max_abs_err=max(r["err"] for r in rows), library_ms=None,
+                **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
 
 
 def check_q8_prefill_cache(torch, pipe, cfg) -> float:
@@ -584,15 +703,74 @@ def _within(got, want, tol: float) -> bool:
     return bool(((got.float() - want.float()).abs() <= tol + tol * want.float().abs()).all())
 
 
+def flash_work(torch, mask, H: int, D: int, causal: bool) -> dict:
+    """Operations and bytes of one K3 call at these inputs: 4 D (forward)
+    and 10 D (backward) per (query, key) pair the masks allow, a row with no
+    allowed key counting all S keys (it averages V over them); each input
+    read once, each output written once (forward: q, k, v, mask in; out,
+    lse out; backward: q, k, v, out, dout, mask, lse in; dq, dk, dv out)."""
+    B, S = mask.shape
+    real = mask > 0
+    keys = real.int().cumsum(1) if causal else real.sum(1, keepdim=True).expand(B, S)
+    pairs = H * int(torch.where(keys > 0, keys, S).sum())
+    tensor = B * S * H * D * 2  # one bf16 [B, S, H, D] tensor
+    small = B * S * 4 + B * H * S * 4  # the int32 mask and the fp32 lse
+    return {"fwd": (4 * D * pairs, 4 * tensor + small), "bwd": (10 * D * pairs, 8 * tensor + small)}
+
+
+def rows_with_key(mask, causal: bool):
+    """[B, S] bool: the query rows that have an allowed key."""
+    real = mask > 0
+    return real.cumsum(1) > 0 if causal else real.any(1, keepdim=True).expand_as(real)
+
+
+def sdpa_inputs(torch, q, k, v, mask, causal: bool):
+    """The [B, H, S, D] views and keyword arguments of the one-call
+    counterpart of K3: `is_causal` with no pads, a boolean causal and pad
+    mask [B, 1, S, S] with them, no mask for full attention over real keys."""
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    real = mask > 0
+    if bool(real.all()):
+        return views, ({"is_causal": True} if causal else {})
+    allowed = real[:, None, None, :]
+    if causal:
+        S = mask.shape[1]
+        allowed = allowed & torch.ones((S, S), dtype=torch.bool, device=mask.device).tril()
+    return views, {"attn_mask": allowed}
+
+
+def cuda_kernel_names(torch, fn, top: int = 3) -> str:
+    """The CUDA kernels one call of `fn` ran, by device time (one profiler
+    pass); names cut to 80 characters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    timed = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = getattr(e, "cuda_time_total", 0) if t is None else t
+        if t > 0 and getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type):
+            timed.append((t, e.key))
+    if not timed:
+        return "not measured (the profiler showed no device time)"
+    return "; ".join(f"{name[:80]} {t:.1f} us" for t, name in sorted(timed, reverse=True)[:top])
+
+
 def phase_flash_vs_plain(torch, dev) -> dict:
     """K3 forward and backward against the plain version (autograd through
     the bias path) at the training shapes; every row is compared, those with
-    no allowed key included. bf16 device times, taken in turns."""
+    no allowed key included. In bf16 also against SDPA (the rows with a key)
+    and device times of kernel, plain and SDPA, taken in turns."""
+    import torch.nn.functional as F
+
     from plangen_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(99)
-    stats = {"fwd": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0),
-             "bwd": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)}
+    stats = {key: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                       bound_parts={}) for key in ("fwd", "bwd")}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         tol_out, tol_grad = FLASH_TOLERANCE[name]
@@ -623,31 +801,93 @@ def phase_flash_vs_plain(torch, dev) -> dict:
             line = (f"[8] K3 {label} [{B}, {S}, {H}, {D}] {'causal' if causal else 'full'} "
                     f"pads {pads} {name}: out max_abs_err {err_f:.3e}, dq/dk/dv {err_b:.3e}")
             if dtype == torch.bfloat16:
-                scale = D ** -0.5
-                o, lse = fa.flash_attention_fwd(q, k, v, mask, causal, scale)
-                ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-                ref_out = fa.flash_attention_reference(*ref_leaves, mask, causal, scale)
-                fwd = timed_pair(
-                    torch, lambda i: fa.flash_attention_fwd(q, k, v, mask, causal, scale),
-                    lambda i: fa.flash_attention_reference(q, k, v, mask, causal, scale), 20)
-                bwd = timed_pair(
-                    torch, lambda i: fa.flash_attention_bwd(q, k, v, mask, o, dout, lse,
-                                                            causal, scale),
-                    lambda i: torch.autograd.grad(ref_out, ref_leaves, dout,
-                                                  retain_graph=True), 10)
-                for key, r in (("fwd", fwd), ("bwd", bwd)):
-                    stats[key]["ms"] += r[0]
-                    stats[key]["plain_ms"] += r[1]
-                    line += (f"; {key} kernel {r[0] * 1e3:.2f} us ({r[2][1] * 1e3:.2f}/"
-                             f"{r[2][2] * 1e3:.2f}) plain {r[1] * 1e3:.2f} us "
-                             f"({r[2][0] * 1e3:.2f}/{r[2][3] * 1e3:.2f})")
-                del ref_out, ref_leaves
+                line += "; " + flash_against_library(torch, F, fa, q, k, v, dout, mask, causal,
+                                                     label, stats)
             log(line)
-    log(f"[8] K3 bf16, the three shapes summed (one layer of uni, mmu and SigLIP): "
-        f"forward {stats['fwd']['ms'] * 1e3:.2f} us vs plain {stats['fwd']['plain_ms'] * 1e3:.2f}"
-        f" us; backward ({fa.BACKWARD_KERNELS_PER_CALL} kernels a call: Delta, dK/dV, dQ) "
-        f"{stats['bwd']['ms'] * 1e3:.2f} us vs plain {stats['bwd']['plain_ms'] * 1e3:.2f} us")
+    for key, what in (("fwd", "forward"), ("bwd", f"backward ({fa.BACKWARD_KERNELS_PER_CALL} "
+                                                  "kernels a call: Delta, dK/dV, dQ)")):
+        st = stats[key]
+        log(f"[8] K3 bf16 {what}, the three shapes summed (one layer of uni, mmu and SigLIP): "
+            f"kernel {st['ms'] * 1e3:.2f} us, plain {st['plain_ms'] * 1e3:.2f} us, SDPA "
+            f"{st['library_ms'] * 1e3:.2f} us, bound {st['bound_ms'] * 1e3:.2f} us = "
+            f"{100 * st['bound_ms'] / st['ms']:.1f}% of the kernel's time")
+        parts = st.pop("bound_parts")
+        st["bound_by"] = max(parts.items(), key=lambda kv: kv[1][0])[1][1]
     return stats
+
+
+def flash_against_library(torch, F, fa, q, k, v, dout, mask, causal, label, stats) -> str:
+    """One bf16 K3 shape against SDPA (values on the rows with a key; the
+    backend it ran), then device times of kernel, plain and SDPA, forward and
+    backward, in turns; adds them and the bound to `stats`."""
+    B, S, H, D = q.shape
+    scale = D ** -0.5
+    # values: SDPA leaves rows with no allowed key NaN or 0, so those rows
+    # get no output gradient here and are not compared
+    keep = rows_with_key(mask, causal)[:, :, None, None]
+    g = dout * keep
+    lib_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    views, kw = sdpa_inputs(torch, *lib_leaves, mask, causal)
+    lib_out = F.scaled_dot_product_attention(*views, **kw).transpose(1, 2)
+    lib_out.backward(g)
+    k3_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    k3_out = fa.flash_attention(*k3_leaves, mask, causal=causal)
+    k3_out.backward(g)
+    torch.cuda.synchronize()
+    tol_out, tol_grad = FLASH_TOLERANCE["bfloat16"]
+    check(_within(k3_out[keep.expand_as(k3_out)], lib_out[keep.expand_as(lib_out)], tol_out),
+          f"K3 {label}: SDPA and the kernel differ on rows with a key")
+    diffs, nonfinite = [], 0
+    for n, a, b in zip("qkv", k3_leaves, lib_leaves):
+        ok = torch.isfinite(b.grad)
+        nonfinite += int((~ok).sum())
+        check(_within(a.grad[ok], b.grad[ok], tol_grad), f"K3 {label}: SDPA d{n} differs")
+        diffs.append((a.grad[ok].float() - b.grad[ok].float()).abs().max().item())
+    out_diff = (k3_out - lib_out)[keep.expand_as(k3_out)].abs().max().item()
+    lib_note = (f"SDPA vs kernel: out {out_diff:.3e}, dq/dk/dv {max(diffs):.3e} ({nonfinite} "
+                "non-finite SDPA gradient entries not compared)")
+
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal, scale)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref_out = fa.flash_attention_reference(*ref_leaves, mask, causal, scale)
+    views_t, kw_t = sdpa_inputs(torch, q, k, v, mask, causal)
+    lib_ref_out = F.scaled_dot_product_attention(*views, **kw)
+    dout_t = dout.transpose(1, 2)
+    backend = cuda_kernel_names(torch, lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*views, **kw), lib_leaves, dout_t))
+    calls = {
+        "fwd": (lambda i: fa.flash_attention_fwd(q, k, v, mask, causal, scale),
+                lambda i: fa.flash_attention_reference(q, k, v, mask, causal, scale),
+                lambda i: F.scaled_dot_product_attention(*views_t, **kw_t), 20),
+        "bwd": (lambda i: fa.flash_attention_bwd(q, k, v, mask, o, dout, lse, causal, scale),
+                lambda i: torch.autograd.grad(ref_out, ref_leaves, dout, retain_graph=True),
+                lambda i: torch.autograd.grad(lib_ref_out, lib_leaves, dout_t,
+                                              retain_graph=True), 10),
+    }
+    work = flash_work(torch, mask, H, D, causal)
+    line = lib_note
+    for key, (kernel, plain, library, iters) in calls.items():
+        p1 = time_ms(torch, plain, iters, host_ahead=True)
+        k1 = time_ms(torch, kernel, iters, host_ahead=True)
+        l1 = time_ms(torch, library, iters, host_ahead=True)
+        l2 = time_ms(torch, library, iters, host_ahead=True)
+        k2 = time_ms(torch, kernel, iters, host_ahead=True)
+        p2 = time_ms(torch, plain, iters, host_ahead=True)
+        k_ms, p_ms, l_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+        flops, nbytes = work[key]
+        bound = roofline_ms(flops, nbytes)
+        st = stats[key]
+        st["ms"] += k_ms
+        st["plain_ms"] += p_ms
+        st["library_ms"] += l_ms
+        st["bound_ms"] += bound
+        st["bound_parts"][label] = (bound, bound_by(flops, nbytes))
+        line += (f"; {key} kernel {k_ms * 1e3:.2f} us ({k1 * 1e3:.2f}/{k2 * 1e3:.2f}) "
+                 f"= {flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, plain {p_ms * 1e3:.2f} us "
+                 f"({p1 * 1e3:.2f}/{p2 * 1e3:.2f}), SDPA {l_ms * 1e3:.2f} us "
+                 f"({l1 * 1e3:.2f}/{l2 * 1e3:.2f}), bound {bound * 1e3:.2f} us "
+                 f"({bound_by(flops, nbytes)}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return line + f"; SDPA's kernels (forward and backward): {backend}"
 
 
 def train_flops(model, cfg, batches) -> tuple:
@@ -688,7 +928,7 @@ def phase_training(torch, dev) -> dict:
     import statistics
     import tempfile
 
-    from plangen_tpu.config import FlowConfig, PlanGenConfig, apply_overrides
+    from plangen_tpu_torch.config import FlowConfig, PlanGenConfig, apply_overrides
     from plangen_tpu_torch.data.loader import infinite
     from plangen_tpu_torch.ops import flash_attention as fa
     from plangen_tpu_torch.train.step import make_loss_fn
@@ -752,8 +992,10 @@ def phase_training(torch, dev) -> dict:
         torch.cuda.reset_peak_memory_stats()  # the training run's own peak
         reset_counters(counters)
         losses, seconds = [], []
+        wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd)
         for step in range(TRAIN_STEPS):
-            counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+            counts = [w.launches for w in wrappers]
+            tc_counts = [w.routes["tensor_cores"] for w in wrappers]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             trainer.state, metrics = trainer.step_fn(trainer.state,
@@ -762,13 +1004,14 @@ def phase_training(torch, dev) -> dict:
             seconds.append(time.perf_counter() - t0)
             metrics = {k: float(v) for k, v in metrics.items()}
             losses.append(metrics["loss"])
-            calls = (fa.flash_attention_fwd.launches - counts[0],
-                     fa.flash_attention_bwd.launches - counts[1])
+            calls = tuple(w.launches - c for w, c in zip(wrappers, counts))
+            tc_calls = tuple(w.routes["tensor_cores"] - c for w, c in zip(wrappers, tc_counts))
             log(f"[9] step {step}: {seconds[-1]:.3f} s, K3 forward/backward calls {calls}, "
-                f"{json.dumps(metrics)}")
+                f"on the tensor cores {tc_calls}, {json.dumps(metrics)}")
             check(all(math.isfinite(v) for v in metrics.values()), f"step {step}: non-finite loss")
-            check(calls == (n_calls, n_calls),
-                  f"step {step}: K3 calls {calls}, expected {n_calls} each")
+            check(calls == (n_calls, n_calls) and tc_calls == calls,
+                  f"step {step}: K3 calls {calls} ({tc_calls} on the tensor cores), "
+                  f"expected {n_calls} each, all on the tensor cores")
         launches = {k: w.launches for k, (w, _) in counters.items()}
         plain_calls = fa.flash_attention_reference.calls
         check(plain_calls == 0, f"the plain attention ran {plain_calls} times in training")
@@ -779,8 +1022,9 @@ def phase_training(torch, dev) -> dict:
         unchanged = [n for n, p in model.named_parameters()
                      if mask[n] and torch.equal(p.detach().cpu(), before[n])]
         check(not unchanged, f"trainable tensors unchanged: {unchanged[:5]}")
-        log(f"[9] K3 calls a step {n_calls} forward and {n_calls} backward (each backward call "
-            f"launches {fa.BACKWARD_KERNELS_PER_CALL} kernels), plain calls 0; gen_vision_model "
+        log(f"[9] K3 calls a step {n_calls} forward and {n_calls} backward, all on the tensor "
+            f"cores (each backward call launches {fa.BACKWARD_KERNELS_PER_CALL} kernels), "
+            f"plain calls 0; gen_vision_model "
             f"bit-for-bit unchanged; all {len(before)} trainable tensors changed; loss "
             f"{losses[0]:.4f} -> {losses[-1]:.4f} after {TRAIN_STEPS - 1} updates")
 
@@ -793,10 +1037,52 @@ def phase_training(torch, dev) -> dict:
         log(f"[9] model FLOPs a step {flops / 1e12:.2f} T ({parts}), "
             f"{flops / s_step / 1e12:.1f} TFLOP/s = {flops / s_step / PEAK_BF16_FLOPS:.3%} "
             f"of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16")
+        profile_step(torch, trainer, loader)
         del trainer, model, before, vq
         return launches
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+
+
+# device-time groups of a training step, by kernel name (first match wins)
+KERNEL_GROUPS = (("K3 forward", ("flash_fwd",)), ("K3 backward", ("flash_bwd",)),
+                 ("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+                 ("softmax / log-softmax", ("softmax",)), ("other", ("",)))
+
+
+def profile_step(torch, trainer, loader) -> None:
+    """One more training step under `torch.profiler`: the device's busy time
+    (the sum of its kernels) against the step's wall time under the
+    profiler, and the device time by kernel group, largest kernels named."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = trainer.device_batches(next(loader))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.state, _ = trainer.step_fn(trainer.state, batches)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = getattr(e, "cuda_time_total", 0) if t is None else t
+        if t > 0 and "CUDA" in str(getattr(e, "device_type", "")):
+            kernels.append((t, e.count, e.key))
+    if not kernels:
+        log("[9] profile: not measured (the profiler showed no device time)")
+        return
+    busy = sum(t for t, _, _ in kernels)
+    groups = dict.fromkeys((g for g, _ in KERNEL_GROUPS), 0.0)
+    for t, _, name in kernels:
+        low = name.lower()
+        groups[next(g for g, keys in KERNEL_GROUPS if any(k in low for k in keys))] += t
+    log(f"[9] profile of one step: wall {wall_us / 1e3:.1f} ms under the profiler, device "
+        f"busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, idle "
+        f"{100 * (1 - busy / wall_us):.1f}%), {sum(c for _, c, _ in kernels)} kernel launches; "
+        + ", ".join(f"{g} {t / 1e3:.1f} ms" for g, t in groups.items()))
+    log("[9] largest kernels: " + "; ".join(
+        f"{name[:70]} {t / 1e3:.2f} ms x{c}" for t, c, name in sorted(kernels, reverse=True)[:8]))
 
 
 def device_line(torch) -> dict:
@@ -898,6 +1184,9 @@ def main() -> int:
         "max_abs_err": stats["max_abs_err"],
         "ms": stats["ms"],
         "plain_ms": stats["plain_ms"],
+        "bound_ms": stats["bound_ms"],
+        "bound_by": stats["bound_by"],
+        "library_ms": stats["library_ms"],
     } for name, source, replaces, stats in kernels]}))
     log(json.dumps(device_line(torch)))
     return 0

@@ -2,9 +2,11 @@
 
 The JAX package `plangen_tpu` is the reference: every module here is held
 against its counterpart there on the same weights and inputs
-(tests/test_torch_*.py). This package imports `torch` and never `jax`; it
-shares only the JAX-free host modules `plangen_tpu.config` and
-`plangen_tpu.text` (and `plangen_tpu.convert.jax_to_torch` for weights).
+(tests/test_torch_*.py). This package imports `torch` and never `jax`, and
+nothing of `plangen_tpu` either: it keeps its own copies of the host modules
+it needs (`config.py`, `text/`, and `convert/export.py` for weights), which
+tests/test_torch_copies.py holds equal to the originals. Only the tests
+import both packages.
 
 Layout mirrors the JAX package:
 
@@ -19,6 +21,9 @@ Layout mirrors the JAX package:
   * `train/`    — losses, the multi-task train step, AdamW, checkpoints and
                   the `Trainer`; `data/` — the training data it reads.
   * `convert/`  — weights from the JAX parameter tree, seeded random init.
+  * `config.py`, `text/` — the configuration dataclasses and the host-side
+                  text layer (grounding strings, chat template, batching,
+                  tokenizers).
   * `csrc/`     — CUDA sources (sm_90a); `kernels/` builds and loads them.
 """
 

@@ -1,10 +1,11 @@
 """Weights into the port: from the JAX parameter tree, or seeded random.
 
 `load_jax_params` turns a JAX `vlm.init`-style tree into the HF-named state
-dict with `plangen_tpu.convert.jax_to_torch.export_state_dict` (linear
-[in, out] -> [out, in], conv HWIO -> OIHW, stacked [L, ...] unstacked; it
-imports no jax) and loads every exported key with `strict=True`. A real
-Janus-Pro checkpoint, being HF-named, loads by the same `load_state_dict`.
+dict with `convert/export.py::export_state_dict`, the port's copy of the
+JAX package's exporter (linear [in, out] -> [out, in], conv HWIO -> OIHW,
+stacked [L, ...] unstacked), and loads every exported key with
+`strict=True`. A real Janus-Pro checkpoint, being HF-named, loads by the
+same `load_state_dict`.
 
 `load_jax_quantized_params` loads a tree that the JAX package's
 `quantize_lm_params` (int8 `{w_q8, scale}` leaves) or
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from plangen_tpu.config import PlanGenModelConfig
+from plangen_tpu_torch.config import PlanGenModelConfig
 from plangen_tpu_torch.models.llama import RMSNorm
 from plangen_tpu_torch.models.siglip import VisionTransformer
 from plangen_tpu_torch.ops.quant import (
@@ -45,7 +46,7 @@ def load_jax_params(
     Every key the model owns must be present and every exported key outside
     SKIPPED_PREFIXES must be owned by the model (strict loading). Values are
     cast to each parameter's dtype on copy."""
-    from plangen_tpu.convert.jax_to_torch import export_state_dict
+    from plangen_tpu_torch.convert.export import export_state_dict
 
     sd = export_state_dict(params_np, cfg)
     skipped = sorted(k for k in sd if k.startswith(SKIPPED_PREFIXES))
@@ -89,7 +90,7 @@ def load_jax_quantized_params(
     (`quantized_structure_`, which frees its dense weights); a model that is
     already quantized must have the tree's form. Loading is strict: every
     buffer and parameter of the model is filled and every leaf is used."""
-    from plangen_tpu.convert.jax_to_torch import export_state_dict
+    from plangen_tpu_torch.convert.export import export_state_dict
 
     form = jax_quant_form(params_np)
     have = quant_form(model)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Sequence, Union
 
-from plangen_tpu.config import PlanGenConfig
+from plangen_tpu_torch.config import PlanGenConfig
 
 
 class ConcatDataset:

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from plangen_tpu_torch.data.schema import Sample
-from plangen_tpu.text.grounding import serialize_grounding
+from plangen_tpu_torch.text.grounding import serialize_grounding
 
 
 class ToyDataset:

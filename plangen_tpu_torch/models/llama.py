@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from plangen_tpu.config import LlamaConfig
+from plangen_tpu_torch.config import LlamaConfig
 from plangen_tpu_torch.ops.attention import (
     dot_product_attention, dot_product_attention_q8, make_causal_bias, quantize_kv,
 )

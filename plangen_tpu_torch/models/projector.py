@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from plangen_tpu.config import ProjectorConfig
+from plangen_tpu_torch.config import ProjectorConfig
 
 
 class MlpProjector(nn.Module):

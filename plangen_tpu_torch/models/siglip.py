@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from plangen_tpu.config import SigLIPConfig
+from plangen_tpu_torch.config import SigLIPConfig
 from plangen_tpu_torch.ops.attention import dot_product_attention
 from plangen_tpu_torch.ops.flash_attention import flash_attention
 

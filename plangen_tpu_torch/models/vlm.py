@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from plangen_tpu.config import PlanGenModelConfig
+from plangen_tpu_torch.config import PlanGenModelConfig
 from plangen_tpu_torch.models.llama import LlamaForCausalLM
 from plangen_tpu_torch.models.projector import GenHead, MlpProjector
 from plangen_tpu_torch.models.siglip import SigLIPVisionModel

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from plangen_tpu.config import VQConfig
+from plangen_tpu_torch.config import VQConfig
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,11 @@ in the model's [B, S, H, D] layout.
     `csrc/flash_attention.cu` (built at first use) through a
     `torch.autograd.Function`: `flash_attention_fwd` (output and the fp32
     log-sum-exp of every row) and `flash_attention_bwd` (Delta, then dK/dV,
-    then dQ: three kernel launches per call). Anything the kernels do not
-    take raises; nothing falls back.
+    then dQ: three kernel launches per call). The route follows the dtype:
+    bfloat16 runs on the tensor cores (`wgmma` forward, `mma.sync`
+    backward), float32 on the CUDA cores (fp32 FMA, the check of the
+    algorithm). Anything the kernels do not take raises; nothing falls
+    back, and neither route falls back to the other.
   * On a CPU tensor it runs `flash_attention_reference`, the plain version:
     `make_causal_bias` (or the non-causal pad bias) plus
     `dot_product_attention`, differentiated by autograd.
@@ -26,8 +29,9 @@ path's gradients. (The Pallas kernel leaves such rows unspecified, but the
 training loss reads one of them: the last left pad predicts the first real
 token.)
 
-`<wrapper>.launches` counts kernel-launching calls and
-`flash_attention_reference.calls` counts plain-version calls.
+`<wrapper>.launches` counts kernel-launching calls, `<wrapper>.routes`
+the same calls by route (`ROUTES`), and `flash_attention_reference.calls`
+counts plain-version calls.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from plangen_tpu_torch.ops.attention import NEG_INF, dot_product_attention, make
 KERNEL_NAME = "flash_attention"
 BACKWARD_KERNELS_PER_CALL = 3  # Delta, dK/dV, dQ
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 _HEAD_DIMS = (64, 128)
 
 
@@ -98,7 +103,7 @@ def _check_cuda(tensors, like: torch.Tensor) -> None:
     D = like.shape[-1]
     if D not in _HEAD_DIMS:
         raise ValueError(f"the CUDA kernels take head_dim in {_HEAD_DIMS}, not {D}")
-    for t in tensors:
+    for t in (like, *tensors):
         if t.dtype != like.dtype:
             raise TypeError(f"operand dtypes differ: {t.dtype} and {like.dtype}")
         if t.shape != like.shape:
@@ -142,10 +147,12 @@ def flash_attention_fwd(
     if err != 0:
         raise RuntimeError(f"flash attention forward launch failed: cudaError {err}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.routes[ROUTES[q.dtype]] += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.routes = dict.fromkeys(ROUTES.values(), 0)
 
 
 def flash_attention_bwd(
@@ -172,10 +179,12 @@ def flash_attention_bwd(
     if err != 0:
         raise RuntimeError(f"flash attention backward launch failed: cudaError {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.routes[ROUTES[q.dtype]] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = dict.fromkeys(ROUTES.values(), 0)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from plangen_tpu.config import PlanGenModelConfig
+from plangen_tpu_torch.config import PlanGenModelConfig
 from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.ops.sampling import (
     Generators, apply_teacher_forcing, cfg_combine, sample_categorical,

@@ -16,7 +16,7 @@ from typing import Dict
 
 import torch
 
-from plangen_tpu.config import LlamaConfig
+from plangen_tpu_torch.config import LlamaConfig
 
 KVCache = Dict[str, torch.Tensor]
 

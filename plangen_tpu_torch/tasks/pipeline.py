@@ -30,7 +30,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from plangen_tpu.config import GenerationConfig, PlanGenModelConfig
+from plangen_tpu_torch.config import GenerationConfig, PlanGenModelConfig
 from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.ops.quant import MODES, quant_form, quantize_model_
 from plangen_tpu_torch.ops.sampling import Generators

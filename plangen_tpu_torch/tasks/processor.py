@@ -22,17 +22,17 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from plangen_tpu.config import GenerationConfig
-from plangen_tpu.text.batching import (
+from plangen_tpu_torch.config import GenerationConfig
+from plangen_tpu_torch.text.batching import (
     expand_image_tags,
     extend_mask_for_image,
     interleave_cfg,
     left_pad_batch,
     pad_to_common_length,
 )
-from plangen_tpu.text.chat_template import MMU_QUESTION, DeepSeekTemplate
-from plangen_tpu.text.grounding import GROUNDING_OPEN
-from plangen_tpu.text.tokenizer import IMAGE_START_TAG, IMAGE_TAG, Tokenizer
+from plangen_tpu_torch.text.chat_template import MMU_QUESTION, DeepSeekTemplate
+from plangen_tpu_torch.text.grounding import GROUNDING_OPEN
+from plangen_tpu_torch.text.tokenizer import IMAGE_START_TAG, IMAGE_TAG, Tokenizer
 
 
 def bucket_length(n: int, bucket: int = 32) -> int:

@@ -27,7 +27,7 @@ from typing import Callable, Dict, Iterator, Optional
 import torch
 from torch import nn
 
-from plangen_tpu.config import OptimConfig
+from plangen_tpu_torch.config import OptimConfig
 
 TUNING_MODES: Dict[str, Callable[[str], bool]] = {
     "all": lambda p: True,

@@ -21,7 +21,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from plangen_tpu.config import PlanGenModelConfig, TrainConfig
+from plangen_tpu_torch.config import PlanGenModelConfig, TrainConfig
 from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.train.loss import mmu_loss, plan_loss, t2i_loss
 from plangen_tpu_torch.train.optim import AdamW

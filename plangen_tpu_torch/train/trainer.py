@@ -1,5 +1,9 @@
 """The training loop: the JAX package's `Trainer` on one device.
 
+The device is the card (`cuda`) unless the caller names another:
+`Trainer(cfg, device="cpu")` trains on the CPU, and `Trainer(cfg)` raises
+when there is no card.
+
 Port of `plangen_tpu/train/trainer.py`: build the tokenizer, processor,
 model (fp32 masters) and AdamW; iterate the flows' data; run the multi-task
 step; log JSONL metrics; check the loss for non-finite values at the logging
@@ -22,8 +26,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from plangen_tpu.config import PlanGenConfig, validate_config
-from plangen_tpu.text.tokenizer import load_tokenizer
+from plangen_tpu_torch.config import PlanGenConfig, validate_config
+from plangen_tpu_torch.text.tokenizer import load_tokenizer
 from plangen_tpu_torch.convert.from_jax import init_params
 from plangen_tpu_torch.data.collate import collate_flows
 from plangen_tpu_torch.data.loader import BatchLoader, CombinedLoader, PrefetchLoader, infinite
@@ -59,10 +63,16 @@ class Trainer:
         _check_supported(cfg, model is not None)
         self.cfg = cfg
         tcfg = cfg.train
-        self.device = torch.device(device if device is not None else "cpu")
+        if device is None:  # the card, unless the caller asks for another device
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "the Trainer runs on the card by default and torch.cuda.is_available() "
+                    "is False: pass device='cpu' to train on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
 
-        # the tokenizer loader imports no jax; without janus_path it falls
-        # back to the byte-level tokenizer
+        # without janus_path the tokenizer loader falls back to the
+        # byte-level tokenizer
         self.tokenizer = load_tokenizer(
             cfg.janus_path,
             vocab_size=cfg.model.llama.vocab_size,

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from plangen_tpu.config import LlamaConfig, PlanGenModelConfig
+from plangen_tpu_torch.config import LlamaConfig, PlanGenModelConfig
 from plangen_tpu_torch.convert import init_params
 from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.ops import decode_attention as da
@@ -385,6 +385,106 @@ def test_k3_wrappers_raise(cuda, bad):
     assert fa.flash_attention_fwd.launches == launches
 
 
+# ------------------------- K3 bf16 on the tensor cores (wgmma forward, mma.sync backward)
+
+# left pads per row: none, a few, two whole 64-row tiles and more, every key
+TC_PADS = (0, 5, 130, None)
+
+
+def _tc_inputs(dev, S, D, H=2, Hkv=None, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, Hkv = len(TC_PADS), Hkv or H
+    q = torch.randn((B, S, H, D), generator=g, device=dev)
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev) for _ in range(2))
+    dout = torch.randn((B, S, H, D), generator=g, device=dev)
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    for r, pad in enumerate(TC_PADS):
+        mask[r, :S if pad is None else pad] = 0
+    return [t.to(torch.bfloat16) for t in (q, k, v, dout)], mask
+
+
+def _run_k3(q, k, v, dout, mask, causal, fn=fa.flash_attention):
+    """(out, dq, dk, dv) of `fn` on fresh leaves."""
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves, mask, causal=causal)
+    out.backward(dout)
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [160, 576, 736, 1000, 1024])
+def test_k3_tensor_cores_match_plain_and_fp32_kernel(cuda, S, D, causal):
+    """bf16 through the tensor-core route against the plain version (fp32
+    softmax over bf16 inputs) and against the fp32 CUDA-core kernel on the
+    same values, every row: the left-padded rows under the causal mask and
+    the fully padded row take the bias path (the mean of V)."""
+    (q, k, v, dout), mask = _tc_inputs(cuda, S, D)
+    before = (fa.flash_attention_fwd.routes["tensor_cores"],
+              fa.flash_attention_bwd.routes["tensor_cores"])
+    got = _run_k3(q, k, v, dout, mask, causal)
+    assert (fa.flash_attention_fwd.routes["tensor_cores"],
+            fa.flash_attention_bwd.routes["tensor_cores"]) == (before[0] + 1, before[1] + 1)
+    plain = _run_k3(q, k, v, dout, mask, causal, fa.flash_attention_reference)
+    fp32 = _run_k3(*(t.float() for t in (q, k, v, dout)), mask, causal)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("out", "dq", "dk", "dv"), got, plain, fp32):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2,
+                                   msg=lambda m, n=name: f"{n} vs plain: {m}")
+        torch.testing.assert_close(a.float(), c, rtol=2e-2, atol=2e-2,
+                                   msg=lambda m, n=name: f"{n} vs the fp32 kernel: {m}")
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_k3_tensor_cores_are_deterministic(cuda, causal):
+    """No atomics: two runs give the same bits, output and gradients."""
+    (q, k, v, dout), mask = _tc_inputs(cuda, 736, 128)
+    first = _run_k3(q, k, v, dout, mask, causal)
+    second = _run_k3(q, k, v, dout, mask, causal)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+def test_k3_tensor_cores_gqa_sums_over_each_group(cuda):
+    (q, k, v, dout), mask = _tc_inputs(cuda, 576, 128, H=4, Hkv=2)
+    got = _run_k3(q, k, v, dout, mask, True)
+    want = _run_k3(q, k, v, dout, mask, True, fa.flash_attention_reference)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.parametrize("bad", ["head_dim_96", "fp16", "mixed_dtypes", "fwd_strided",
+                                 "fwd_misaligned", "fwd_mask_int64", "bwd_lse_bf16"])
+def test_k3_tensor_core_wrappers_raise(cuda, bad):
+    (q, k, v, dout), mask = _tc_inputs(cuda, 160, 64)
+    call = lambda: fa.flash_attention(q, k, v, mask)  # noqa: E731
+    if bad == "head_dim_96":
+        q, k, v = (torch.cat([t, t[..., :32]], -1) for t in (q, k, v))
+    elif bad == "fp16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "mixed_dtypes":
+        call = lambda: fa.flash_attention_fwd(q, k.float(), v, mask, True, 0.125)  # noqa: E731
+    elif bad == "fwd_strided":
+        call = lambda: fa.flash_attention_fwd(q.transpose(1, 2), k, v, mask, True, 0.125)  # noqa: E731
+    elif bad == "fwd_misaligned":
+        shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)[1:].view(q.shape)
+        shifted.copy_(q)
+        call = lambda: fa.flash_attention_fwd(shifted, k, v, mask, True, 0.125)  # noqa: E731
+    elif bad == "fwd_mask_int64":
+        call = lambda: fa.flash_attention_fwd(q, k, v, mask.long(), True, 0.125)  # noqa: E731
+    elif bad == "bwd_lse_bf16":
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, True, 0.125)
+        call = lambda: fa.flash_attention_bwd(q, k, v, mask, out, dout,  # noqa: E731
+                                              lse.to(torch.bfloat16), True, 0.125)
+    launches = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    with pytest.raises((TypeError, ValueError)):
+        call()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == launches
+
+
 # ------------------------------------- the training step (K3 forward + backward)
 
 
@@ -423,7 +523,7 @@ def test_tiny_train_step_on_card_equals_cpu(cuda):
     """One stage3 train step with use_flash_attention, fp32 compute: on the
     card every attention goes through K3 forward and backward; the losses,
     gradients and updated weights equal the CPU step's (plain version)."""
-    from plangen_tpu.config import TrainConfig
+    from plangen_tpu_torch.config import TrainConfig
     from plangen_tpu_torch.ops import flash_attention as fa
     from plangen_tpu_torch.train.optim import make_optimizer
     from plangen_tpu_torch.train.step import init_train_state, make_train_step

@@ -83,3 +83,41 @@ def test_chip_smoke_last_line_counts_the_card_it_used():
         line = chip_smoke.device_line(FakeTorch)
         assert line == {"ok": True, "device": {
             "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_chip_smoke_flash_bound_counts_the_allowed_pairs(causal):
+    """`flash_work` counts what the masks allow, a row with no allowed key
+    counting all S keys, against a count by hand; `roofline_ms` is the larger
+    of the two times at the data sheet's rates."""
+    smoke = _chip_smoke()
+    B, S, H, D = 4, 70, 3, 64
+    mask = torch.ones((B, S), dtype=torch.int32)
+    mask[1, :5] = 0
+    mask[2, :66] = 0
+    mask[3] = 0
+    pairs = 0
+    for b in range(B):
+        for i in range(S):
+            n = sum(int(mask[b, j] > 0 and (not causal or j <= i)) for j in range(S))
+            pairs += H * (n if n else S)
+    work = smoke.flash_work(torch, mask, H, D, causal)
+    tensor, small = B * S * H * D * 2, B * S * 4 + B * H * S * 4
+    assert work == {"fwd": (4 * D * pairs, 4 * tensor + small),
+                    "bwd": (10 * D * pairs, 8 * tensor + small)}
+    keep = smoke.rows_with_key(mask, causal)
+    assert keep.tolist() == [[any(mask[b, j] > 0 and (not causal or j <= i) for j in range(S))
+                              for i in range(S)] for b in range(B)]
+    assert smoke.roofline_ms(989e12, 1.0) == pytest.approx(1e3)
+    assert smoke.roofline_ms(1.0, 3.35e12) == pytest.approx(1e3)
+    assert smoke.bound_by(2 * 989e12, 3.35e12) == "operations"
+    assert smoke.bound_by(989e12, 2 * 3.35e12) == "bytes"

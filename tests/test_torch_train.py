@@ -392,7 +392,7 @@ def test_trainer_fit_save_and_resume(tmp_path):
     from plangen_tpu_torch.train.trainer import Trainer
 
     cfg = _toy_config(tmp_path, checkpoints_total_limit=1)
-    t1 = Trainer(cfg)
+    t1 = Trainer(cfg, device="cpu")
     vq = {k: v.clone() for k, v in t1.model.gen_vision_model.state_dict().items()}
     lm0 = t1.model.language_model.lm_head.weight.detach().clone()
     m = t1.fit(max_steps=2)
@@ -404,7 +404,7 @@ def test_trainer_fit_save_and_resume(tmp_path):
     assert len(lines) == 1 and "loss_mmu_1" in lines[0]
     assert (tmp_path / "run" / "params.jsonl").read_text().count("\n") == sum(t1.mask.values())
 
-    t2 = Trainer(cfg)
+    t2 = Trainer(cfg, device="cpu")
     assert t2.maybe_resume() == 2 and t2.state.step == 2 and t2.state.opt.count == 2
     for (k, a), b in zip(t1.model.state_dict().items(), t2.model.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
@@ -414,10 +414,23 @@ def test_trainer_fit_save_and_resume(tmp_path):
     assert t2.ckpt.all_steps() == [3]
 
 
+def test_trainer_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """Without `device` the Trainer takes the card, and raises when there is
+    none; with device="cpu" it trains there."""
+    from plangen_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(_toy_config(tmp_path))
+    t = Trainer(_toy_config(tmp_path), device="cpu")
+    assert t.device.type == "cpu" and next(t.model.parameters()).device.type == "cpu"
+    assert np.isfinite(t.fit(max_steps=1)["loss"])
+
+
 def test_trainer_nonfinite_loss_checkpoints_and_raises(tmp_path):
     from plangen_tpu_torch.train.trainer import Trainer
 
-    t = Trainer(_toy_config(tmp_path))
+    t = Trainer(_toy_config(tmp_path), device="cpu")
     real_step = t.step_fn
 
     def poisoned(state, batches):
@@ -446,11 +459,12 @@ def test_trainer_unported_options_raise(tmp_path, override):
 
     cfg = apply_overrides(_toy_config(tmp_path), override)
     with pytest.raises(NotImplementedError):
-        Trainer(cfg).fit(max_steps=1)
+        Trainer(cfg, device="cpu").fit(max_steps=1)
 
 
 def test_trainer_validate_fn_raises(tmp_path):
     from plangen_tpu_torch.train.trainer import Trainer
 
     with pytest.raises(NotImplementedError):
-        Trainer(_toy_config(tmp_path)).fit(max_steps=1, validate_fn=lambda *a: None)
+        Trainer(_toy_config(tmp_path), device="cpu").fit(max_steps=1,
+                                                         validate_fn=lambda *a: None)
