@@ -9,14 +9,17 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
   1. header: torch / CUDA versions, the card's name and power limit, TF32 off;
   2. build: compile every kernel source in csrc/ (one nvcc each, started
      together) and print nvcc seconds, registers and spills; then the SASS
-     (`cuobjdump`) must show HGMMA in the bf16 K3 forward and HMMA in the
-     bf16 K3 dK/dV and dQ kernels (the tensor cores);
+     (`cuobjdump`) must show HGMMA (`wgmma`, the tensor cores) in the bf16
+     K3 forward, dK/dV and dQ kernels;
   3. K1 vs its plain PyTorch version at Janus-Pro-1B decode shapes
      (L=24, B=8, S=1024, H=16, D=128), bf16 and fp32, left-padded rows,
-     with device times (the host enqueues ahead) taken in turns (plain,
-     kernel, kernel, plain); in bf16 also the one-call counterpart
+     at q_pos 390, 127, 128, 677 and 1023: its split plan and grid (blocks
+     live at that q_pos, per SM), two calls bitwise equal, device times
+     (the host enqueues ahead) taken in turns (plain, kernel, kernel,
+     plain); in bf16 also the one-call counterpart
      (`scaled_dot_product_attention` of the query over the layer's live
-     prefix with the pad mask), between the two kernel turns;
+     prefix with the pad mask), between the two kernel turns, and the
+     kernel's share of the bound and of SDPA's time;
   4. the bf16 slice: `PlanGenPipeline.layout_to_image` at Janus-Pro-1B width
      (seeded random bf16 weights, byte-fallback tokenizer) on 4 requests
      and then on 1, checking shapes, ranges, and that every decode-attention
@@ -111,8 +114,9 @@ TRAIN_REL_TOL = 2e-2  # step 0, K3 vs the plain attention path
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 data sheet
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 data sheet
 # SASS instruction each bf16 K3 kernel must contain: the tensor cores
-TENSOR_CORE_SASS = {"flash_fwd_tc_kernel": "HGMMA", "flash_bwd_dkdv_tc_kernel": "HMMA",
-                    "flash_bwd_dq_tc_kernel": "HMMA"}
+TENSOR_CORE_SASS = {"flash_fwd_tc_kernel": "HGMMA", "flash_bwd_dkdv_tc_kernel": "HGMMA",
+                    "flash_bwd_dq_tc_kernel": "HGMMA"}
+N_SMS = 132  # H100 SXM
 
 
 class SmokeFailure(RuntimeError):
@@ -256,10 +260,14 @@ def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> di
     import torch.nn.functional as F
 
     from plangen_tpu_torch.ops.decode_attention import (
-        prefix_decode_attention, prefix_decode_attention_reference,
+        prefix_decode_attention, prefix_decode_attention_reference, split_plan,
     )
 
     L, B, S, H, D = (shape[k] for k in "LBSHD")
+    n_split, slots = split_plan(S)
+    log(f"[3] K1 split plan at S={S}: {n_split} splits of {slots} slots per (row, head), "
+        f"one cluster of {n_split} blocks each; grid ({n_split}, {B * H}) = "
+        f"{n_split * B * H} blocks = {n_split * B * H / N_SMS:.2f} per SM")
     gen = torch.Generator(device=dev).manual_seed(1234)
     mask = left_padded_mask(torch, B, S, min(prompt_len + 576, S), dev)
     q_positions = [prompt_len, 127, 128, prompt_len + 287, S - 1]
@@ -279,6 +287,9 @@ def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> di
                 err = max(err, (got.float() - want.float()).abs().max().item())
             check(err <= TOLERANCE[name],
                   f"K1 vs plain {name} q_pos={qp}: max abs err {err:.3e} > {TOLERANCE[name]}")
+            again = [prefix_decode_attention(q, k, v, mask, L - 1, q_pos) for _ in range(2)]
+            check(torch.equal(*again), f"K1 {name} q_pos={qp}: two calls differ")
+            live_blocks = (min(qp, S - 1) // slots + 1) * B * H
 
             # layers in turn, so each launch reads cache the L2 has not kept
             def kernel(i):
@@ -317,7 +328,8 @@ def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> di
             rows.append(dict(dtype=name, q_pos=qp, err=err, ms=k_ms, plain_ms=p_ms,
                              library_ms=lib_ms, bound_ms=bound,
                              bound_by=bound_by(ops, traffic)))
-            log(f"[3] {name:8s} q_pos={qp:5d} max_abs_err={err:.3e} "
+            log(f"[3] {name:8s} q_pos={qp:5d} max_abs_err={err:.3e} bitwise equal twice, "
+                f"{live_blocks} live blocks = {live_blocks / N_SMS:.2f} per SM; "
                 f"kernel {k_ms * 1e3:8.2f} us ({k1 * 1e3:.2f}/{k2 * 1e3:.2f}) "
                 f"plain {p_ms * 1e3:9.2f} us ({p1 * 1e3:.2f}/{p2 * 1e3:.2f}) "
                 f"kernel {gbps:7.1f} GB/s = "
@@ -325,7 +337,8 @@ def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> di
                 f"{bound * 1e3:.2f} us ({bound_by(ops, traffic)}) = {100 * bound / k_ms:.1f}% "
                 "of the kernel's time"
                 + ("" if lib_ms is None else
-                   f"; SDPA {lib_ms * 1e3:.2f} us (max abs diff to K1 {lib_err:.3e})"))
+                   f"; SDPA {lib_ms * 1e3:.2f} us (max abs diff to K1 {lib_err:.3e}), "
+                   f"K1 takes {k_ms / lib_ms:.2f}x SDPA's time"))
         del k, v, q
     headline = next(r for r in rows
                     if r["dtype"] == "bfloat16" and r["q_pos"] == prompt_len + 287)
@@ -805,7 +818,7 @@ def phase_flash_vs_plain(torch, dev) -> dict:
                                                      label, stats)
             log(line)
     for key, what in (("fwd", "forward"), ("bwd", f"backward ({fa.BACKWARD_KERNELS_PER_CALL} "
-                                                  "kernels a call: Delta, dK/dV, dQ)")):
+                                                  "kernels a call: dQ with Delta, dK/dV)")):
         st = stats[key]
         log(f"[8] K3 bf16 {what}, the three shapes summed (one layer of uni, mmu and SigLIP): "
             f"kernel {st['ms'] * 1e3:.2f} us, plain {st['plain_ms'] * 1e3:.2f} us, SDPA "

@@ -46,10 +46,10 @@
 //   training shapes, far above the card's balance point (~295), so the aim
 //   is the 989 TFLOP/s of the bf16 tensor cores. The forward runs on one
 //   warpgroup per 64-query tile with `wgmma` (S = Q K^T from shared memory,
-//   O += P V with P in registers); the backward on 4 warps per 64-row tile
-//   with `mma.sync` m16n8k16 and `ldmatrix`. The backward rounds dS to bf16
-//   before its two products (the rounding point every bf16 flash backward
-//   has), besides P before dV.
+//   O += P V with P in registers), and so does the backward, on one
+//   warpgroup per 64-row tile. The backward rounds dS to bf16 before its two
+//   products (the rounding point every bf16 flash backward has), besides P
+//   before dV.
 // * float32: the CUDA cores (fp32 FMA, 67 TFLOP/s peak), the first version
 //   kept as the 1e-4 check of the algorithm on the card. 256 threads as a
 //   16 x 16 grid; 64-row tiles of q, k, v and dO are staged in shared memory,
@@ -65,11 +65,15 @@
 // does, and mask the ragged edge (S not a multiple of 64) in the kernel;
 // nothing is padded.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -637,17 +641,29 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 // every tile of a block with a row that has no allowed key. The epilogue stages O / l in bf16 through the Q
 // tile's shared memory for 16-byte stores.
 //
-// Backward: a Delta kernel (16-byte loads, one row per D / 8 lanes), then
-// flash_bwd_dkdv_tc_kernel (block: a 64-key tile, loops over query tiles)
-// and flash_bwd_dq_tc_kernel (block: a 64-query tile, loops over key
-// tiles), each on 4 warps of 16 rows with `mma.sync` m16n8k16 (bf16 in, fp32
-// accumulate), operands by `ldmatrix` (`.trans` for the [k, n] row-major
-// side), the streamed tiles double-buffered by `cp.async`; the fixed tiles
-// stay in shared memory, dK, dV and dQ in fp32 registers; P is recomputed
-// from the saved log-sum-exp, and P and dS go to bf16 in registers as the A
-// operand of the next product (the accumulator layout of m16n8 is the A
-// layout of m16n8k16). 7 products a tile pair: S and dP twice (once per
-// pass), dV, dK, dQ.
+// Backward: flash_bwd_dq_tc_kernel (block: a 64-query tile, loops over key
+// tiles; it also computes Delta = rowsum(dO * O) of its rows, 16-byte
+// loads, and writes it), then flash_bwd_dkdv_tc_kernel (block: a 64-key
+// tile, loops over query tiles, reads Delta), each one warpgroup running
+// `wgmma` (bf16 in, fp32 accumulate), no atomics (deterministic). The fixed
+// tiles are copied once by `cp.async`; the streamed ones (K and V, or Q and
+// dO) come by TMA into a two-stage ring, one thread arming a stage's
+// mbarrier, the next tile's copies in flight while this one computes; all
+// in the swizzled layout above. dK, dV and dQ stay in fp32 registers. P is
+// recomputed from the saved log-sum-exp, and P and dS go to bf16 in
+// registers as the register-A operand of the next product, as P does in
+// the forward. 7
+// products a tile pair, with their operands:
+//   dK/dV  S^T = K Q^T    A: K, K-major      B: Q, K-major      (m64n64)
+//          dP^T = V dO^T  A: V, K-major      B: dO, K-major     (m64n64)
+//          dV += P^T dO   A: P^T, registers  B: dO, MN-major    (m64n{D})
+//          dK += dS^T Q   A: dS^T, registers B: Q, MN-major     (m64n{D})
+//   dQ     S = Q K^T      A: Q, K-major      B: K, K-major      (m64n64)
+//          dP = dO V^T    A: dO, K-major     B: V, K-major      (m64n64)
+//          dQ += dS K     A: dS, registers   B: K, MN-major     (m64n{D})
+// At D 128 the dK/dV kernel holds S^T and dP^T (32 fp32 registers each)
+// beside dK and dV (64 each) in about 240 registers; with the streamed
+// tiles' copy addresses gone to TMA nothing spills.
 
 namespace tc {
 
@@ -678,6 +694,70 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + (((a + 1023u) & ~1023u) - a);
 }
 
+// 4 bytes from src, or zeros when !ok (src is then not read)
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+constexpr float kLog2e = 1.4426950408889634f;
+// 2^x (MUFU.EX2, as __expf uses it); the backward's exp(s * scale - lse) is
+// 2^(s * scale * log2 e - lse * log2 e), one FFMA and one EX2
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- TMA into the swizzled tiles (the backward's streamed tiles)
+//
+// A tensor map over a bf16 [B, S, H, D] tensor with a box of 64 rows x 64
+// columns and the 128-byte swizzle writes exactly one sub-tile of the
+// layout above (chunk c of row r at c ^ (r % 8)); rows at or past S are
+// zero-filled. One thread starts the copies of a stage and arms its
+// mbarrier with the byte count; every thread waits on the barrier's phase.
+
+// the descriptor into the TMA unit's cache ahead of its first use
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Wait for phase `parity` of the barrier to complete. A copy that never
+// lands traps (a launch error) after some seconds instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (tries > (1u << 24)) __trap();
+  }
+}
+// rows [row0, row0 + 64) of head h of batch b into the [64, D] tile at dst:
+// D / 64 boxes, one per 64-column sub-tile
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, int b, int h,
+                                              int row0, uint32_t bar) {
+#pragma unroll
+  for (int j = 0; j < D / 64; ++j)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst + j * kSub),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(64 * j), "r"(h), "r"(row0), "r"(b), "r"(bar)
+        : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -727,7 +807,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// ---- wgmma (forward)
+// ---- wgmma (forward and backward)
 
 // shared-memory matrix descriptor, 128-byte swizzle: start address, leading
 // byte offset (MN-major: between 64-wide atoms along M/N, here the next 64
@@ -983,139 +1063,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- mma.sync (backward)
+// ---- wgmma (backward)
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// c[16 x 8] += a[16 x 16] b[16 x 8]; fragments as PTX's m16n8k16 layouts
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[n][.] += A[a_row0 .. + 15][:] . B[n-row][:] over the head dim: the
-// warp's 16 rows of staged tile A against all 64 rows of staged tile B
+// Store acc[64 x D] * mul, the m64n{D} accumulator of the warpgroup (rows
+// row0 + 16 warp + lane / 4 and + 8), into a [B, S, H, D] tensor; rows >= S
+// are dropped
 template <int D>
-__device__ __forceinline__ void warp_qkt(float (&acc)[8][4], uint32_t sA, int a_row0,
-                                         uint32_t sB, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(sA + swz(a_row0 + (lane & 15), 2 * kk + (lane >> 4)), a);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bb[4];
-      ldsm_x4(sB + swz(16 * np + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1)),
-              bb);
-      mma_bf16(acc[2 * np], a, bb[0], bb[1]);
-      mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
-    }
-  }
-}
-
-// acc[16 x D] += P[16 x 64] B[64 x D]: P as A fragments in registers
-// (p[4 kk .. 4 kk + 3] for columns 16 kk .. + 15), B a staged [64, D] tile
-// read transposed
-template <int D>
-__device__ __forceinline__ void warp_pv(float (&acc)[D / 8][4], const uint32_t (&p)[16],
-                                        uint32_t sB, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t bb[4];
-      ldsm_x4_t(sB + swz(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3), 2 * np + (lane >> 4)),
-                bb);
-      mma_bf16(acc[2 * np], p + 4 * kk, bb[0], bb[1]);
-      mma_bf16(acc[2 * np + 1], p + 4 * kk, bb[2], bb[3]);
-    }
-}
-
-// x[n][i] (an m16n8 accumulator over 64 columns) as bf16 A fragments
-__device__ __forceinline__ void to_a_frags(const float (&x)[8][4], uint32_t (&f)[16]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    f[4 * kk + 0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    f[4 * kk + 1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    f[4 * kk + 2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    f[4 * kk + 3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
-}
-
-// Store acc[16 x D] * mul (rows row0 + lane / 4 and + 8) into a [B, S, H, D]
-// tensor; rows >= S are dropped
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 8][4],
-                                           float mul, int b, int h, int row0, int S, int H,
-                                           int lane) {
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 2],
+                                           float mul, int b, int h, int row0, int S, int H) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int s = row0 + lane / 4 + 8 * hr;
+    const int s = row0 + 16 * warp + lane / 4 + 8 * hr;
     if (s >= S) continue;
     bf16* row = dst + ((static_cast<size_t>(b) * S + s) * H + h) * D + 2 * (lane % 4);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(row + 8 * n) =
-          pack_bf16(acc[n][2 * hr] * mul, acc[n][2 * hr + 1] * mul);
+          pack_bf16(acc[4 * n + 2 * hr] * mul, acc[4 * n + 2 * hr + 1] * mul);
   }
 }
 
-// Delta[b, h, i] = sum_d dO . O in fp32: D / 8 lanes per (b, i, h) row, 16
-// bytes each; grid ceil(B * S * H * D / 8 / 256), block 256
-template <int D>
-__global__ void __launch_bounds__(256)
-    flash_bwd_delta_tc_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                              float* __restrict__ delta, int rows, int S, int H) {
-  constexpr int kLanes = D / 8;
-  const int idx = blockIdx.x * 256 + threadIdx.x;
-  const int row = idx / kLanes, c = idx % kLanes;
-  float sum = 0.f;
-  if (row < rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(o + static_cast<size_t>(row) * D + c * 8);
-    const uint4 g = *reinterpret_cast<const uint4*>(dout + static_cast<size_t>(row) * D + c * 8);
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 af = __bfloat1622float2(a2[i]), gf = __bfloat1622float2(g2[i]);
-      sum = fmaf(af.x, gf.x, sum);
-      sum = fmaf(af.y, gf.y, sum);
-    }
-  }
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (row < rows && c == 0) {
-    const int hh = row % H, bi = row / H, i = bi % S, bb = bi / S;
-    delta[(static_cast<size_t>(bb) * H + hh) * S + i] = sum;
-  }
-}
+// After the six tiles: dK/dV: two stages of lse and Delta, the key tile's
+// mask and 2 full flags; dQ: two stages of masks, 2 x 2 full flags and the
+// tile's Delta; then, at kBwdBars, the two stages' mbarriers
+constexpr int kBwdBars = (4 * kTile + kTile + 4) * sizeof(int);
+
 
 template <int D>
 constexpr size_t bwd_smem_bytes() {
-  // two fixed tiles, two stages of two streamed tiles; dK/dV: two stages of
-  // lse and Delta, the key tile's mask and 2 full flags; dQ: two stages of
-  // masks and 2 x 2 full flags
-  return 6 * tile_bytes<D>() + (4 * kTile + kTile + 4) * sizeof(int) + 1024;
+  return 6 * tile_bytes<D>() + kBwdBars + 2 * sizeof(uint64_t) + 1024;
 }
 
-// dK and dV of one key tile; grid (ceil(S / 64), B * H), block 128
+// dK and dV of one key tile; grid (ceil(S / 64), B * H), block 128 (one
+// warpgroup). (Two key tiles a block, one per warpgroup sharing each
+// streamed query tile, halve the L2 traffic but were slower on the card:
+// the two warpgroups then meet at every tile's barrier, where two blocks
+// of one warpgroup each drift apart and overlap their products.)
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const int* __restrict__ mask,
-                             const bf16* __restrict__ dout, const float* __restrict__ lse,
+    flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_dout,
+                             const bf16* __restrict__ k, const bf16* __restrict__ v,
+                             const int* __restrict__ mask, const float* __restrict__ lse,
                              const float* __restrict__ delta, bf16* __restrict__ dk,
                              bf16* __restrict__ dv, int S, int H, float scale) {
   constexpr int kTB = tile_bytes<D>();
@@ -1128,6 +1118,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sDelta = sLse + 2 * kTile;                        // [2][64]
   int* sMask = reinterpret_cast<int*>(sDelta + 2 * kTile);  // [64] (the key tile)
   int* sFull = sMask + kTile;                                // [2]
+  const uint32_t bar0 = sK + 6 * kTB + kBwdBars;  // the stages' mbarriers: bar0 + 8 st
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int kv_tile = blockIdx.x, kv0 = kv_tile * kTile;
@@ -1144,92 +1135,172 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int count = n_pre + n_q - t_diag;
   auto tile_of = [&](int i) { return i < n_pre ? i : t_diag + (i - n_pre); };
+  // a query tile's Q and dO by TMA (one thread), its lse and Delta by
+  // cp.async (rows >= S get 0: their P is 0)
   auto prefetch = [&](int i, int st) {
     const int r0 = tile_of(i) * kTile;
-    load_tile_async<D>(sQ(st), q, b, h, r0, S, H);
-    load_tile_async<D>(sdO(st), dout, b, h, r0, S, H);
-    if (threadIdx.x < kTile) {  // rows >= S get 0 (their P is 0)
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar0 + 8 * st, 2 * kTB);
+      tma_load_tile<D>(sQ(st), &tm_q, b, h, r0, bar0 + 8 * st);
+      tma_load_tile<D>(sdO(st), &tm_dout, b, h, r0, bar0 + 8 * st);
+    }
+    if (threadIdx.x < kTile) {
       const int i_row = r0 + threadIdx.x;
-      const size_t at = static_cast<size_t>(bh) * S + i_row;
-      sLse[st * kTile + threadIdx.x] = (i_row < S) ? lse[at] : 0.f;
-      sDelta[st * kTile + threadIdx.x] = (i_row < S) ? delta[at] : 0.f;
+      const size_t at = static_cast<size_t>(bh) * S + min(i_row, S - 1);
+      cp_async4_zfill(smem_u32(sLse + st * kTile + threadIdx.x), lse + at, i_row < S);
+      cp_async4_zfill(smem_u32(sDelta + st * kTile + threadIdx.x), delta + at, i_row < S);
     }
   };
 
+  if (threadIdx.x == 0) {
+    prefetch_map(&tm_q);
+    prefetch_map(&tm_dout);
+    mbar_init(bar0);
+    mbar_init(bar0 + 8);
+    mbar_init_fence();
+  }
+  __syncthreads();  // the barriers are set up before any thread waits on them
   load_tile_async<D>(sK, k, b, h, kv0, S, H);
   load_tile_async<D>(sV, v, b, h, kv0, S, H);
   load_mask_tile(sMask, sFull, mask, b, kv0, S);
   if (count > 0) prefetch(0, 0);
   cp_async_commit();
 
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+  float acc_dk[D / 2], acc_dv[D / 2];  // m64n{D} accumulators: rows are this tile's keys
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc_dk[n][i] = 0.f;
-      acc_dv[n][i] = 0.f;
-    }
+  for (int e = 0; e < D / 2; ++e) {
+    acc_dk[e] = 0.f;
+    acc_dv[e] = 0.f;
+  }
   const int kr0 = 16 * warp + lane / 4;  // this thread's keys: kr0 and kr0 + 8
   const int c0 = 2 * (lane % 4);         // its queries c0, c0 + 1 of each 8
+  const float scale_log2 = scale * kLog2e;
 
   for (int i = 0; i < count; ++i) {
     const int st = i & 1, q0 = tile_of(i) * kTile;
     cp_async_wait_all();
-    __syncthreads();
-    if (i + 1 < count) prefetch(i + 1, st ^ 1);
-    cp_async_commit();
+    mbar_wait(bar0 + 8 * st, (i >> 1) & 1);
+    fence_proxy_async();
+    __syncthreads();  // tile i landed; every read of the other stage is done
 
-    // rows: this warp's 16 keys; columns: the tile's 64 queries
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = 0.f;
-        dp[n][e] = 0.f;
-      }
-    warp_qkt<D>(s, sK, 16 * warp, sQ(st), lane);     // S^T = K Q^T
-    warp_qkt<D>(dp, sV, 16 * warp, sdO(st), lane);  // dP^T = V dO^T
     const float* l_st = sLse + st * kTile;
     const float* d_st = sDelta + st * kTile;
+    // query rows at or past S need no mask here: their Q and dO rows are
+    // zeros, so they add nothing to dK or dV
     const bool masked = no_key<kCausal>(q0, first, S) || !(sFull[0] && sFull[1]) ||
-                        (kCausal && kv0 + kTile - 1 > q0) || q0 + kTile > S;
+                        (kCausal && kv0 + kTile - 1 > q0);
+
+    // S^T = K Q^T and dP^T = V dO^T over the head dim, m64n64k16, both
+    // operands K-major in shared memory
+    float s[32], dp[32];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int e = 0; e < 32; ++e) {
+      s[e] = 0.f;
+      dp[e] = 0.f;
+    }
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kr = kr0 + 8 * (e >> 1), qc = 8 * n + c0 + (e & 1);
-        float p;
-        if (masked) {
-          const int qi = q0 + qc;
-          const bool row_no_key = no_key<kCausal>(qi, first, S);
-          const bool ok = qi < S && key_ok<kCausal>(qi, kv0 + kr, row_no_key, sMask[kr], S);
-          p = ok ? __expf((row_no_key ? 0.f : s[n][e] * scale) - l_st[qc]) : 0.f;
-        } else {
-          p = __expf(s[n][e] * scale - l_st[qc]);
-        }
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - d_st[qc]);
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kSub + (kk & 3) * 32;
+      wgmma_ss(s, gmma_desc(sK + off, 16, 1024), gmma_desc(sQ(st) + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kSub + (kk & 3) * 32;
+      wgmma_ss(dp, gmma_desc(sV + off, 16, 1024), gmma_desc(sdO(st) + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    // the next tile's copies go out while the products run
+    if (i + 1 < count) prefetch(i + 1, st ^ 1);
+    cp_async_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // s[e]: key kr0 + 8 * ((e >> 1) & 1), query 8 * (e >> 2) + c0 + (e & 1);
+    // P^T and dS^T in bf16 as the A fragments of the next products:
+    // pf[4 kk .. 4 kk + 3] holds queries 16 kk .. + 15
     uint32_t pf[16], dsf[16];
-    to_a_frags(s, pf);
-    to_a_frags(dp, dsf);
-    warp_pv<D>(acc_dv, pf, sdO(st), lane);  // dV += P^T dO
-    warp_pv<D>(acc_dk, dsf, sQ(st), lane);  // dK += dS^T Q
+    // one straight-line body per case: the mask is uniform over the tile
+    auto p_and_ds = [&](auto with_mask) {
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int kr = kr0 + 8 * ((e >> 1) & 1);
+        float p[2], ds[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int qc = 8 * (e >> 2) + c0 + x;
+          const float l2 = l_st[qc] * kLog2e;
+          if constexpr (decltype(with_mask)::value) {
+            const int qi = q0 + qc;
+            const bool row_no_key = no_key<kCausal>(qi, first, S);
+            const bool ok = qi < S && key_ok<kCausal>(qi, kv0 + kr, row_no_key, sMask[kr], S);
+            p[x] = ok ? exp2_approx((row_no_key ? 0.f : s[e + x] * scale_log2) - l2) : 0.f;
+          } else {
+            p[x] = exp2_approx(fmaf(s[e + x], scale_log2, -l2));
+          }
+          ds[x] = p[x] * (dp[e + x] - d_st[qc]);
+        }
+        pf[e / 2] = pack_bf16(p[0], p[1]);
+        dsf[e / 2] = pack_bf16(ds[0], ds[1]);
+      }
+    };
+    if (masked)
+      p_and_ds(std::true_type{});
+    else
+      p_and_ds(std::false_type{});
+
+    // dV += P^T dO and dK += dS^T Q, m64n{D}k16: dO and Q MN-major through
+    // the transpose bit, k16 step kk = query rows 16 kk .. + 15
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<D>(acc_dv, pf + 4 * kk, gmma_desc(sdO(st) + kk * 2048, kSub, 1024));
+      wgmma_rs<D>(acc_dk, dsf + 4 * kk, gmma_desc(sQ(st) + kk * 2048, kSub, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
   }
-  store_rows<D>(dk, acc_dk, scale, b, h, kv0 + 16 * warp, S, H, lane);
-  store_rows<D>(dv, acc_dv, 1.f, b, h, kv0 + 16 * warp, S, H, lane);
+  store_rows<D>(dk, acc_dk, scale, b, h, kv0, S, H);
+  store_rows<D>(dv, acc_dv, 1.f, b, h, kv0, S, H);
 }
 
-// dQ of one query tile; grid (ceil(S / 64), B * H), block 128
+// Delta = rowsum(dO * O) in fp32 of the 64 rows of two staged tiles (rows
+// past S are zeros), two threads a row with 16-byte shared-memory loads;
+// both threads of the pair get the row's value
+template <int D>
+__device__ __forceinline__ float tile_delta(const unsigned char* o, const unsigned char* dout) {
+  const int r = threadIdx.x >> 1, part = threadIdx.x & 1;
+  float sum = 0.f;
+#pragma unroll
+  for (int cc = 0; cc < D / 16; ++cc) {
+    const int c = part * (D / 16) + cc;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + swz(r, c));
+    const uint4 g = *reinterpret_cast<const uint4*>(dout + swz(r, c));
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 af = __bfloat1622float2(a2[i]), gf = __bfloat1622float2(g2[i]);
+      sum = fmaf(af.x, gf.x, sum);
+      sum = fmaf(af.y, gf.y, sum);
+    }
+  }
+  return sum + __shfl_xor_sync(0xffffffffu, sum, 1);
+}
+
+// dQ of one query tile, and Delta of its rows (written for the dK/dV kernel,
+// which runs after it); grid (ceil(S / 64), B * H), block 128 (one warpgroup)
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, const int* __restrict__ mask,
-                           const bf16* __restrict__ dout, const float* __restrict__ lse,
-                           const float* __restrict__ delta, bf16* __restrict__ dq, int S,
-                           int H, float scale) {
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const bf16* __restrict__ q, const int* __restrict__ mask,
+                           const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                           const float* __restrict__ lse, float* __restrict__ delta,
+                           bf16* __restrict__ dq, int S, int H, float scale) {
   constexpr int kTB = tile_bytes<D>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -1238,6 +1309,8 @@ __global__ void __launch_bounds__(kThreads)
   auto sV = [&](int st) { return sQ + (3 + 2 * st) * kTB; };
   int* sMask = reinterpret_cast<int*>(smem + 6 * kTB);  // [2][64]
   int* sFull = sMask + 2 * kTile;                      // [2][2]
+  float* sDelta = reinterpret_cast<float*>(sFull + 4);  // [64] this tile's rows
+  const uint32_t bar0 = sQ + 6 * kTB + kBwdBars;  // the stages' mbarriers: bar0 + 8 st
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q_tile = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
@@ -1247,76 +1320,163 @@ __global__ void __launch_bounds__(kThreads)
   const bool block_no_key = no_key<kCausal>(q0, first, S);
   int n_kv = (S + kTile - 1) / kTile;
   if (kCausal && !block_no_key) n_kv = min(n_kv, q_tile + 1);
+  // a key tile's K and V by TMA (one thread)
+  auto prefetch = [&](int t, int st) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar0 + 8 * st, 2 * kTB);
+      tma_load_tile<D>(sK(st), &tm_k, b, h, t * kTile, bar0 + 8 * st);
+      tma_load_tile<D>(sV(st), &tm_v, b, h, t * kTile, bar0 + 8 * st);
+    }
+  };
 
+  if (threadIdx.x == 0) {
+    prefetch_map(&tm_k);
+    prefetch_map(&tm_v);
+    mbar_init(bar0);
+    mbar_init(bar0 + 8);
+    mbar_init_fence();
+  }
+  __syncthreads();  // the barriers are set up before any thread waits on them
   load_tile_async<D>(sQ, q, b, h, q0, S, H);
   load_tile_async<D>(sdO, dout, b, h, q0, S, H);
-  load_tile_async<D>(sK(0), k, b, h, 0, S, H);
-  load_tile_async<D>(sV(0), v, b, h, 0, S, H);
+  load_tile_async<D>(sK(1), out, b, h, q0, S, H);  // O, in stage 1 until tile 1 comes
   cp_async_commit();
+  prefetch(0, 0);
   load_mask_tile(sMask, sFull, mask, b, 0, S);
+  cp_async_wait_all();
+  __syncthreads();  // dO and O are in shared memory
+  {
+    const float d = tile_delta<D>(smem + 4 * kTB, smem + kTB);  // O at sK(1), dO
+    const int r = threadIdx.x >> 1;
+    if ((threadIdx.x & 1) == 0) {
+      sDelta[r] = d;
+      if (q0 + r < S) delta[static_cast<size_t>(bh) * S + q0 + r] = d;
+    }
+  }
+  fence_proxy_async();  // the reads of O come before tile 1's TMA writes there
+  __syncthreads();      // sDelta is complete
 
   const int qr0 = 16 * warp + lane / 4;  // this thread's queries: qr0 and qr0 + 8
   const int c0 = 2 * (lane % 4);         // its keys c0, c0 + 1 of each 8
-  float row_lse[2], row_delta[2];
+  const float scale_log2 = scale * kLog2e;
+  float row_lse2[2], row_delta[2];  // lse in base 2
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int qi = q0 + qr0 + 8 * hr;
-    const size_t at = static_cast<size_t>(bh) * S + qi;
-    row_lse[hr] = (qi < S) ? lse[at] : 0.f;
-    row_delta[hr] = (qi < S) ? delta[at] : 0.f;
+    row_lse2[hr] = (qi < S) ? lse[static_cast<size_t>(bh) * S + qi] * kLog2e : 0.f;
+    row_delta[hr] = sDelta[qr0 + 8 * hr];
   }
-  float acc[D / 8][4];
+  float acc[D / 2];  // dQ, the m64n{D} accumulator
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
 
   for (int t = 0; t < n_kv; ++t) {
     const int st = t & 1, kv0 = t * kTile;
     cp_async_wait_all();
-    __syncthreads();
+    mbar_wait(bar0 + 8 * st, (t >> 1) & 1);
+    fence_proxy_async();
+    __syncthreads();  // tile t landed; every read of the other stage is done
+
+    // S = Q K^T and dP = dO V^T, m64n64k16, both operands K-major
+    float s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s[e] = 0.f;
+      dp[e] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kSub + (kk & 3) * 32;
+      wgmma_ss(s, gmma_desc(sQ + off, 16, 1024), gmma_desc(sK(st) + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kSub + (kk & 3) * 32;
+      wgmma_ss(dp, gmma_desc(sdO + off, 16, 1024), gmma_desc(sV(st) + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    // the next tile's copies go out while the products run
     if (t + 1 < n_kv) {
-      load_tile_async<D>(sK(st ^ 1), k, b, h, kv0 + kTile, S, H);
-      load_tile_async<D>(sV(st ^ 1), v, b, h, kv0 + kTile, S, H);
+      prefetch(t + 1, st ^ 1);
       load_mask_tile(sMask + (st ^ 1) * kTile, sFull + 2 * (st ^ 1), mask, b, kv0 + kTile, S);
     }
-    cp_async_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
 
-    // rows: this warp's 16 queries; columns: the tile's 64 keys
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = 0.f;
-        dp[n][e] = 0.f;
-      }
-    warp_qkt<D>(s, sQ, 16 * warp, sK(st), lane);     // S = Q K^T
-    warp_qkt<D>(dp, sdO, 16 * warp, sV(st), lane);  // dP = dO V^T
+    // s[e]: query qr0 + 8 * ((e >> 1) & 1), key 8 * (e >> 2) + c0 + (e & 1);
+    // dS in bf16 as the A fragments of dQ += dS K
     const int* m = sMask + st * kTile;
     const bool masked = block_no_key || !(sFull[2 * st] && sFull[2 * st + 1]) ||
                         (kCausal && kv0 + kTile - 1 > q0);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1, kc = 8 * n + c0 + (e & 1);
-        float p;
-        if (masked) {
-          const int qi = q0 + qr0 + 8 * hr;
-          const bool row_no_key = no_key<kCausal>(qi, first, S);
-          const bool ok = key_ok<kCausal>(qi, kv0 + kc, row_no_key, m[kc], S);
-          p = ok ? __expf((row_no_key ? 0.f : s[n][e] * scale) - row_lse[hr]) : 0.f;
-        } else {
-          p = __expf(s[n][e] * scale - row_lse[hr]);
-        }
-        dp[n][e] = p * (dp[n][e] - row_delta[hr]);
-      }
     uint32_t dsf[16];
-    to_a_frags(dp, dsf);
-    warp_pv<D>(acc, dsf, sK(st), lane);  // dQ += dS K
+    // one straight-line body per case: the mask is uniform over the tile
+    auto ds_of = [&](auto with_mask) {
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int hr = (e >> 1) & 1;
+        float ds[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int kc = 8 * (e >> 2) + c0 + x;
+          float p;
+          if constexpr (decltype(with_mask)::value) {
+            const int qi = q0 + qr0 + 8 * hr;
+            const bool row_no_key = no_key<kCausal>(qi, first, S);
+            const bool ok = key_ok<kCausal>(qi, kv0 + kc, row_no_key, m[kc], S);
+            p = ok ? exp2_approx((row_no_key ? 0.f : s[e + x] * scale_log2) - row_lse2[hr])
+                   : 0.f;
+          } else {
+            p = exp2_approx(fmaf(s[e + x], scale_log2, -row_lse2[hr]));
+          }
+          ds[x] = p * (dp[e + x] - row_delta[hr]);
+        }
+        dsf[e / 2] = pack_bf16(ds[0], ds[1]);
+      }
+    };
+    if (masked)
+      ds_of(std::true_type{});
+    else
+      ds_of(std::false_type{});
+
+    // dQ += dS K, m64n{D}k16: K MN-major through the transpose bit
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc, dsf + 4 * kk, gmma_desc(sK(st) + kk * 2048, kSub, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
   }
-  store_rows<D>(dq, acc, scale, b, h, q0 + 16 * warp, S, H, lane);
+  store_rows<D>(dq, acc, scale, b, h, q0, S, H);
+}
+
+// The TMA descriptor of a bf16 [B, S, H, D] tensor for tma_load_tile: dims
+// innermost first (D, H, S, B), a box of 64 columns x 1 head x 64 rows x 1
+// batch, the 128-byte swizzle, zeros past the edge. cuTensorMapEncodeTiled
+// is looked up at run time by cudaGetDriverEntryPoint (no -lcuda).
+CUresult tile_map(CUtensorMap* map, const void* base, int B, int S, int H, int D) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(H) * D * 2,
+                                 static_cast<cuuint64_t>(S) * H * D * 2};  // bytes, dims 1-3
+  const cuuint32_t box[4] = {64, 1, kTile, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <int D, bool kCausal>
@@ -1346,20 +1506,20 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const int* m
   const bf16* tk = static_cast<const bf16*>(k);
   const bf16* tv = static_cast<const bf16*>(v);
   const bf16* tdo = static_cast<const bf16*>(dout);
-  const int rows = B * S * H;
-  const long long lanes = static_cast<long long>(rows) * (D / 8);
-  flash_bwd_delta_tc_kernel<D><<<static_cast<unsigned>((lanes + 255) / 256), 256, 0, stream>>>(
-      static_cast<const bf16*>(out), tdo, delta, rows, S, H);
+  const void* streamed[4] = {q, k, v, dout};
+  CUtensorMap maps[4];  // q, k, v, dout
+  for (int j = 0; j < 4; ++j)
+    if (tile_map(&maps[j], streamed[j], B, S, H, D) != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  // dQ first: it writes the Delta that the dK/dV kernel reads
+  const dim3 grid((S + kTile - 1) / kTile, B * H);
+  flash_bwd_dq_tc_kernel<D, kCausal><<<grid, kThreads, smem, stream>>>(
+      maps[1], maps[2], tq, mask, static_cast<const bf16*>(out), tdo, lse, delta,
+      static_cast<bf16*>(dq), S, H, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kTile - 1) / kTile, B * H);
   flash_bwd_dkdv_tc_kernel<D, kCausal><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, mask, tdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_tc_kernel<D, kCausal><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, mask, tdo, lse, delta, static_cast<bf16*>(dq), S, H, scale);
+      maps[0], maps[3], tk, tv, mask, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, H, scale);
   return cudaGetLastError();
 }
 

@@ -17,6 +17,12 @@ JAX package's XLA paths over that cache (`dot_product_attention_q8`,
 softmax scale, and each chunk's probabilities take `v_scale` before they
 are rounded to the query dtype.
 
+The kernel splits the live prefix over up to `MAX_SPLITS` blocks per
+(row, head), one thread-block cluster each, in a grid that `split_plan`
+fixes from S alone; `q_pos` stays in device memory, so nothing of a launch
+depends on its value. Slots past `q_pos` take no part in the softmax: a row
+whose live prefix is all pads gets the mean of V over slots 0..q_pos.
+
 `<wrapper>.launches` counts kernel launches and `<plain>.calls` counts
 plain-version calls, so a run can show which one carried it.
 """
@@ -25,13 +31,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from plangen_tpu_torch.ops.attention import NEG_INF
 
 CHUNK = 128
+MAX_SPLITS = 8  # the kernel's splits per (row, head): the portable cluster size
 KERNEL_NAME = "prefix_decode_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -48,25 +55,33 @@ def prefix_decode_attention_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version: the kernel's math over the masked full buffer.
 
-    q is scaled in fp32 before the dot (the TPU kernel's order), slots past
-    `q_pos` or under a pad are masked with NEG_INF, the softmax is fp32 and
-    the probabilities are rounded to the cache dtype before the PV product.
-    Returns [B, 1, H, D] in q.dtype."""
+    q is scaled in fp32 before the dot (the TPU kernel's order), slots under
+    a pad are masked with NEG_INF and slots past `q_pos` take no part, the
+    softmax is fp32 and the probabilities are rounded to the cache dtype
+    before the PV product. Returns [B, 1, H, D] in q.dtype."""
     prefix_decode_attention_reference.calls += 1
     D = q.shape[-1]
-    S = k_cache.shape[2]
     if scale is None:
         scale = D ** -0.5
     k = k_cache[layer].float()  # [B, S, H, D]
     v = v_cache[layer]
     s = torch.einsum("bhd,bshd->bhs", q[:, 0].float() * scale, k)
-    slots = torch.arange(S, device=q.device)
-    ok = (pad_mask[:, None, :] > 0) & (slots <= q_pos)[None, None, :]
-    s = torch.where(ok, s, torch.full((), NEG_INF, device=q.device))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = _live_softmax_numerator(s, pad_mask, q_pos)
     l_sum = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhs,bshd->bhd", p.to(v.dtype).float(), v.float())
     return (out / l_sum.clamp_min(1e-30)).to(q.dtype)[:, None]
+
+
+def _live_softmax_numerator(s, pad_mask, q_pos):
+    """exp(s - max) over the live slots [0, q_pos] of the logits s [B, H, S],
+    pads at NEG_INF, 0 past q_pos: a live prefix of pads only gives every
+    live slot the same weight, and no live slot at all gives zeros."""
+    slots = torch.arange(s.shape[-1], device=s.device)
+    live = (slots <= q_pos)[None, None, :]
+    s = torch.where(pad_mask[:, None, :] > 0, s, torch.full((), NEG_INF, device=s.device))
+    m = torch.where(live, s, torch.full((), float("-inf"), device=s.device))
+    m = m.amax(dim=-1, keepdim=True)
+    return torch.where(live, torch.exp(s - m), torch.zeros((), device=s.device))
 
 
 prefix_decode_attention_reference.calls = 0
@@ -99,6 +114,20 @@ def _check_inputs(q, k_cache, v_cache, pad_mask, layer, q_pos) -> None:
         )
 
 
+def split_plan(S: int) -> Tuple[int, int]:
+    """(splits, slots per split) of the kernel's grid for a cache of S slots.
+
+    The S / 128 chunks are spread over at most MAX_SPLITS blocks per (row,
+    head), whole chunks each, as evenly as that allows; the last split holds
+    slot S - 1. It depends on S alone, never on q_pos: a split whose slots
+    all lie past q_pos is launched and reads nothing."""
+    if S <= 0 or S % CHUNK:
+        raise ValueError(f"prefix decode attention needs S ({S}) % {CHUNK} == 0")
+    chunks = S // CHUNK
+    per = -(-chunks // MAX_SPLITS)
+    return -(-chunks // per), per * CHUNK
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     """The kernel's C entry point, built and loaded at first use."""
@@ -106,7 +135,7 @@ def _kernel_fn():
 
     fn = load_library(KERNEL_NAME).lib.plangen_prefix_decode_attention
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -130,6 +159,10 @@ def _check_cuda_common(q, pad_mask, q_pos, D, tensors) -> None:
         raise ValueError("all inputs must be on the same CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
+    # the kernel copies 16-byte vectors of every array; q_pos, one int32 read
+    # as such, may be any element of a positions tensor
+    if any(t.data_ptr() % 16 for t in tensors if t is not q_pos):
+        raise ValueError("q, the cache, its scales and pad_mask must be 16-byte aligned")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(
             f"inputs on {q.device} but the current device is "
@@ -145,7 +178,7 @@ def _launch_kernel(q, k_cache, v_cache, pad_mask, layer, q_pos, scale):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         pad_mask.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
         B, S, H, D, int(layer), float(scale), _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream().cuda_stream,
+        *split_plan(S), torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"prefix_decode_attention kernel launch failed: "
@@ -167,8 +200,9 @@ def prefix_decode_attention(
 
     Requires S % 128 == 0 and as many KV heads as query heads. Returns
     [B, 1, H, D] in q.dtype. CUDA inputs launch the kernel (float32 or
-    bfloat16, head_dim 64 or 128, contiguous, int32 mask and q_pos on the
-    device) and raise on anything else; CPU inputs run the plain version."""
+    bfloat16, head_dim 64 or 128, contiguous and 16-byte aligned, int32 mask
+    and q_pos on the device) and raise on anything else; CPU inputs run the
+    plain version."""
     _check_inputs(q, k_cache, v_cache, pad_mask, layer, q_pos)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -200,21 +234,17 @@ def prefix_decode_attention_q8_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of K1-q8 over the masked full buffer.
 
-    logit = (q . k_q8) * k_scale * scale in fp32 (q not pre-scaled); masked
-    slots get NEG_INF; the probabilities (fp32, not normalized) are
+    logit = (q . k_q8) * k_scale * scale in fp32 (q not pre-scaled); pads
+    get NEG_INF and slots past `q_pos` take no part; the probabilities (fp32, not normalized) are
     multiplied by v_scale and rounded to q.dtype before the PV product with
     v_q8; the output is acc / max(l, 1e-30) in q.dtype."""
     prefix_decode_attention_q8_reference.calls += 1
     D = q.shape[-1]
-    S = k_q8.shape[2]
     if scale is None:
         scale = D ** -0.5
     s = torch.einsum("bhd,bshd->bhs", q[:, 0].float(), k_q8[layer].float())
     s = s * k_scale[layer].transpose(1, 2) * scale
-    slots = torch.arange(S, device=q.device)
-    ok = (pad_mask[:, None, :] > 0) & (slots <= q_pos)[None, None, :]
-    s = torch.where(ok, s, torch.full((), NEG_INF, device=q.device))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = _live_softmax_numerator(s, pad_mask, q_pos)
     l_sum = p.sum(dim=-1, keepdim=True)
     pv = (p * v_scale[layer].transpose(1, 2)).to(q.dtype).float()
     out = torch.einsum("bhs,bshd->bhd", pv, v_q8[layer].float())
@@ -258,7 +288,7 @@ def _kernel_fn_q8():
 
     fn = load_library(KERNEL_NAME).lib.plangen_prefix_decode_attention_q8
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -295,7 +325,7 @@ def prefix_decode_attention_q8(
         q.data_ptr(), k_q8.data_ptr(), k_scale.data_ptr(), v_q8.data_ptr(),
         v_scale.data_ptr(), pad_mask.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
         B, S, H, D, int(layer), float(scale), _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream().cuda_stream,
+        *split_plan(S), torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"prefix_decode_attention_q8 kernel launch failed: "

@@ -9,10 +9,11 @@ in the model's [B, S, H, D] layout.
   * On a CUDA tensor it runs the hand-written kernels of
     `csrc/flash_attention.cu` (built at first use) through a
     `torch.autograd.Function`: `flash_attention_fwd` (output and the fp32
-    log-sum-exp of every row) and `flash_attention_bwd` (Delta, then dK/dV,
-    then dQ: three kernel launches per call). The route follows the dtype:
-    bfloat16 runs on the tensor cores (`wgmma` forward, `mma.sync`
-    backward), float32 on the CUDA cores (fp32 FMA, the check of the
+    log-sum-exp of every row) and `flash_attention_bwd` (bf16: dQ, which
+    also computes Delta, then dK/dV, two launches; fp32: Delta, dK/dV, dQ,
+    three). The route follows the dtype:
+    bfloat16 runs on the tensor cores (`wgmma`, forward and backward),
+    float32 on the CUDA cores (fp32 FMA, the check of the
     algorithm). Anything the kernels do not take raises; nothing falls
     back, and neither route falls back to the other.
   * On a CPU tensor it runs `flash_attention_reference`, the plain version:
@@ -45,7 +46,7 @@ import torch
 from plangen_tpu_torch.ops.attention import NEG_INF, dot_product_attention, make_causal_bias
 
 KERNEL_NAME = "flash_attention"
-BACKWARD_KERNELS_PER_CALL = 3  # Delta, dK/dV, dQ
+BACKWARD_KERNELS_PER_CALL = 2  # bf16 (tensor cores): dQ with Delta, then dK/dV
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 _HEAD_DIMS = (64, 128)
@@ -160,7 +161,7 @@ def flash_attention_bwd(
     out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, causal: bool,
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels (Delta, dK/dV, dQ): (dq, dk, dv) in
+    """Launch the backward kernels (Delta, dK/dV and dQ): (dq, dk, dv) in
     q.dtype. Inputs as `flash_attention_fwd`, plus its out and lse and the
     output gradient dout."""
     _check_cuda((k, v, out, dout), q)

@@ -67,18 +67,112 @@ def test_kernel_matches_plain_version(cuda, dtype, D):
 
 def test_kernel_reads_q_pos_from_device_memory(cuda):
     """One launch per value written into the same q_pos buffer, as a decode
-    step captured in a CUDA graph would advance it."""
-    q, k, v, mask = _inputs(cuda, torch.float32)
-    q_pos = torch.zeros(1, dtype=torch.int32, device=cuda)
-    for pos in (70, 180):
-        q_pos.fill_(pos)
-        got = da.prefix_decode_attention(q, k, v, mask, 1, q_pos)
-        want = da.prefix_decode_attention_reference(q, k, v, mask, 1, pos)
-        assert (got - want).abs().max().item() <= 1e-4
+    step captured in a CUDA graph would advance it, forwards and back across
+    changes in the number of live splits (S 256: 2 splits, S 1024: 8)."""
+    for S, positions in ((256, (70, 127, 128, 180, 255, 0, 129)),
+                         (1024, (70, 128, 300, 511, 512, 900, 1023, 127, 640))):
+        q, k, v, mask = _inputs(cuda, torch.float32, S=S)
+        q_pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+        for pos in positions:
+            q_pos.fill_(pos)
+            got = da.prefix_decode_attention(q, k, v, mask, 1, q_pos)
+            want = da.prefix_decode_attention_reference(q, k, v, mask, 1, pos)
+            assert (got - want).abs().max().item() <= 1e-4, (S, pos)
+
+
+def _edge_inputs(dev, dtype, S, D, B=4, L=2, H=2, seed=0):
+    """Rows: no pad; a left pad longer than one split; pads up to 2 splits +
+    5 (its live prefix is all pads before that); a zero tail from S / 2."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k, v = (torch.randn((L, B, S, H, D), generator=g, device=dev) for _ in range(2))
+    q = torch.randn((B, 1, H, D), generator=g, device=dev)
+    mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+    _, slots = da.split_plan(S)
+    if B > 1:
+        mask[1, :slots + 37] = 0
+        mask[2, :min(2 * slots + 5, S)] = 0
+        mask[3 % B, S // 2:] = 0
+    parts = [quantize_kv(k[layer], v[layer]) for layer in range(L)]
+    q8 = tuple(torch.stack([p[i] for p in parts]) for i in range(4))
+    return (q.to(dtype), k.to(dtype), v.to(dtype), mask), q8
+
+
+def _split_edges(S):
+    n_split, slots = da.split_plan(S)
+    edges = [e for i in range(1, n_split) for e in (i * slots - 1, i * slots)]
+    return [0, 5] + edges + [S - 1]
+
+
+def _k1_and_q8_errors(q, k, v, mask, q8, layer, pos, dev):
+    q_pos = torch.tensor([pos], dtype=torch.int32, device=dev)
+    got = da.prefix_decode_attention(q, k, v, mask, layer, q_pos)
+    want = da.prefix_decode_attention_reference(q, k, v, mask, layer, q_pos)
+    got8 = da.prefix_decode_attention_q8(q, *q8, mask, layer, q_pos)
+    want8 = da.prefix_decode_attention_q8_reference(q, *q8, mask, layer, q_pos)
+    torch.cuda.synchronize()
+    for t in (got, got8):
+        assert t.dtype == q.dtype and t.shape == q.shape and bool(torch.isfinite(t).all())
+    return ((got.float() - want.float()).abs().max().item(),
+            (got8.float() - want8.float()).abs().max().item())
+
+
+@pytest.mark.parametrize("S", [256, 1024, 2048])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_split_kv_edges_match_plain_version(cuda, dtype, D, S):
+    """K1 and K1-q8 on the same values with q_pos on each side of every
+    split edge: rows with a left pad longer than a split (an all-pad split
+    beside live ones), with a live prefix of pads only (the mean of V over
+    slots 0..q_pos), and a zero tail."""
+    (q, k, v, mask), q8 = _edge_inputs(cuda, dtype, S, D)
+    for i, pos in enumerate(_split_edges(S)):
+        err, err8 = _k1_and_q8_errors(q, k, v, mask, q8, i % 2, pos, cuda)
+        assert err <= TOLERANCE[dtype], ("K1", pos, err)
+        assert err8 <= TOLERANCE[dtype], ("K1-q8", pos, err8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_split_kv_batch_of_one(cuda, dtype):
+    (q, k, v, mask), q8 = _edge_inputs(cuda, dtype, 1024, 128, B=1)
+    for pos in (0, 127, 128, 677, 1023):
+        err, err8 = _k1_and_q8_errors(q, k, v, mask, q8, 1, pos, cuda)
+        assert max(err, err8) <= TOLERANCE[dtype], (pos, err, err8)
+
+
+def test_split_kv_all_pad_prefix_is_the_mean_of_v(cuda):
+    """A row whose live prefix is all pads, across splits: the mean of V
+    over slots 0..q_pos."""
+    (q, k, v, mask), _ = _edge_inputs(cuda, torch.float32, 1024, 128)
+    for pos in (5, 200, 260):  # row 2 is padded up to slot 260
+        q_pos = torch.tensor([pos], dtype=torch.int32, device=cuda)
+        got = da.prefix_decode_attention(q, k, v, mask, 0, q_pos)
+        torch.testing.assert_close(got[2, 0], v[0, 2, :pos + 1].mean(dim=0),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_split_kv_is_bitwise_deterministic(cuda, dtype):
+    """The splits are combined in a fixed order: two calls, the same bits."""
+    (q, k, v, mask), q8 = _edge_inputs(cuda, dtype, 2048, 128, B=8, H=16)
+    for pos in (677, 2047):
+        q_pos = torch.tensor([pos], dtype=torch.int32, device=cuda)
+        a = da.prefix_decode_attention(q, k, v, mask, 1, q_pos)
+        b = da.prefix_decode_attention(q, k, v, mask, 1, q_pos)
+        a8 = da.prefix_decode_attention_q8(q, *q8, mask, 1, q_pos)
+        b8 = da.prefix_decode_attention_q8(q, *q8, mask, 1, q_pos)
+        assert torch.equal(a, b) and torch.equal(a8, b8), pos
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
 
 
 @pytest.mark.parametrize("bad", ["mask_int64", "q_pos_int", "fp16", "head_dim_32",
-                                 "non_contiguous", "q_pos_cpu"])
+                                 "non_contiguous", "q_pos_cpu", "misaligned_q",
+                                 "misaligned_k", "misaligned_mask"])
 def test_kernel_wrapper_raises(cuda, bad):
     q, k, v, mask = _inputs(cuda, torch.float32)
     q_pos = torch.tensor([100], dtype=torch.int32, device=cuda)
@@ -94,6 +188,12 @@ def test_kernel_wrapper_raises(cuda, bad):
         k = k.transpose(3, 4).contiguous().transpose(3, 4)
     elif bad == "q_pos_cpu":
         q_pos = q_pos.cpu()
+    elif bad == "misaligned_q":
+        q = _misaligned(q)
+    elif bad == "misaligned_k":
+        k = _misaligned(k)
+    elif bad == "misaligned_mask":
+        mask = _misaligned(mask)
     launches = da.prefix_decode_attention.launches
     with pytest.raises((TypeError, ValueError)):
         da.prefix_decode_attention(q, k, v, mask, 0, q_pos)
@@ -232,7 +332,8 @@ def test_k1_q8_matches_plain_version(cuda, dtype, D):
 
 
 @pytest.mark.parametrize("bad", ["mask_int64", "q_pos_int", "scale_fp16", "k_fp32",
-                                 "non_contiguous"])
+                                 "non_contiguous", "misaligned_q", "misaligned_v",
+                                 "misaligned_scale"])
 def test_k1_q8_wrapper_raises(cuda, bad):
     q, k8, ks, v8, vs, mask = _q8_inputs(cuda, torch.float32)
     q_pos = torch.tensor([100], dtype=torch.int32, device=cuda)
@@ -244,6 +345,12 @@ def test_k1_q8_wrapper_raises(cuda, bad):
         ks = ks.half()
     elif bad == "k_fp32":
         k8 = k8.float()
+    elif bad == "misaligned_q":
+        q = _misaligned(q)
+    elif bad == "misaligned_v":
+        v8 = _misaligned(v8)
+    elif bad == "misaligned_scale":
+        ks = _misaligned(ks)
     else:
         v8 = v8.transpose(3, 4).contiguous().transpose(3, 4)
     launches = da.prefix_decode_attention_q8.launches
@@ -385,10 +492,11 @@ def test_k3_wrappers_raise(cuda, bad):
     assert fa.flash_attention_fwd.launches == launches
 
 
-# ------------------------- K3 bf16 on the tensor cores (wgmma forward, mma.sync backward)
+# ------------------------- K3 bf16 on the tensor cores (wgmma forward and backward)
 
-# left pads per row: none, a few, two whole 64-row tiles and more, every key
-TC_PADS = (0, 5, 130, None)
+# left pads per row: none, a few, exactly one 64-row tile (a query tile of
+# pads only in the dK/dV pass), two whole tiles and more, every key
+TC_PADS = (0, 5, 64, 130, None)
 
 
 def _tc_inputs(dev, S, D, H=2, Hkv=None, seed=0):
