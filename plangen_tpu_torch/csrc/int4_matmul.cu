@@ -25,25 +25,76 @@
 //       integers y2 - 8 * rowsum and y1 - y2 of the TPU kernel, so with the
 //       same multiply order the output is bit-equal to the plain version.
 //
-// What bounds them: weight bytes. At Janus-Pro-1B decode (R = 8 CFG rows)
-// a call reads I * OH bytes (2.1 to 16.8 MB) and does 2 * R * 2 operations
-// per weight byte, far below the card's ~295 flops/byte balance point.
+// What bounds them: weight bytes at decode. At Janus-Pro-1B decode (R = 8
+// CFG rows) a call reads I * OH bytes (2.1 to 16.8 MB) and does 2 * R * 2
+// operations per weight byte, far below the card's ~295 flops/byte balance
+// point. At R = 256 (a prefill or a batch of 128 requests) the same call
+// does 1,024 operations per weight byte: the tensor cores bound it.
 //
-// Design: a block of 8 warps covers 128 packed columns (each lane one
-// 32-bit word = 4 packed columns, so a warp reads 128 contiguous bytes per
-// input row) and 8 rows of x. x is staged in shared memory 128 inputs at a
-// time; the 8 warps take interleaved input rows of the tile, each thread
-// accumulating 8 rows x 8 outputs in registers, and a shared-memory
-// reduction over the warps ends the block. At decode shapes (OH / 128)
-// blocks alone would leave most of the 132 SMs idle, so the wrapper splits
-// the input dimension over grid.z (about two blocks per SM): each split
-// writes unscaled fp32 (K2) or int32 (K4) partial sums, and a second kernel
-// adds the splits in a fixed order and applies the scales. No atomics: the
-// result is deterministic, and K4 stays exact.
+// K2 in bf16 (`int4_w16_tc_kernel`, the tensor-core route). A block of 4
+// warps covers 128 packed columns (256 outputs) and 8 * NT rows of x
+// (NT = 1, 2, 4 or 8 n-tiles, the smallest that covers R, more rows over
+// blockIdx.y). Each pipeline stage holds the packed weight tile [64 inputs x
+// 128 bytes] and the x tile [8 NT rows x 64 inputs] in shared memory; a ring
+// of 4 stages is filled by 16-byte `cp.async.cg`, so the copies of tiles
+// t+1..t+3 are in flight while tile t computes. The product is
+// `mma.sync.m16n8k16` bf16 with fp32 accumulation, A and B swapped: the
+// weight is A (16 output columns x 16 inputs), x transposed is B (16 inputs
+// x 8 rows), so the 8 CFG rows of a 4-request decode step fill N = 8. The
+// nibbles are unpacked in registers straight into A fragments, and each
+// warp reuses them over its NT n-tiles: that is where the tensor cores pay
+// at R = 64-256. Layout (lane = 4 g + t; mirrored in ops/int4_matmul.py,
+// `tc_a_fragment` / `tc_b_fragment` / `tc_d_fragment`):
+//   - A warp covers 32 packed columns, i.e. 4 m-tiles: m-tile c holds the lo
+//     outputs of packed columns 4 g' + c in rows g' and their hi outputs in
+//     rows g' + 8. Inside a k16 step, k-slot 2t + h (+ 8) carries input
+//     4t + h (+ 2) in A and B alike, so lane (g, t) reads word g of the
+//     warp's strip at inputs 4t..4t+3: four 32-bit words whose byte c feeds
+//     m-tile c, lo nibble to A registers 0 and 2, hi to 1 and 3. One byte
+//     thus feeds two MMA rows, and a word four m-tiles.
+//   - Unpacking: PRMT gathers byte c of two words into the two halves of a
+//     register; (n | 0x4300) is the bf16 value 128 + n, so one LOP3 gives
+//     128 + lo + 8 (and a shift and one LOP3 128 + hi + 8, the hi nibble
+//     XOR 8), and one `fma.rn.bf16x2` subtracts 136: exact. The LOP3s are
+//     written as `lop3.b32` with the constants in registers (the compiler
+//     splits (p & m) | c into two: a LOP3 takes one immediate).
+//   - B is one 8-byte shared-memory load of x[g][4t..4t+3] per n-tile.
+//   - Software pipeline over the four k16 steps of a stage: the A words of
+//     step s + 1 and all NT B fragments of step s are loaded into registers
+//     of their own before step s's MMAs, so no group of MMAs waits on a
+//     shared-memory load (241 registers at NT = 8, no spill).
+//   - Accumulator c of m-tile c holds rows 2t, 2t + 1 of packed column
+//     4g + c: lane (g, t) writes four contiguous lo and four hi outputs per
+//     row (16-byte partial stores, 8-byte bf16 stores).
+//   - Shared-memory tiles are XOR-swizzled in 16-byte chunks (weight row r:
+//     chunk ^ 2 ((r >> 2) & 3); x row n: chunk ^ 2 (n & 3)), so the A word
+//     loads hit 32 distinct banks and the B loads take the 2 wavefronts that
+//     256 bytes need.
+//   - Ragged edges are masked in the kernel: zero-filled copies (src-size 0)
+//     past I, R and OH; I % 8 != 0 stages x with plain loads and OH % 16 != 0
+//     copies the weight by 4-byte `cp.async.ca`.
+// Not `wgmma`: it needs a 64-row operand in shared memory or in its fixed
+// register layout, i.e. an unpacked bf16 round trip through shared memory,
+// and at R = 8 a 64-row tile would be 7/8 padding. The split over the input
+// dimension and the fixed-order second pass stay as below.
 //
-// Left for later work: cp.async/TMA staging of the weight tiles, tensor-core
-// MMA (int8 mma.sync for K4, bf16 after an unpack for K2) at larger R, and
-// fusing the activation quantization of K4 into the kernel.
+// K2 in fp32 (`int4_w16_kernel<float>`, the check route, CUDA cores) and K4:
+// a block of 8 warps covers 128 packed columns (each lane one 32-bit word =
+// 4 packed columns, so a warp reads 128 contiguous bytes per input row) and
+// 8 rows of x. x is staged in shared memory 128 inputs at a time; the 8
+// warps take interleaved input rows of the tile, each thread accumulating 8
+// rows x 8 outputs in registers, and a shared-memory reduction over the
+// warps ends the block.
+//
+// Both routes split the input dimension over grid.z where (OH / 128) x
+// (row blocks) alone would leave most of the 132 SMs idle (about two blocks
+// per SM; one from 32 rows a block on, ops/int4_matmul.py::tc_blocks_per_sm):
+// each split writes unscaled fp32 (K2) or int32 (K4) partial sums,
+// and a second kernel adds the splits in a fixed order and applies the
+// scales. No atomics: the result is deterministic, and K4 stays exact.
+//
+// Left for later work: K4 on the tensor cores (int8 mma.sync) with its
+// activation quantization inside the kernel, and one launch per call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,9 +110,6 @@ constexpr int kKTile = 128;     // inputs staged per shared-memory tile
 constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -200,6 +248,321 @@ __global__ void __launch_bounds__(kReduceThreads)
   const float scale = col >= OH ? 16.f * s_hi16[col - OH] : s_lo[col];
   out[i] = from_float<T>(s * scale);
 }
+
+// --------------------------------------------- K2 (W4A16) on the tensor cores
+
+namespace tc {
+
+constexpr int kThreads = 128;                 // 4 warps
+constexpr int kWarpCols = 32;                 // packed columns a warp covers
+constexpr int kCols = 4 * kWarpCols;          // packed columns a block covers
+constexpr int kKTile = 64;                    // inputs a stage
+constexpr int kStages = 4;                    // cp.async ring depth
+constexpr int kWBytes = kKTile * kCols;       // packed weight bytes a stage
+constexpr int kXRowBytes = kKTile * 2;        // bf16 x bytes a row a stage
+
+template <int NT>
+__host__ __device__ constexpr int stage_bytes() { return kWBytes + 8 * NT * kXRowBytes; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// `bytes` of 16 (or 4) copied from global, the rest of the 16 (4) zeroed
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// byte offset of byte `b` of weight row r (rows of 128 bytes, 16-byte chunks
+// XOR-swizzled by 2 ((r >> 2) & 3): the four rows 4t + j that lanes t = 0..3
+// read at once land on distinct banks)
+__device__ __forceinline__ int w_off(int r, int b) {
+  return r * kCols + (((b >> 4) ^ (((r >> 2) & 3) << 1)) << 4) + (b & 15);
+}
+// byte offset of byte `b` of x row n (rows of 128 bytes, chunks ^ 2 (n & 3))
+__device__ __forceinline__ int x_off(int n, int b) {
+  return n * kXRowBytes + (((b >> 4) ^ ((n & 3) << 1)) << 4) + (b & 15);
+}
+
+// Issues the copies of one k tile [k0, k0 + 64) into a stage: the packed
+// weight [64, 128 columns from col0] and x [8 NT rows from r0, 64 inputs].
+// The common case (OH % 16 == 0 and I % 8 == 0: 16-byte chunks that lie all
+// inside or all outside the arrays) has its per-thread addresses computed
+// once: thread tid copies chunk tid & 7 of rows (tid >> 3) + 16 q, and both
+// swizzles depend on a row only through (row & 15) >> 2 or row & 3, which
+// 16 q leaves unchanged. Other shapes take the general loops.
+template <int NT>
+struct TileCopier {
+  static constexpr int kXChunks = 8 * NT * 8;  // 16-byte chunks of x a stage
+  const __nv_bfloat16* x;
+  const int8_t* w;
+  int R, I, OH, r0, col0;
+  bool fast;
+  int row, chunk, w_dst, x_dst;  // this thread's first row, chunk, offsets
+
+  __device__ TileCopier(const __nv_bfloat16* x_, const int8_t* w_, int R_, int I_, int OH_,
+                        int r0_, int col0_)
+      : x(x_), w(w_), R(R_), I(I_), OH(OH_), r0(r0_), col0(col0_),
+        fast((OH_ & 15) == 0 && (I_ & 7) == 0) {
+    row = threadIdx.x >> 3;
+    chunk = threadIdx.x & 7;
+    w_dst = w_off(row, 16 * chunk);
+    x_dst = kWBytes + x_off(row, 16 * chunk);
+  }
+
+  __device__ __forceinline__ void copy(uint8_t* st, int k0) const {
+    if (fast) {
+      const int col = col0 + 16 * chunk;
+#pragma unroll
+      for (int q = 0; q < kKTile / 16; ++q) {
+        const int k = k0 + row + 16 * q;
+        const bool ok = k < I && col < OH;
+        cp_async16(smem_u32(st + w_dst + q * 16 * kCols), ok ? w + (size_t)k * OH + col : w,
+                   ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int q = 0; q < (kXChunks + kThreads - 1) / kThreads; ++q) {
+        if (kXChunks < kThreads && threadIdx.x >= kXChunks) break;
+        const int r = r0 + row + 16 * q, k = k0 + 8 * chunk;
+        const bool ok = r < R && k < I;
+        cp_async16(smem_u32(st + x_dst + q * 16 * kXRowBytes),
+                   ok ? x + (size_t)r * I + k : x, ok ? 16 : 0);
+      }
+      return;
+    }
+    uint8_t* wsh = st;
+    uint8_t* xsh = st + kWBytes;
+    if ((OH & 15) == 0) {  // a 16-byte chunk is all inside OH or all past it
+      for (int i = threadIdx.x; i < kKTile * 8; i += kThreads) {
+        const int r = i >> 3, c = i & 7, k = k0 + r, col = col0 + 16 * c;
+        const bool ok = k < I && col < OH;
+        cp_async16(smem_u32(wsh + w_off(r, 16 * c)), ok ? w + (size_t)k * OH + col : w,
+                   ok ? 16 : 0);
+      }
+    } else {  // OH % 4 == 0 only: word by word
+      for (int i = threadIdx.x; i < kKTile * 32; i += kThreads) {
+        const int r = i >> 5, wd = i & 31, k = k0 + r, col = col0 + 4 * wd;
+        const bool ok = k < I && col < OH;
+        cp_async4(smem_u32(wsh + w_off(r, 4 * wd)), ok ? w + (size_t)k * OH + col : w,
+                  ok ? 4 : 0);
+      }
+    }
+    if ((I & 7) == 0) {  // a chunk of 8 inputs is all inside I or all past it
+      for (int i = threadIdx.x; i < kXChunks; i += kThreads) {
+        const int n = i >> 3, c = i & 7, r = r0 + n, k = k0 + 8 * c;
+        const bool ok = r < R && k < I;
+        cp_async16(smem_u32(xsh + x_off(n, 16 * c)), ok ? x + (size_t)r * I + k : x,
+                   ok ? 16 : 0);
+      }
+    } else {  // rows of x are not 16-byte aligned: plain loads, zeros outside
+      for (int i = threadIdx.x; i < 8 * NT * kKTile; i += kThreads) {
+        const int n = i / kKTile, kk = i % kKTile, r = r0 + n, k = k0 + kk;
+        *reinterpret_cast<__nv_bfloat16*>(xsh + x_off(n, 2 * kk)) =
+            (r < R && k < I) ? x[(size_t)r * I + k] : __float2bfloat16(0.f);
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t lop3_and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;  // (a & b) | c in one LOP3 (the compiler splits it: one immediate a LOP3)
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ uint32_t lop3_and_xor(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;  // (a & b) ^ c
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Byte `sel`'s two sources of words wa, wb -> the bf16x2 A registers
+// (lo(wa), lo(wb)) and (hi(wa), hi(wb)): 0x4300 | n is bf16 128 + n, and
+// 128 + (lo + 8) - 136 = lo, 128 + (hi ^ 8 as a nibble) - 136 = hi, exact.
+__device__ __forceinline__ void unpack(uint32_t wa, uint32_t wb, uint32_t sel, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t mask = 0x000F000Fu, lo_magic = 0x43004300u, hi_magic = 0x43084308u;
+  const uint32_t p = __byte_perm(wa, wb, sel);  // bytes: wa.c, wa.c, wb.c, wb.c
+  const uint32_t l = lop3_and_or(p, mask, lo_magic);
+  const uint32_t h = lop3_and_xor(p >> 4, mask, hi_magic);
+  const uint32_t one = 0x3F803F80u, minus136 = 0xC308C308u;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(lo) : "r"(l), "r"(one), "r"(minus136));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(hi) : "r"(h), "r"(one), "r"(minus136));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+    int4_w16_tc_kernel(const __nv_bfloat16* __restrict__ x,  // [R, I]
+                       const int8_t* __restrict__ w,         // [I, OH]
+                       const float* __restrict__ s_lo,       // [OH]
+                       const float* __restrict__ s_hi16,     // [OH]
+                       float* __restrict__ partial,  // [ksplit, R, 2 OH] or null
+                       __nv_bfloat16* __restrict__ out,  // [R, 2 OH]
+                       int R, int I, int OH, int tiles_per_split) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = blockIdx.x * kCols;
+  const int r0 = blockIdx.y * 8 * NT;
+  const int k_tiles = (I + kKTile - 1) / kKTile;
+  const int t0 = blockIdx.z * tiles_per_split;
+  const int t1 = min(k_tiles, t0 + tiles_per_split);
+  const int n_live = min(NT, (R - r0 + 7) / 8);  // n-tiles with a row < R
+  constexpr int kStage = stage_bytes<NT>();
+  const TileCopier<NT> copier(x, w, R, I, OH, r0, col0);
+  // this lane's A words: word g of the warp's strip at rows 16 s + 4 t + j,
+  // a_off + (16 s + j) * 128 (the row swizzle depends on t only); its B
+  // fragment of n-tile n in step s: b_off[s] + n * 8 rows
+  const int a_off = w_off(4 * t, kWarpCols * warp + 4 * g);
+  int b_off[kKTile / 16];
+#pragma unroll
+  for (int s = 0; s < kKTile / 16; ++s) b_off[s] = kWBytes + x_off(g, 32 * s + 8 * t);
+
+  float acc[NT][4][4];  // [n-tile][m-tile][accumulator]
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[n][c][v] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (t0 + s < t1) copier.copy(smem + s * kStage, (t0 + s) * kKTile);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+  for (int kt = t0; kt < t1; ++kt) {
+    cp_async_wait<kStages - 2>();  // tile kt has landed (this thread's copies)
+    __syncthreads();  // ... everyone's; and stage (kt - 1) is free to refill
+    const int next = kt + kStages - 1;
+    if (next < t1) copier.copy(smem + ((next - t0) % kStages) * kStage, next * kKTile);
+    cp_async_commit();
+    const uint8_t* st = smem + ((kt - t0) % kStages) * kStage;
+    // software pipeline over the k16 steps: the A words of step s + 1 and all
+    // B fragments of step s are loaded before step s's MMAs, each into its
+    // own registers, so no MMA waits on a shared-memory load
+    uint32_t wd[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wd[0][j] = *reinterpret_cast<const uint32_t*>(st + a_off + j * kCols);
+#pragma unroll
+    for (int s = 0; s < kKTile / 16; ++s) {
+      if (s + 1 < kKTile / 16) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wd[(s + 1) & 1][j] =
+              *reinterpret_cast<const uint32_t*>(st + a_off + (16 * (s + 1) + j) * kCols);
+      }
+      uint2 b[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        b[n] = *reinterpret_cast<const uint2*>(st + b_off[s] + n * 8 * kXRowBytes);
+      uint32_t a[4][4];  // [m-tile c][A register]
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t sel = 0x4400u + 0x1111u * c;  // byte c of wa, wa, wb, wb
+        unpack(wd[s & 1][0], wd[s & 1][1], sel, a[c][0], a[c][1]);
+        unpack(wd[s & 1][2], wd[s & 1][3], sel, a[c][2], a[c][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n < n_live) {  // uniform over the block
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mma_bf16(acc[n][c], a[c], b[n].x, b[n].y);
+        }
+      }
+    }
+  }
+
+  const int p0 = col0 + kWarpCols * warp + 4 * g;  // packed columns p0..p0+3
+  if (p0 >= OH) return;  // OH % 4 == 0: all four in or all out
+  const size_t ld = 2 * (size_t)OH;
+  float4 slo = make_float4(0.f, 0.f, 0.f, 0.f), shi = slo;
+  if (!partial) {
+    slo = *reinterpret_cast<const float4*>(s_lo + p0);
+    shi = *reinterpret_cast<const float4*>(s_hi16 + p0);
+    shi = make_float4(16.f * shi.x, 16.f * shi.y, 16.f * shi.z, 16.f * shi.w);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (n >= n_live) continue;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = r0 + 8 * n + 2 * t + rr;
+      if (row >= R) continue;
+      const float4 lo = make_float4(acc[n][0][rr], acc[n][1][rr], acc[n][2][rr], acc[n][3][rr]);
+      const float4 hi =
+          make_float4(acc[n][0][2 + rr], acc[n][1][2 + rr], acc[n][2][2 + rr], acc[n][3][2 + rr]);
+      if (partial) {
+        float* dst = partial + ((size_t)blockIdx.z * R + row) * ld;
+        *reinterpret_cast<float4*>(dst + p0) = lo;
+        *reinterpret_cast<float4*>(dst + OH + p0) = hi;
+      } else {
+        __nv_bfloat16* dst = out + (size_t)row * ld;
+        const __nv_bfloat162 l01 = __floats2bfloat162_rn(lo.x * slo.x, lo.y * slo.y);
+        const __nv_bfloat162 l23 = __floats2bfloat162_rn(lo.z * slo.z, lo.w * slo.w);
+        const __nv_bfloat162 h01 = __floats2bfloat162_rn(hi.x * shi.x, hi.y * shi.y);
+        const __nv_bfloat162 h23 = __floats2bfloat162_rn(hi.z * shi.z, hi.w * shi.w);
+        uint2 vl, vh;
+        vl.x = *reinterpret_cast<const uint32_t*>(&l01);
+        vl.y = *reinterpret_cast<const uint32_t*>(&l23);
+        vh.x = *reinterpret_cast<const uint32_t*>(&h01);
+        vh.y = *reinterpret_cast<const uint32_t*>(&h23);
+        *reinterpret_cast<uint2*>(dst + p0) = vl;
+        *reinterpret_cast<uint2*>(dst + OH + p0) = vh;
+      }
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch(const void* x, const void* w, const float* s_lo, const float* s_hi16,
+                   void* partial, void* out, int R, int I, int OH, int ksplit,
+                   cudaStream_t st) {
+  constexpr int smem = kStages * stage_bytes<NT>();
+  static bool smem_set = false;  // once per instance (the process drives one card)
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_w16_tc_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const int k_tiles = (I + kKTile - 1) / kKTile;
+  const dim3 grid((OH + kCols - 1) / kCols, (R + 8 * NT - 1) / (8 * NT), ksplit);
+  float* part = ksplit > 1 ? static_cast<float*>(partial) : nullptr;
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  int4_w16_tc_kernel<NT><<<grid, kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), s_lo, s_hi16, part,
+      o, R, I, OH, (k_tiles + ksplit - 1) / ksplit);
+  if (part) {
+    const size_t n = (size_t)R * 2 * OH;
+    int4_w16_reduce<__nv_bfloat16><<<(unsigned)((n + kReduceThreads - 1) / kReduceThreads),
+                                     kReduceThreads, 0, st>>>(part, s_lo, s_hi16, o, R, OH,
+                                                              ksplit);
+  }
+  return cudaSuccess;
+}
+
+}  // namespace tc
 
 // ----------------------------------------------------------------- K4 (W4A8)
 
@@ -380,7 +743,9 @@ void launch_a8(const void* x8, const float* xs, const void* w,
 // Plain C entry points, loaded with ctypes. Every pointer is device memory
 // and every array contiguous: x [R, I] (float32 or bfloat16), x8 [R, I] int8
 // with xs [R] fp32, w [I, OH] int8, s_lo / s_hi16 [OH] fp32, out [R, 2 OH]
-// in `dtype` (0 = float32, 1 = bfloat16), and, when ksplit > 1, partial
+// in `dtype` (0 = float32 only for W4A16, whose bf16 route is
+// plangen_int4_matmul_w16_tc; 0 = float32 or 1 = bfloat16 for W4A8), and,
+// when ksplit > 1, partial
 // [ksplit, R, 2 OH] scratch (fp32 for W4A16, int32 for W4A8). OH % 4 == 0;
 // W4A8 also needs I % 4 == 0. Returns cudaGetLastError() after the launches.
 extern "C" int plangen_int4_matmul_w16(const void* x, const void* w,
@@ -391,12 +756,32 @@ extern "C" int plangen_int4_matmul_w16(const void* x, const void* w,
   if (bad_args(R, I, OH, ksplit, partial))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    launch_w16<__nv_bfloat16>(x, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st);
-  else if (dtype == 0)
-    launch_w16<float>(x, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st);
-  else
+  if (dtype != 0)  // bf16 takes plangen_int4_matmul_w16_tc
     return static_cast<int>(cudaErrorInvalidValue);
+  launch_w16<float>(x, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 in bf16 on the tensor cores: x and out bfloat16, `row_tiles` (1, 2, 4
+// or 8) the 8-row n-tiles a warp covers, partial fp32 as above.
+extern "C" int plangen_int4_matmul_w16_tc(const void* x, const void* w,
+                                          const float* s_lo, const float* s_hi16,
+                                          void* partial, void* out, int R, int I,
+                                          int OH, int ksplit, int row_tiles,
+                                          void* stream) {
+  if (R < 1 || I < 1 || OH < 4 || OH % 4 || ksplit < 1 ||
+      ksplit > (I + tc::kKTile - 1) / tc::kKTile || (ksplit > 1 && !partial))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (row_tiles) {
+    case 1: e = tc::launch<1>(x, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st); break;
+    case 2: e = tc::launch<2>(x, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st); break;
+    case 4: e = tc::launch<4>(x, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st); break;
+    case 8: e = tc::launch<8>(x, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,22 +17,26 @@ go to a kernel wrapper:
 
   * `int4_matmul_w16` (K2): x [R, I] (bf16 or fp32) @ the packed weight,
     fp32 accumulation of sum(x * lo) and sum(x * hi), scaled by `s_lo` and
-    `16 * s_hi16`;
+    `16 * s_hi16`. bf16 runs on the tensor cores (`mma.sync` m16n8k16 over
+    nibbles unpacked in registers), fp32 on the CUDA cores (the check
+    route); `w16_plan` is the launch geometry of both;
   * `int4_matmul_w4a8` (K4): per-row int8 activations (`quantize_activations_int8`,
     plain torch) times the packed weight, exact int32 dots, then
     `float(acc_lo) * s_lo * xs` and `float(16 * acc_hi) * s_hi16 * xs`.
 
 Each wrapper launches the hand-written kernel `csrc/int4_matmul.cu` on a
 CUDA tensor (or raises) and runs its plain version (`*_reference`) on a CPU
-tensor. `<wrapper>.launches` counts kernel launches, `<plain>.calls` counts
-plain-version calls.
+tensor. `<wrapper>.launches` counts kernel launches (and
+`int4_matmul_w16.tc_launches` those on the tensor-core route),
+`<plain>.calls` counts plain-version calls.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -40,9 +44,16 @@ Int4Weight = Dict[str, torch.Tensor]
 
 KERNEL_NAME = "int4_matmul"
 MAX_KERNEL_ROWS = 256  # more rows take the dense route (JAX: int4_matmul)
-ROW_TILE = 8  # rows a block of the kernel accumulates at once
-COL_TILE = 128  # packed columns a block covers
-K_TILE = 128  # input indices a block stages per shared-memory tile
+ROW_TILE = 8  # rows a block of the CUDA-core kernels accumulates at once
+COL_TILE = 128  # packed columns a block covers (both routes)
+K_TILE = 128  # input indices a CUDA-core block stages per shared-memory tile
+# the tensor-core route of K2 (bf16): 4 warps of 32 packed columns each; a
+# warp runs `mma.sync` m16n8k16 over 8-row n-tiles, TC_ROW_TILES[-1] at most
+TC_THREADS = 128
+TC_K_TILE = 64  # inputs per pipeline stage
+TC_STAGES = 4  # cp.async ring depth: tiles t+1..t+3 in flight while t computes
+TC_ROW_TILES = (1, 2, 4, 8)  # 8-row n-tiles per warp (template instances)
+SHARED_MEMORY_LIMIT = 232448  # bytes a block may use on the H100 (227 KB)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -156,10 +167,13 @@ def _kernel_fns():
     from plangen_tpu_torch.kernels import load_library
 
     lib = load_library(KERNEL_NAME).lib
-    fns = (lib.plangen_int4_matmul_w16, lib.plangen_int4_matmul_a8)
-    # x, [xs], w_p4, s_lo, s_hi16, partial, out, R, I, OH, ksplit, dtype, stream
+    fns = (lib.plangen_int4_matmul_w16, lib.plangen_int4_matmul_a8,
+           lib.plangen_int4_matmul_w16_tc)
+    # x, [xs], w_p4, s_lo, s_hi16, partial, out, R, I, OH, ksplit,
+    # dtype (row_tiles for the tensor-core route), stream
     fns[0].argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fns[1].argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fns[2].argtypes = fns[0].argtypes
     for fn in fns:
         fn.restype = ctypes.c_int
     return fns
@@ -170,15 +184,128 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_k(R: int, I: int, OH: int, n_sm: int) -> int:
+def split_k(R: int, I: int, OH: int, n_sm: int, row_tile: int = ROW_TILE,
+            k_tile: int = K_TILE, per_sm: int = 2) -> int:
     """Blocks along the input dim, so that a skinny matmul still puts about
-    two blocks on every SM: (OH / 128) x (R / 8) blocks alone leave most of
-    the card idle at decode shapes. Every split gets at least one K tile."""
-    blocks = -(-OH // COL_TILE) * -(-R // ROW_TILE)
-    k_tiles = -(-I // K_TILE)
-    want = max(1, min(k_tiles, -(-2 * n_sm // blocks)))
+    `per_sm` blocks on every SM: (OH / 128) x (R / row_tile) blocks alone
+    leave most of the card idle at decode shapes. Every split gets at least
+    one K tile."""
+    blocks = -(-OH // COL_TILE) * -(-R // row_tile)
+    k_tiles = -(-I // k_tile)
+    want = max(1, min(k_tiles, -(-per_sm * n_sm // blocks)))
     per_split = -(-k_tiles // want)
     return -(-k_tiles // per_split)
+
+
+def tc_blocks_per_sm(row_tiles: int) -> int:
+    """Blocks per SM the tensor-core route's split aims at: two where a block
+    covers 8 or 16 rows (bound by weight bytes: more blocks, more bytes in
+    flight), one from 32 rows on, where the fp32 partials of the extra
+    splits cost more than the SMs they would fill (measured on the H100 by
+    `kernels/profile_int4.py`)."""
+    return 2 if row_tiles <= 2 else 1
+
+
+@dataclass(frozen=True)
+class W16Plan:
+    """Launch geometry of one K2 call (`w16_plan`); the C side computes the
+    same grid from (R, I, OH, ksplit, row_tiles)."""
+
+    route: str  # "tensor_cores" (bf16) or "cuda_cores" (fp32)
+    grid: Tuple[int, int, int]  # (column blocks, row blocks, ksplit)
+    threads: int
+    k_tile: int
+    ksplit: int
+    tiles_per_split: int
+    row_tiles: int  # 8-row n-tiles per warp (tensor cores), else 1
+    stages: int  # shared-memory ring depth (1: staged, not pipelined)
+    smem_bytes: int
+
+    def split_ranges(self, I: int) -> List[range]:
+        """The k tiles each split accumulates, in split order."""
+        n = -(-I // self.k_tile)
+        return [range(z * self.tiles_per_split, min(n, (z + 1) * self.tiles_per_split))
+                for z in range(self.ksplit)]
+
+
+def tc_row_tiles(R: int) -> int:
+    """The smallest instance of 8-row n-tiles per warp that covers R rows,
+    capped at the largest (more rows take more row blocks)."""
+    need = -(-R // 8)
+    return next((n for n in TC_ROW_TILES if n >= need), TC_ROW_TILES[-1])
+
+
+def w16_plan(R: int, I: int, OH: int, dtype, n_sm: int) -> W16Plan:
+    """Route and geometry of K2 for x [R, I] in `dtype` and O/2 = OH: bf16
+    takes the tensor cores, fp32 the CUDA cores. Pure: no card needed."""
+    if dtype in (torch.bfloat16, "bfloat16"):
+        nt = tc_row_tiles(R)
+        rows = 8 * nt
+        ksplit = split_k(R, I, OH, n_sm, row_tile=rows, k_tile=TC_K_TILE,
+                         per_sm=tc_blocks_per_sm(nt))
+        k_tiles = -(-I // TC_K_TILE)
+        # a stage: the packed weight tile [k, 128 columns] and x [rows, k] bf16
+        stage = TC_K_TILE * COL_TILE + rows * TC_K_TILE * 2
+        return W16Plan("tensor_cores", (-(-OH // COL_TILE), -(-R // rows), ksplit),
+                       TC_THREADS, TC_K_TILE, ksplit, -(-k_tiles // ksplit), nt,
+                       TC_STAGES, TC_STAGES * stage)
+    if dtype in (torch.float32, "float32"):
+        ksplit = split_k(R, I, OH, n_sm)
+        k_tiles = -(-I // K_TILE)
+        # x_sh [8][128] fp32 and the block reduction's [8 warps][32][8] fp32
+        smem = ROW_TILE * K_TILE * 4 + 8 * 32 * 8 * 4
+        return W16Plan("cuda_cores", (-(-OH // COL_TILE), -(-R // ROW_TILE), ksplit),
+                       256, K_TILE, ksplit, -(-k_tiles // ksplit), 1, 1, smem)
+    raise TypeError(f"K2 takes float32 or bfloat16 x, not {dtype}")
+
+
+# The tensor-core kernel's register layout, mirrored from the comments of
+# csrc/int4_matmul.cu (`int4_w16_tc_kernel`) so that the CPU tests can
+# compose it with the PTX fragment layout of mma.m16n8k16 and check it
+# against the plain version. A warp covers 32 packed columns; lane = 4 g + t.
+# Inside one k16 step, MMA k-slot 2t + h (+ 8) carries input 4t + h (+ 2), so
+# that a lane reads inputs 4t..4t+3: four packed words (A) and one 8-byte
+# load of x (B).
+
+
+def tc_a_fragment(lane: int, tile: int, reg: int, half: int) -> Tuple[int, int, bool]:
+    """(input in the k16 step, packed column in the warp's 32, is_hi) that
+    half `half` of A register `reg` of m-tile `tile` (0..3) holds: byte
+    `tile` of word 2 (reg >> 1) + half, where word j is word g of the warp's
+    strip at input 4t + j; even registers take its lo nibble, odd its hi."""
+    g, t = lane >> 2, lane & 3
+    return 4 * t + 2 * (reg >> 1) + half, 4 * g + tile, bool(reg & 1)
+
+
+def tc_b_fragment(lane: int, reg: int, half: int) -> Tuple[int, int]:
+    """(row in the n-tile, input in the k16 step) of half `half` of B
+    register `reg`: the 8-byte load of x[g][4t..4t+3]."""
+    g, t = lane >> 2, lane & 3
+    return g, 4 * t + 2 * reg + half
+
+
+def tc_d_fragment(lane: int, tile: int, reg: int) -> Tuple[int, int, bool]:
+    """(row in the n-tile, packed column in the warp's 32, is_hi) of
+    accumulator `reg` of m-tile `tile`."""
+    g, t = lane >> 2, lane & 3
+    return 2 * t + (reg & 1), 4 * g + tile, reg >= 2
+
+
+def byte_perm(x: int, y: int, selector: int) -> int:
+    """CUDA's `__byte_perm` (PRMT, default mode) on 32-bit ints."""
+    src = (x & 0xFFFFFFFF) | (y & 0xFFFFFFFF) << 32
+    return sum(((src >> (8 * ((selector >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+               for i in range(4))
+
+
+def tc_unpack_pair(word_a: int, word_b: int, byte: int) -> Tuple[int, int]:
+    """The kernel's unpack of byte `byte` of two packed words into two bf16x2
+    registers (lo, hi), as bit patterns before the subtraction of 136 (the
+    kernel's `fma.rn.bf16x2` by 1 and -136): 0x4300 | n is the bf16 value
+    128 + n, so lo = (0x4300 | (b & 0xF)) - 136 and
+    hi = (0x4300 | ((b >> 4) ^ 8)) - 136, both exact."""
+    p = byte_perm(word_a, word_b, 0x4400 + 0x1111 * byte)  # bytes a, a, b, b
+    return (p & 0x000F000F) | 0x43004300, ((p >> 4) & 0x000F000F) ^ 0x43084308
 
 
 def _check_packed(w_p4, s_lo, s_hi16, I: int) -> int:
@@ -221,7 +348,8 @@ def int4_matmul_w16(
 ) -> torch.Tensor:
     """K2: x [R, I] (R <= 256) @ packed int4 [I, O/2] -> [R, O] in x.dtype.
 
-    CUDA inputs launch the kernel (float32 or bfloat16 x, contiguous) and
+    CUDA inputs launch the kernel (contiguous float32 or bfloat16 x; bf16
+    on the tensor cores, fp32 on the CUDA cores, as `w16_plan` says) and
     raise on anything else; CPU inputs run the plain version."""
     if x.dim() != 2:
         raise ValueError(f"x must be [R, I], got {tuple(x.shape)}")
@@ -236,21 +364,29 @@ def int4_matmul_w16(
     if not 0 < R <= MAX_KERNEL_ROWS:
         raise ValueError(f"the CUDA kernel takes 1..{MAX_KERNEL_ROWS} rows, not {R}")
     _check_cuda((x, w_p4, s_lo, s_hi16), OH)
-    ksplit, part = _partials(R, I, OH, x.device, torch.float32)
+    plan = w16_plan(R, I, OH, x.dtype, _sm_count(x.device.index))
+    part = None if plan.ksplit == 1 else torch.empty(
+        (plan.ksplit, R, 2 * OH), dtype=torch.float32, device=x.device)
     out = torch.empty((R, 2 * OH), dtype=x.dtype, device=x.device)
-    err = _kernel_fns()[0](
-        x.data_ptr(), w_p4.data_ptr(), s_lo.data_ptr(), s_hi16.data_ptr(),
-        0 if part is None else part.data_ptr(), out.data_ptr(),
-        R, I, OH, ksplit, _DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream().cuda_stream,
-    )
+    fns = _kernel_fns()
+    args = (x.data_ptr(), w_p4.data_ptr(), s_lo.data_ptr(), s_hi16.data_ptr(),
+            0 if part is None else part.data_ptr(), out.data_ptr(), R, I, OH, plan.ksplit)
+    stream = torch.cuda.current_stream().cuda_stream
+    tc = plan.route == "tensor_cores"
+    if tc:
+        err = fns[2](*args, plan.row_tiles, stream)
+    else:
+        err = fns[0](*args, _DTYPE_CODES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"int4_matmul_w16 kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"int4_matmul_w16 kernel launch failed ({plan.route}): "
+                           f"cudaError {err}")
     int4_matmul_w16.launches += 1
+    int4_matmul_w16.tc_launches += tc
     return out
 
 
 int4_matmul_w16.launches = 0
+int4_matmul_w16.tc_launches = 0  # of `launches`, those on the tensor cores
 
 
 def int4_matmul_w4a8(

@@ -16,9 +16,13 @@ other mode raises, as the JAX package does.
 
 Options the port does not have yet raise `NotImplementedError` instead of
 being ignored: `quantize='auto'`, `kv_a8`, `speculative`, `fast_edit`,
-`jacobi`, and teacher forcing from `gt_images` / `edit_region` (it needs the
-VQ encoder). `growing_cache` needs no branch: both of its values compute the
-same function, which the port's fixed cache and prefix kernels compute.
+`jacobi`, and teacher-forced generation from `gt_images` / `edit_region`.
+As in the JAX pipeline, `gt_images` and `edit_region` take effect only with
+teacher forcing (the `teacher_forcing` argument, or
+`GenerationConfig.use_teacher_forcing` when it is None); without it they
+are ignored and the call generates as usual. `growing_cache` needs no
+branch: both of its values compute the same function, which the port's
+fixed cache and prefix kernels compute.
 """
 
 from __future__ import annotations
@@ -146,6 +150,7 @@ class PlanGenPipeline:
         seed: Optional[int] = None,
         seeds: Optional[Sequence[int]] = None,
         parallel_size: Optional[int] = None,
+        teacher_forcing: Optional[bool] = None,
     ) -> GenerationOutput:
         """Layout-conditioned image generation (task 'uni').
 
@@ -157,6 +162,7 @@ class PlanGenPipeline:
             neg_captions=neg_captions, neg_groundings=neg_groundings,
             gt_images=gt_images, edit_region=edit_region,
             seed=seed, seeds=seeds, parallel_size=parallel_size,
+            teacher_forcing=teacher_forcing,
         )
         return self.execute_image_gen(prep)
 
@@ -172,13 +178,20 @@ class PlanGenPipeline:
         seed: Optional[int] = None,
         seeds: Optional[Sequence[int]] = None,
         parallel_size: Optional[int] = None,
+        teacher_forcing: Optional[bool] = None,
     ) -> PreparedImageGen:
         """Host half of `layout_to_image`: tokenization, the CFG dual batch,
-        its embedding on the device, and the sampling generators."""
-        if gt_images is not None or edit_region is not None:
+        its embedding on the device, and the sampling generators.
+
+        `gt_images` / `edit_region` are ignored unless teacher forcing is on
+        (`teacher_forcing`, or `gen.use_teacher_forcing` when it is None)."""
+        if teacher_forcing is None:
+            teacher_forcing = self.gen.use_teacher_forcing
+        if gt_images is not None and teacher_forcing:
             raise NotImplementedError(
-                "teacher forcing from gt_images / edit_region needs the VQ "
-                "encoder, which plangen_tpu_torch does not port yet"
+                "teacher-forced generation from gt_images / edit_region is "
+                "not in plangen_tpu_torch yet; call with teacher_forcing=False "
+                "to generate without it"
             )
         ps = parallel_size or self.gen.parallel_size
         captions = list(captions)

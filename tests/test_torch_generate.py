@@ -241,11 +241,62 @@ def test_unported_options_raise(option):
         PlanGenPipeline(model, cfg, proc, gen_cfg=GenerationConfig(**option))
 
 
-def test_teacher_forcing_from_images_raises():
-    _, port = _pipelines()
+def _gt_inputs(n=1):
     cfg = CONFIGS["tiny"]
+    rs = np.random.RandomState(3)
     size = cfg.vision.image_size
+    gt = rs.uniform(-1, 1, size=(n, size, size, 3)).astype(np.float32)
+    region = (rs.uniform(size=(n, cfg.image_seq_len)) > 0.5).astype(np.int32)
+    return gt, region
+
+
+def test_teacher_forcing_from_images_raises():
+    """With teacher forcing on, `gt_images` raises: teacher-forced generation
+    is not in the port yet (the message says so, not that the encoder is
+    missing)."""
+    _, port = _pipelines()
+    gt, region = _gt_inputs()
+    with pytest.raises(NotImplementedError) as info:
+        port.layout_to_image(CAPTIONS[:1], GROUNDINGS[:1], gt_images=gt,
+                             edit_region=region, teacher_forcing=True)
+    message = str(info.value)
+    assert "teacher-forced" in message
+    assert "encoder" not in message.lower() and "VQ" not in message
+
+
+def test_teacher_forcing_from_config_raises():
+    _, port = _pipelines(use_teacher_forcing=True)
+    gt, _ = _gt_inputs()
     with pytest.raises(NotImplementedError):
-        port.layout_to_image(CAPTIONS[:1], GROUNDINGS[:1],
-                             gt_images=np.zeros((1, size, size, 3), np.float32),
-                             edit_region=np.zeros((1, cfg.image_seq_len), np.int32))
+        port.prepare_layout_to_image(CAPTIONS[:1], GROUNDINGS[:1], gt_images=gt)
+
+
+@pytest.mark.parametrize("how", ["argument", "config"])
+def test_gt_images_ignored_without_teacher_forcing(how):
+    """As the JAX pipeline does (`plangen_tpu/tasks/pipeline.py:319-321`):
+    without teacher forcing, `gt_images` and `edit_region` are ignored and
+    the call returns the tokens of the same call without them. `argument`:
+    `teacher_forcing=False` over a config that asks for it; `config`:
+    `use_teacher_forcing=False` and no argument."""
+    jax_pipe, port = _pipelines(use_teacher_forcing=(how == "argument"))
+    gt, region = _gt_inputs(len(CAPTIONS))
+    kw = dict(seeds=[5, 6])
+    tf = dict(teacher_forcing=False) if how == "argument" else {}
+    plain = port.layout_to_image(CAPTIONS, GROUNDINGS, **kw, **tf)
+    got = port.layout_to_image(CAPTIONS, GROUNDINGS, gt_images=gt, edit_region=region,
+                               **kw, **tf)
+    np.testing.assert_array_equal(got.image_tokens, plain.image_tokens)
+    np.testing.assert_array_equal(got.images, plain.images)
+    want = jax_pipe.layout_to_image(CAPTIONS, GROUNDINGS, gt_images=gt, edit_region=region,
+                                    **kw, **tf)
+    np.testing.assert_array_equal(got.image_tokens, want.image_tokens)
+
+
+@pytest.mark.parametrize("method", ["layout_to_image", "prepare_layout_to_image"])
+def test_pipeline_signature_equals_jax(method):
+    import inspect
+
+    want = inspect.signature(getattr(JaxPipeline, method)).parameters
+    got = inspect.signature(getattr(PlanGenPipeline, method)).parameters
+    assert list(got) == list(want)
+    assert [p.default for p in got.values()] == [p.default for p in want.values()]

@@ -245,13 +245,25 @@ def _int4_inputs(dev, R, I, O, dtype, seed=0):
     return x, w, s_lo, s_hi16
 
 
-@pytest.mark.parametrize("R,I,O", INT4_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+# bf16 only (the tensor-core route): 2, 8 and 16 n-tiles of rows, and a
+# shape whose I (100) is not a multiple of 8 and whose O/2 (132) is not a
+# multiple of 16 (x staged by plain loads, the weight by 4-byte copies)
+K2_BF16_CASES = [(16, 2048, 6144), (64, 200, 1000), (128, 5632, 2048), (5, 100, 264)]
+K2_CASES = ([(dtype, *case) for case in INT4_CASES for dtype in (torch.float32, torch.bfloat16)]
+            + [(torch.bfloat16, *case) for case in K2_BF16_CASES])
+
+
+@pytest.mark.parametrize("dtype,R,I,O", K2_CASES,
+                         ids=[f"{'bf16' if d == torch.bfloat16 else 'fp32'}-{R}-{I}-{O}"
+                              for d, R, I, O in K2_CASES])
 def test_k2_matches_plain_version(cuda, dtype, R, I, O):
     x, w, s_lo, s_hi16 = _int4_inputs(cuda, R, I, O, dtype)
-    launches = im.int4_matmul_w16.launches
+    launches = (im.int4_matmul_w16.launches, im.int4_matmul_w16.tc_launches)
     got = im.int4_matmul_w16(x, w, s_lo, s_hi16)
-    assert im.int4_matmul_w16.launches == launches + 1
+    # bf16 runs on the tensor cores, fp32 on the CUDA cores (the check route)
+    tc = int(dtype == torch.bfloat16)
+    assert (im.int4_matmul_w16.launches, im.int4_matmul_w16.tc_launches) == (
+        launches[0] + 1, launches[1] + tc)
     want = im.int4_matmul_w16_reference(x, w, s_lo, s_hi16)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (R, O)
@@ -259,6 +271,18 @@ def test_k2_matches_plain_version(cuda, dtype, R, I, O):
     # bf16: plus one rounding of the output
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("R,I,O", [(8, 2048, 2048), (64, 2048, 11264), (256, 2048, 11264),
+                                   (37, 200, 1000)])
+def test_k2_tensor_cores_are_deterministic(cuda, R, I, O):
+    """Split-K partials added in a fixed order, no atomics: two calls give
+    the same bits."""
+    x, w, s_lo, s_hi16 = _int4_inputs(cuda, R, I, O, torch.bfloat16, seed=2)
+    a = im.int4_matmul_w16(x, w, s_lo, s_hi16)
+    b = im.int4_matmul_w16(x, w, s_lo, s_hi16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("R,I,O", INT4_CASES)
