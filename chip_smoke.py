@@ -10,9 +10,10 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
   2. build: compile every kernel source in csrc/ (one nvcc each, started
      together) and print nvcc seconds, registers and spills; then the SASS
      (`cuobjdump`) must show HGMMA (`wgmma`, the tensor cores) in the bf16
-     K3 forward, dK/dV and dQ kernels, and HMMA (`mma.sync`) in each of the
+     K3 forward, dK/dV and dQ kernels, HMMA (`mma.sync` bf16) in each of the
      four instances (8-row n-tiles per warp 1, 2, 4, 8) of the bf16 K2
-     kernel;
+     kernel, and IMMA (`mma.sync` s8) in each of the eight instances (the
+     same n-tiles x fp32 or bf16 output) of the K4 kernel;
   3. K1 vs its plain PyTorch version at Janus-Pro-1B decode shapes
      (L=24, B=8, S=1024, H=16, D=128), bf16 and fp32, left-padded rows,
      at q_pos 390, 127, 128, 677 and 1023: its split plan and grid (blocks
@@ -30,19 +31,21 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      cached decode step against the uncached forward;
   5. K2 (W4A16) and K4 (W4A8) int4 matmuls vs their plain versions at the
      1B decode shapes (R = 8; fused qkv, o, fused gate|up, down, gen_head
-     fc2) and R = 256 at gate|up, timed in turns; K2 also at R = 64 (batch
-     32 with CFG) at gate|up. Every bf16 K2 call must take the tensor-core
-     route (`tc_launches` rises by one), two calls must be bitwise equal,
-     and beside each K2 row the time of cuBLAS on the weight dequantized to
-     bf16 once (`x @ w_bf16`, 4x the bytes: a point of comparison, not the
-     same function);
+     fc2), R = 64 (batch 32 with CFG) and R = 256 at gate|up, timed in
+     turns. Every bf16 K2 call and every K4 call must take the tensor-core
+     route (`tc_launches` rises by one), two calls must be bitwise equal, K4
+     bit-equal to its plain version; beside each K2 row the time of cuBLAS
+     on the weight dequantized to bf16 once (`x @ w_bf16`, 4x the bytes),
+     beside K4 at R = 64 and 256 that of `torch._int_mm` on the weight
+     unpacked once to int8 [I, O] (2x the bytes): points of comparison, not
+     the same functions;
   6. K1-q8 (decode attention over the int8 cache) vs its plain version at
      the phase-3 shapes;
   7. the quantized slice: the same seeded model quantized in place to
      `int4`, K1-q8 checked on the int8 cache its prefill wrote, then
      `layout_to_image` on the 4 requests; a fresh seeded model quantized to
      `int4_a8` on 1 request. Every decode-step projection goes through K2
-     (or K4), every K2 launch on the tensor-core route, every decode
+     (or K4), every K2 and K4 launch on the tensor-core route, every decode
      attention through K1-q8, no plain version runs;
   8. K3 (flash attention, forward and backward) vs its plain version at the
      training shapes: causal left-padded [3, 736, 16, 128], causal
@@ -67,8 +70,8 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
 The last two lines are a JSON object describing the kernels (each with its
 launches on the main path, error, time, plain time, the one-call
 counterpart's time or null, and `bound_ms`: the least time the card could
-take, from `roofline_ms`; K2's time is the mean over the R = 8 shapes, with
-its times by row count beside it in `ms_by_rows`) and
+take, from `roofline_ms`; K2's and K4's times are the means over the R = 8
+shapes, with their times by row count beside them in `ms_by_rows`) and
 `{"ok": true, "device": {...}}`. Without a
 CUDA device the script exits non-zero before printing any result.
 """
@@ -125,14 +128,16 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 data sheet
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 data sheet
 # {library: {kernel: (SASS instruction it must contain, instances)}}: the
 # bf16 K3 kernels (head dim 64 / 128 x causal or not) on `wgmma`, the bf16
-# K2 kernel (1, 2, 4, 8 n-tiles a warp) on `mma.sync`
+# K2 kernel (1, 2, 4, 8 n-tiles a warp) on `mma.sync` bf16, the K4 kernel
+# (the same n-tiles x fp32 / bf16 output) on `mma.sync` s8
 TENSOR_CORE_SASS = {
     "flash_attention": {"flash_fwd_tc_kernel": ("HGMMA", 4),
                         "flash_bwd_dkdv_tc_kernel": ("HGMMA", 4),
                         "flash_bwd_dq_tc_kernel": ("HGMMA", 4)},
-    "int4_matmul": {"int4_w16_tc_kernel": ("HMMA", 4)},
+    "int4_matmul": {"int4_w16_tc_kernel": ("HMMA", 4), "int4_a8_tc_kernel": ("IMMA", 8)},
 }
-INT4_ROWS = (8, 64, 256)  # K2's row counts in phase 5 (K4: 8 and 256)
+SASS_INSTRUCTIONS = ("HGMMA", "HMMA", "IMMA")
+INT4_ROWS = (8, 64, 256)  # K2's and K4's row counts in phase 5
 N_SMS = 132  # H100 SXM
 
 
@@ -218,20 +223,22 @@ def sass_counts(path: pathlib.Path, instructions) -> dict:
 
 
 def check_tensor_core_sass(path: pathlib.Path, kernels: dict) -> None:
-    """Every instantiation of each bf16 tensor-core kernel (`kernels`:
+    """Every instantiation of each tensor-core kernel (`kernels`:
     {name: (instruction, instances)}) holds its instruction in the built
     library."""
-    counts = sass_counts(path, ("HGMMA", "HMMA"))
+    counts = sass_counts(path, SASS_INSTRUCTIONS)
     for kernel, (ins, instances) in kernels.items():
         found = {n: c for n, c in counts.items() if kernel in n}
         check(len(found) == instances,
               f"SASS: {len(found)} instantiations of {kernel}, expected {instances}")
         for name, c in sorted(found.items()):
             m = re.search(r"ILi(\d+)ELb([01])E", name)
-            n_tiles = re.search(r"ILi(\d+)EE", name)
+            n_tiles = re.search(r"ILi(\d+)E(f|13__nv_bfloat16)?E", name)
             what = (f"D={m.group(1)} causal={m.group(2)}" if m else
-                    f"n-tiles={n_tiles.group(1)}" if n_tiles else name)
-            log(f"[2] SASS {kernel} {what}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
+                    f"n-tiles={n_tiles.group(1)}" + {None: "", "f": " fp32 out"}.get(
+                        n_tiles.group(2), " bf16 out") if n_tiles else name)
+            log(f"[2] SASS {kernel} {what}: "
+                + ", ".join(f"{i} {c[i]}" for i in SASS_INSTRUCTIONS))
             check(c[ins] > 0, f"SASS: no {ins} in {kernel} ({what})")
 
 
@@ -510,7 +517,7 @@ def run_slice(torch, pipe, cfg, captions, groundings, seeds):
     seconds = time.perf_counter() - t0
     launches = {k: w.launches for k, (w, _) in counters.items()}
     plain_calls = sum(p.calls for _, p in counters.values())
-    k2_tc = counters["int4_matmul_w16"][0].tc_launches
+    tc = {name: counters[name][0].tc_launches for name in ("int4_matmul_w16", "int4_matmul_a8")}
 
     mode = pipe.gen.quantize or "bf16"
     want = expected_launches(cfg, pipe.gen.quantize, 2 * n, prompt_len)
@@ -519,11 +526,11 @@ def run_slice(torch, pipe, cfg, captions, groundings, seeds):
             f"(expected from the code: {want[name]})")
     check(launches == want, f"{mode}: launches {launches}, expected {want}")
     check(plain_calls == 0, f"the plain versions ran {plain_calls} times on the main path")
-    if launches["int4_matmul_w16"]:
-        log(f"[7] {mode}: int4_matmul_w16 launches on the tensor cores {k2_tc} of "
-            f"{launches['int4_matmul_w16']}")
-        check(k2_tc == launches["int4_matmul_w16"],
-              f"{mode}: {launches['int4_matmul_w16'] - k2_tc} K2 launches off the tensor cores")
+    for name, on_tc in tc.items():
+        if launches[name]:
+            log(f"[7] {mode}: {name} launches on the tensor cores {on_tc} of {launches[name]}")
+            check(on_tc == launches[name],
+                  f"{mode}: {launches[name] - on_tc} {name} launches off the tensor cores")
     toks = out.image_tokens
     check(toks.shape == (n, cfg.image_seq_len), f"tokens shape {toks.shape}")
     check(int(toks.min()) >= 0 and int(toks.max()) < cfg.image_token_size,
@@ -559,21 +566,28 @@ def timed_pair(torch, kernel, plain, iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
+def unpacked_int8(torch, im, q):
+    """The packed weight unpacked once to int8 [I, O] (lo then hi nibbles),
+    column-major as `torch._int_mm` takes its second operand."""
+    lo, hi = im._unpack(q["w_p4"])
+    return torch.cat([lo, hi], dim=-1).to(torch.int8).t().contiguous().t()
+
+
 def phase_int4_vs_plain(torch, dev) -> dict:
     """K2 and K4 against their plain versions at the 1B decode shapes; K2
-    also beside cuBLAS on bf16 weights (a yardstick of another function)."""
+    also beside cuBLAS on bf16 weights, K4 beside `torch._int_mm` on int8
+    weights (yardsticks of other functions)."""
     from plangen_tpu_torch.ops import int4_matmul as im
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     rows = []
-    # (name, R, I, O, with K4): K4's rows are R = 8 and the R = 256 case
-    cases = ([(name, 8, I, O, True) for name, I, O in INT4_SHAPES]
-             + [("gate_up_proj", 64, 2048, 11264, False),
-                ("gate_up_proj", 256, 2048, 11264, True)])
-    k2 = im.int4_matmul_w16
-    for name, R, I, O, with_k4 in cases:
+    cases = ([(name, 8, I, O) for name, I, O in INT4_SHAPES]
+             + [("gate_up_proj", R, 2048, 11264) for R in INT4_ROWS[1:]])
+    k2, k4 = im.int4_matmul_w16, im.int4_matmul_w4a8
+    for name, R, I, O in cases:
         OH = O // 2
         plan = im.w16_plan(R, I, OH, torch.bfloat16, N_SMS)
+        plan8 = im.a8_plan(R, I, OH, N_SMS)
 
         def weight():
             return {"w_p4": torch.randint(-128, 128, (I, OH), generator=gen, device=dev,
@@ -597,48 +611,60 @@ def phase_int4_vs_plain(torch, dev) -> dict:
                                        atol=INT4_TOLERANCE)
             err16 = max(err16, (got.float() - want.float()).abs().max().item())
             check(torch.equal(got, k2(x, *args(i))), f"K2 at {name} R={R}: two calls differ")
-            if with_k4:
-                got8 = im.int4_matmul_w4a8(x8, xs, *args(i), torch.bfloat16)
-                want8 = im.int4_matmul_w4a8_reference(x8, xs, *args(i), torch.bfloat16)
-                err8 = max(err8, (got8.float() - want8.float()).abs().max().item())
+            tc_before = k4.tc_launches
+            got8 = k4(x8, xs, *args(i), torch.bfloat16)
+            check(k4.tc_launches == tc_before + 1, f"K4 at {name} R={R} left the tensor cores")
+            want8 = im.int4_matmul_w4a8_reference(x8, xs, *args(i), torch.bfloat16)
+            check(got8.shape == (R, O) and got8.dtype == torch.bfloat16, f"K4 output {got8.shape}")
+            err8 = max(err8, (got8.float() - want8.float()).abs().max().item())
+            check(torch.equal(got8, k4(x8, xs, *args(i), torch.bfloat16)),
+                  f"K4 at {name} R={R}: two calls differ")
         check(err8 == 0.0, f"K4 at {name} R={R} differs from its plain version: {err8:.3e}")
 
         iters = min(64, 4 * len(ws))
-        before = (k2.launches, k2.tc_launches)
+        before = {k: (k.launches, k.tc_launches) for k in (k2, k4)}
         k16, p16, r16 = timed_pair(torch, lambda i: k2(x, *args(i)),
                                    lambda i: im.int4_matmul_w16_reference(x, *args(i)), iters)
-        check(k2.tc_launches - before[1] == k2.launches - before[0],
-              f"K2 at {name} R={R}: timed calls left the tensor cores")
         # the yardstick: cuBLAS on the weight dequantized to bf16 once
         dense = rotating(lambda: im.dequantize_weight_int4(ws[0], dtype=torch.bfloat16),
                          2 * I * O)
         cublas = [time_ms(torch, lambda i: x @ dense[i % len(dense)], iters, host_ahead=True)
                   for _ in range(2)]
-        cublas_ms = sum(cublas) / 2
         del dense
-        timed = [("K2", k16, p16, r16, err16)]
-        if with_k4:
-            k8, p8, r8 = timed_pair(
-                torch, lambda i: im.int4_matmul_w4a8(x8, xs, *args(i), torch.bfloat16),
-                lambda i: im.int4_matmul_w4a8_reference(x8, xs, *args(i), torch.bfloat16), iters)
-            timed.append(("K4", k8, p8, r8, err8))
+        k8, p8, r8 = timed_pair(
+            torch, lambda i: k4(x8, xs, *args(i), torch.bfloat16),
+            lambda i: im.int4_matmul_w4a8_reference(x8, xs, *args(i), torch.bfloat16), iters)
+        for k, tag in ((k2, "K2"), (k4, "K4")):
+            check(k.tc_launches - before[k][1] == k.launches - before[k][0],
+                  f"{tag} at {name} R={R}: timed calls left the tensor cores")
+        # K4's yardstick: torch._int_mm (cuBLASLt int8, needs R > 16) on the
+        # weight unpacked to int8 once
+        int_mm = None
+        if R > 16:
+            dense8 = rotating(lambda: unpacked_int8(torch, im, ws[0]), I * O)
+            int_mm = [time_ms(torch, lambda i: torch._int_mm(x8, dense8[i % len(dense8)]), iters,
+                              host_ahead=True) for _ in range(2)]
+            del dense8
+        timed = [("K2", k16, p16, r16, err16, plan, cublas), ("K4", k8, p8, r8, err8, plan8, int_mm)]
         # bytes: packed weights, both scale rows, the activations (bf16, or
         # int8 plus a scale per row for K4), the bf16 output
         weights = I * OH + 2 * OH * 4 + 2 * R * O
         work = {"K2": (2 * R * I * O, weights + 2 * R * I, PEAK_BF16_FLOPS),
                 "K4": (2 * R * I * O, weights + R * I + 4 * R, PEAK_INT8_OPS)}
-        for tag, k_ms, p_ms, r, err in timed:
+        for tag, k_ms, p_ms, r, err, pl, yard in timed:
             gbps = I * OH / (k_ms * 1e-3) / 1e9
             bound = roofline_ms(*work[tag])
+            yard_ms = None if yard is None else sum(yard) / 2
             rows.append(dict(kernel=tag, name=name, R=R, err=err, ms=k_ms, plain_ms=p_ms,
-                             bound_ms=bound, bound_by=bound_by(*work[tag]), cublas_ms=cublas_ms))
-            extra = ""
-            if tag == "K2":
-                extra = (f"; {plan.route}, grid {plan.grid}, {plan.row_tiles} n-tiles a warp, "
-                         f"{plan.smem_bytes} B shared, bitwise equal twice; bf16 weights, 4x "
-                         f"the bytes (cuBLAS x @ w_bf16, another function) "
-                         f"{cublas_ms * 1e3:.2f} us ({cublas[0] * 1e3:.2f}/"
-                         f"{cublas[1] * 1e3:.2f}), K2 takes {k_ms / cublas_ms:.2f}x its time")
+                             bound_ms=bound, bound_by=bound_by(*work[tag]), yard_ms=yard_ms))
+            what = ("bf16 weights, 4x the bytes (cuBLAS x @ w_bf16" if tag == "K2" else
+                    "int8 weights, 2x the bytes (torch._int_mm")
+            extra = (f"; {pl.route}, grid {pl.grid}, {pl.row_tiles} n-tiles a warp, "
+                     f"{pl.smem_bytes} B shared, bitwise equal twice")
+            if yard_ms is not None:
+                extra += (f"; {what}, another function) {yard_ms * 1e3:.2f} us "
+                          f"({yard[0] * 1e3:.2f}/{yard[1] * 1e3:.2f}), {tag} takes "
+                          f"{k_ms / yard_ms:.2f}x its time")
             log(f"[5] {tag} {name:13s} R={R:3d} I={I} O={O}: max_abs_err={err:.3e} "
                 f"kernel {k_ms * 1e3:8.2f} us ({r[1] * 1e3:.2f}/{r[2] * 1e3:.2f}) "
                 f"plain {p_ms * 1e3:9.2f} us ({r[0] * 1e3:.2f}/{r[3] * 1e3:.2f}) "
@@ -657,15 +683,18 @@ def phase_int4_vs_plain(torch, dev) -> dict:
                         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in mine)
                         else "operations",
                         library_ms=None)
-    k2_rows = {R: [r for r in rows if r["kernel"] == "K2" and r["R"] == R] for R in INT4_ROWS}
-    mean = {R: {key: sum(r[key] for r in rs) / len(rs) for key in ("ms", "bound_ms", "cublas_ms")}
-            for R, rs in k2_rows.items()}
-    out["K2"]["ms_by_rows"] = {str(R): m["ms"] for R, m in mean.items()}
-    out["K2"]["bound_ms_by_rows"] = {str(R): m["bound_ms"] for R, m in mean.items()}
-    log("[5] K2 (mean over the shapes at each R): " + "; ".join(
-        f"R = {R} {m['ms'] * 1e3:.2f} us, bound {m['bound_ms'] * 1e3:.2f} us = "
-        f"{100 * m['bound_ms'] / m['ms']:.1f}%, bf16 weights by cuBLAS "
-        f"{m['cublas_ms'] * 1e3:.2f} us" for R, m in mean.items()))
+        by_rows = {R: [r for r in rows if r["kernel"] == tag and r["R"] == R] for R in INT4_ROWS}
+        mean = {R: {key: sum(r[key] for r in rs) / len(rs) for key in ("ms", "bound_ms")}
+                for R, rs in by_rows.items()}
+        out[tag]["ms_by_rows"] = {str(R): m["ms"] for R, m in mean.items()}
+        out[tag]["bound_ms_by_rows"] = {str(R): m["bound_ms"] for R, m in mean.items()}
+        yard = "bf16 weights by cuBLAS" if tag == "K2" else "int8 weights by torch._int_mm"
+        log(f"[5] {tag} (mean over the shapes at each R): " + "; ".join(
+            f"R = {R} {m['ms'] * 1e3:.2f} us, bound {m['bound_ms'] * 1e3:.2f} us = "
+            f"{100 * m['bound_ms'] / m['ms']:.1f}%"
+            + ("" if by_rows[R][0]["yard_ms"] is None else
+               f", {yard} {sum(r['yard_ms'] for r in by_rows[R]) / len(by_rows[R]) * 1e3:.2f} us")
+            for R, m in mean.items()))
     return out
 
 

@@ -18,9 +18,7 @@
 //       registers: lo = (b & 0xF) - 8, hi = b >> 4 (arithmetic, signed byte).
 //   K4: with x8 int8 [R, I] and per-row scales xs [R] (quantized outside):
 //       acc_lo = sum_k x8 * lo and acc16 = sum_k x8 * (16 * hi) in exact
-//       int32 (__dp4a on four k at a time: the lo bytes are
-//       (b & 0x0F) - 8, the hi bytes (b & 0xF0), i.e. 16 * hi as a signed
-//       byte), then out = float(acc_lo) * s_lo * xs and
+//       int32 on the tensor cores, then out = float(acc_lo) * s_lo * xs and
 //       float(acc16) * s_hi16 * xs, in that order. acc_lo and acc16 are the
 //       integers y2 - 8 * rowsum and y1 - y2 of the TPU kernel, so with the
 //       same multiply order the output is bit-equal to the plain version.
@@ -78,23 +76,48 @@
 // and at R = 8 a 64-row tile would be 7/8 padding. The split over the input
 // dimension and the fixed-order second pass stay as below.
 //
-// K2 in fp32 (`int4_w16_kernel<float>`, the check route, CUDA cores) and K4:
-// a block of 8 warps covers 128 packed columns (each lane one 32-bit word =
-// 4 packed columns, so a warp reads 128 contiguous bytes per input row) and
+// K4 (`int4_a8_tc_kernel`, every call): K2's tensor-core structure with
+// `mma.sync.m16n8k32` s8 x s8 -> s32: the same 4 warps of 32 packed
+// columns, 8-row n-tiles of x8 (1, 2, 4 or 8 a warp), weight as A and x8
+// transposed as B, a 4-stage `cp.async` ring and the same zero-filled
+// ragged edges (4-byte copies of the weight where OH % 16 != 0 and of x8
+// where I % 16 != 0). A stage holds 128 inputs: 128 bytes of every x8 row,
+// as K2's 64 bf16 inputs, and a 16 KB weight tile. Layout (mirrored in
+// ops/int4_matmul.py, `a8_a_fragment` / `a8_b_fragment` / `a8_d_fragment`):
+//   - Inside a k32 step, k-slot 4t + i (+ 16) carries input 8t + i (+ 4) in
+//     A and B alike, so lane (g, t) reads word g of the warp's strip at
+//     inputs 8t..8t+7 (eight 32-bit words) and B as one 8-byte load of
+//     x8[g][8t..8t+7] per n-tile.
+//   - `transpose4` (8 PRMTs) turns four words of inputs 8t..8t+3 into one
+//     column word per m-tile c (packed column 4g + c); its A registers are
+//     16 lo (row g: ((col << 4) & 0xF0F0F0F0) ^ 0x80808080, since the
+//     byte is 16 hi + lo + 8) and 16 hi (row g + 8: col & 0xF0F0F0F0), as
+//     signed bytes: a shift and two LOP3s a word, no per-byte subtraction
+//     and no row sums. The lo accumulators hold 16 acc_lo, exactly (|acc|
+//     <= 2^14 I < 2^31 for I < 131072), and the epilogue shifts them back.
+//   - Accumulators land where K2's do: rows 2t, 2t + 1 of packed columns
+//     4g + c, lo in c0/c1, hi in c2/c3.
+//   - Weight rows are swizzled by 2 ((r >> 3) & 3) (the rows 8t + j that
+//     lanes t = 0..3 read at once hit 32 distinct banks), x8 rows as K2's.
+//
+// K2 in fp32 (`int4_w16_kernel<float>`, the check route, CUDA cores): a
+// block of 8 warps covers 128 packed columns (each lane one 32-bit word = 4
+// packed columns, so a warp reads 128 contiguous bytes per input row) and
 // 8 rows of x. x is staged in shared memory 128 inputs at a time; the 8
 // warps take interleaved input rows of the tile, each thread accumulating 8
 // rows x 8 outputs in registers, and a shared-memory reduction over the
 // warps ends the block.
 //
-// Both routes split the input dimension over grid.z where (OH / 128) x
+// Every route splits the input dimension over grid.z where (OH / 128) x
 // (row blocks) alone would leave most of the 132 SMs idle (about two blocks
-// per SM; one from 32 rows a block on, ops/int4_matmul.py::tc_blocks_per_sm):
-// each split writes unscaled fp32 (K2) or int32 (K4) partial sums,
-// and a second kernel adds the splits in a fixed order and applies the
-// scales. No atomics: the result is deterministic, and K4 stays exact.
+// per SM; one from 32 rows a block on, ops/int4_matmul.py::tc_blocks_per_sm,
+// measured for K2 and K4 alike): each split writes unscaled fp32 (K2) or int32
+// (K4) partial sums, and a second kernel adds the splits in a fixed order
+// and applies the scales. No atomics: the result is deterministic, and K4
+// stays exact.
 //
-// Left for later work: K4 on the tensor cores (int8 mma.sync) with its
-// activation quantization inside the kernel, and one launch per call.
+// Left for later work: one launch per call (the split-K combine in a
+// cluster), K4's activation quantization inside the kernel, `wgmma`.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -564,10 +587,10 @@ cudaError_t launch(const void* x, const void* w, const float* s_lo, const float*
 
 }  // namespace tc
 
-// ----------------------------------------------------------------- K4 (W4A8)
+// ----------------------------------------------- K4 (W4A8) on the tensor cores
 
 // Four packed words of input rows k..k+3 (4 columns each) -> four words of
-// one column each, holding the bytes of rows k..k+3 in order (for __dp4a).
+// one column each, holding the bytes of rows k..k+3 in order (8 PRMTs).
 __device__ __forceinline__ void transpose4(uint32_t w0, uint32_t w1,
                                            uint32_t w2, uint32_t w3,
                                            uint32_t (&col)[4]) {
@@ -588,89 +611,6 @@ __device__ __forceinline__ T a8_scale(int acc, float s, float xs) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    int4_a8_kernel(const int8_t* __restrict__ x8,   // [R, I]
-                   const float* __restrict__ xs,    // [R]
-                   const int8_t* __restrict__ w,    // [I, OH]
-                   const float* __restrict__ s_lo,
-                   const float* __restrict__ s_hi16,
-                   int* __restrict__ partial,  // [ksplit, R, 2 OH] or null
-                   T* __restrict__ out,        // [R, 2 OH]
-                   int R, int I, int OH, int tiles_per_split) {
-  constexpr int kGroups = kKTile / 4;  // four inputs per int32 word of x8
-  __shared__ int x_sh[kRows][kGroups];
-  __shared__ int red[kWarps * 32 * 8];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int OHW = OH / 4;
-  const int word = blockIdx.x * kColWords + lane;
-  const bool col_ok = word < OHW;
-  const int r0 = blockIdx.y * kRows;
-  const int k_tiles = (I + kKTile - 1) / kKTile;
-  const int t0 = blockIdx.z * tiles_per_split;
-  const int t1 = min(k_tiles, t0 + tiles_per_split);
-
-  int acc[kRows][8];  // [row][acc_lo 0..3 | acc16 4..7]
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int v = 0; v < 8; ++v) acc[r][v] = 0;
-
-  for (int t = t0; t < t1; ++t) {
-    const int k0 = t * kKTile;
-    for (int i = tid; i < kRows * kGroups; i += kThreads) {
-      const int r = i / kGroups, g = i % kGroups;
-      const int row = r0 + r, k = k0 + 4 * g;  // I % 4 == 0: whole groups
-      x_sh[r][g] = (row < R && k < I)
-                       ? *reinterpret_cast<const int*>(x8 + (size_t)row * I + k)
-                       : 0;
-    }
-    __syncthreads();
-    if (col_ok) {
-#pragma unroll
-      for (int j = 0; j < kGroups / kWarps; ++j) {
-        const int g = warp + j * kWarps;
-        const int k = k0 + 4 * g;
-        uint32_t col[4];
-        transpose4(load_word(w, k, I, OHW, word), load_word(w, k + 1, I, OHW, word),
-                   load_word(w, k + 2, I, OHW, word), load_word(w, k + 3, I, OHW, word),
-                   col);
-        int lo[4], hi16[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          lo[c] = (int)__vsub4(col[c] & 0x0F0F0F0Fu, 0x08080808u);  // lo bytes
-          hi16[c] = (int)(col[c] & 0xF0F0F0F0u);  // 16 * hi as signed bytes
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int xw = x_sh[r][g];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            acc[r][c] = __dp4a(lo[c], xw, acc[r][c]);
-            acc[r][4 + c] = __dp4a(hi16[c], xw, acc[r][4 + c]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const size_t ld = 2 * (size_t)OH;
-  reduce_and_emit<int>(acc, red, min(kRows, R - r0),
-      [&](int r, int j, bool is_hi, int s) {
-        if (j >= OH) return;
-        const int row = r0 + r;
-        const int col = is_hi ? j + OH : j;
-        if (partial) {
-          partial[((size_t)blockIdx.z * R + row) * ld + col] = s;
-        } else {
-          out[(size_t)row * ld + col] =
-              a8_scale<T>(s, is_hi ? s_hi16[j] : s_lo[j], xs[row]);
-        }
-      });
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
     int4_a8_reduce(const int* __restrict__ partial,
                    const float* __restrict__ xs,
@@ -686,6 +626,320 @@ __global__ void __launch_bounds__(kReduceThreads)
   const int col = (int)(i % (2 * (size_t)OH));
   out[i] = a8_scale<T>(s, col >= OH ? s_hi16[col - OH] : s_lo[col], xs[row]);
 }
+
+namespace a8 {
+
+using tc::cp_async16;
+using tc::cp_async4;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::kCols;
+using tc::kThreads;
+using tc::kWarpCols;
+using tc::lop3_and_xor;
+using tc::smem_u32;
+using tc::x_off;  // x8 rows are 128 bytes a stage, as K2's bf16 rows
+
+constexpr int kKTile = 128;                   // inputs a stage
+constexpr int kStages = 4;                    // cp.async ring depth
+constexpr int kWBytes = kKTile * kCols;       // packed weight bytes a stage (16 KB)
+constexpr int kXRowBytes = kKTile;            // x8 bytes a row a stage
+static_assert(kXRowBytes == tc::kXRowBytes, "x_off assumes rows of 128 bytes");
+
+template <int NT>
+__host__ __device__ constexpr int stage_bytes() { return kWBytes + 8 * NT * kXRowBytes; }
+
+// byte offset of byte `b` of weight row r (rows of 128 bytes, 16-byte chunks
+// XOR-swizzled by 2 ((r >> 3) & 3): the rows 8t + j that lanes t = 0..3
+// read at once land on distinct banks)
+__device__ __forceinline__ int w_off(int r, int b) {
+  return r * kCols + (((b >> 4) ^ (((r >> 3) & 3) << 1)) << 4) + (b & 15);
+}
+
+// Issues the copies of one k tile [k0, k0 + 128) into a stage: the packed
+// weight [128, 128 columns from col0] and x8 [8 NT rows from r0, 128
+// inputs]. The common case (OH % 16 == 0 and I % 16 == 0: 16-byte chunks
+// that lie all inside or all outside the arrays) has its per-thread
+// addresses computed once: thread tid copies chunk tid & 7 of rows
+// (tid >> 3) + 16 q; the x8 swizzle depends on a row through row & 3 only,
+// the weight swizzle through (row >> 3) & 3, which 16 q flips by 2 for odd
+// q. Other shapes take the general loops: 4-byte copies of the weight where
+// OH % 16 != 0 and of x8 where I % 16 != 0 (x8 rows are then not 16-byte
+// aligned; I % 4 == 0 keeps every 4-byte group inside or outside I).
+template <int NT>
+struct TileCopier {
+  static constexpr int kXChunks = 8 * NT * 8;  // 16-byte chunks of x8 a stage
+  const int8_t* x8;
+  const int8_t* w;
+  int R, I, OH, r0, col0;
+  bool fast;
+  int row, chunk, w_dst[2], x_dst;  // this thread's first row, chunk, offsets
+
+  __device__ TileCopier(const int8_t* x8_, const int8_t* w_, int R_, int I_, int OH_, int r0_,
+                        int col0_)
+      : x8(x8_), w(w_), R(R_), I(I_), OH(OH_), r0(r0_), col0(col0_),
+        fast((OH_ & 15) == 0 && (I_ & 15) == 0) {
+    row = threadIdx.x >> 3;
+    chunk = threadIdx.x & 7;
+    w_dst[0] = w_off(row, 16 * chunk);                // even q
+    w_dst[1] = w_off(row + 16, 16 * chunk) - 16 * kCols;  // odd q
+    x_dst = kWBytes + x_off(row, 16 * chunk);
+  }
+
+  __device__ __forceinline__ void copy(uint8_t* st, int k0) const {
+    if (fast) {
+      const int col = col0 + 16 * chunk;
+#pragma unroll
+      for (int q = 0; q < kKTile / 16; ++q) {
+        const int k = k0 + row + 16 * q;
+        const bool ok = k < I && col < OH;
+        cp_async16(smem_u32(st + w_dst[q & 1] + q * 16 * kCols),
+                   ok ? w + (size_t)k * OH + col : w, ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int q = 0; q < (kXChunks + kThreads - 1) / kThreads; ++q) {
+        if (kXChunks < kThreads && threadIdx.x >= kXChunks) break;
+        const int r = r0 + row + 16 * q, k = k0 + 16 * chunk;
+        const bool ok = r < R && k < I;
+        cp_async16(smem_u32(st + x_dst + q * 16 * kXRowBytes),
+                   ok ? x8 + (size_t)r * I + k : x8, ok ? 16 : 0);
+      }
+      return;
+    }
+    uint8_t* wsh = st;
+    uint8_t* xsh = st + kWBytes;
+    if ((OH & 15) == 0) {  // a 16-byte chunk is all inside OH or all past it
+      for (int i = threadIdx.x; i < kKTile * 8; i += kThreads) {
+        const int r = i >> 3, c = i & 7, k = k0 + r, col = col0 + 16 * c;
+        const bool ok = k < I && col < OH;
+        cp_async16(smem_u32(wsh + w_off(r, 16 * c)), ok ? w + (size_t)k * OH + col : w,
+                   ok ? 16 : 0);
+      }
+    } else {  // OH % 4 == 0 only: word by word
+      for (int i = threadIdx.x; i < kKTile * 32; i += kThreads) {
+        const int r = i >> 5, wd = i & 31, k = k0 + r, col = col0 + 4 * wd;
+        const bool ok = k < I && col < OH;
+        cp_async4(smem_u32(wsh + w_off(r, 4 * wd)), ok ? w + (size_t)k * OH + col : w,
+                  ok ? 4 : 0);
+      }
+    }
+    if ((I & 15) == 0) {  // a chunk of 16 inputs is all inside I or all past it
+      for (int i = threadIdx.x; i < kXChunks; i += kThreads) {
+        const int n = i >> 3, c = i & 7, r = r0 + n, k = k0 + 16 * c;
+        const bool ok = r < R && k < I;
+        cp_async16(smem_u32(xsh + x_off(n, 16 * c)), ok ? x8 + (size_t)r * I + k : x8,
+                   ok ? 16 : 0);
+      }
+    } else {  // I % 4 == 0 only: 4 inputs at a time
+      for (int i = threadIdx.x; i < 8 * NT * (kKTile / 4); i += kThreads) {
+        const int n = i >> 5, c = i & 31, r = r0 + n, k = k0 + 4 * c;
+        const bool ok = r < R && k < I;
+        cp_async4(smem_u32(xsh + x_off(n, 4 * c)), ok ? x8 + (size_t)r * I + k : x8,
+                  ok ? 4 : 0);
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A registers of the four m-tiles from four packed words of inputs k..k+3:
+// byte c of each word is packed column 4g + c; after `transpose4`, column
+// word c gives 16 lo (register `reg` of m-tile c: the packed byte is
+// 16 hi + lo + 8, so (byte << 4) & 0xF0 is 16 lo + 128 mod 256, and ^ 0x80
+// makes it 16 lo) and 16 hi (register reg + 1: byte & 0xF0), as signed bytes.
+__device__ __forceinline__ void unpack4(const uint32_t* wd, int reg, uint32_t (&a)[4][4]) {
+  const uint32_t hi_mask = 0xF0F0F0F0u, sign = 0x80808080u;
+  uint32_t col[4];
+  transpose4(wd[0], wd[1], wd[2], wd[3], col);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    a[c][reg] = lop3_and_xor(col[c] << 4, hi_mask, sign);
+    a[c][reg + 1] = col[c] & hi_mask;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* dst, float a, float b, float c, float d);
+template <>
+__device__ __forceinline__ void store4<float>(float* dst, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* dst, float a, float b,
+                                                      float c, float d) {
+  const __nv_bfloat162 ab = __floats2bfloat162_rn(a, b), cd = __floats2bfloat162_rn(c, d);
+  uint2 v;
+  v.x = *reinterpret_cast<const uint32_t*>(&ab);
+  v.y = *reinterpret_cast<const uint32_t*>(&cd);
+  *reinterpret_cast<uint2*>(dst) = v;
+}
+
+template <int NT, typename T>
+__global__ void __launch_bounds__(kThreads)
+    int4_a8_tc_kernel(const int8_t* __restrict__ x8,   // [R, I]
+                      const float* __restrict__ xs,    // [R]
+                      const int8_t* __restrict__ w,    // [I, OH]
+                      const float* __restrict__ s_lo,  // [OH]
+                      const float* __restrict__ s_hi16,  // [OH]
+                      int* __restrict__ partial,  // [ksplit, R, 2 OH] or null
+                      T* __restrict__ out,        // [R, 2 OH]
+                      int R, int I, int OH, int tiles_per_split) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int col0 = blockIdx.x * kCols;
+  const int r0 = blockIdx.y * 8 * NT;
+  const int k_tiles = (I + kKTile - 1) / kKTile;
+  const int t0 = blockIdx.z * tiles_per_split;
+  const int t1 = min(k_tiles, t0 + tiles_per_split);
+  const int n_live = min(NT, (R - r0 + 7) / 8);  // n-tiles with a row < R
+  constexpr int kStage = stage_bytes<NT>();
+  const TileCopier<NT> copier(x8, w, R, I, OH, r0, col0);
+  // this lane's A words: word g of the warp's strip at rows 32 s + 8 t + j,
+  // a_off + (32 s + j) * 128 (the row swizzle depends on t only); its B
+  // fragment of n-tile n in step s: the 8 bytes at b_off[s] + n * 8 rows
+  const int a_off = w_off(8 * t, kWarpCols * warp + 4 * g);
+  int b_off[kKTile / 32];
+#pragma unroll
+  for (int s = 0; s < kKTile / 32; ++s) b_off[s] = kWBytes + x_off(g, 32 * s + 8 * t);
+
+  int acc[NT][4][4];  // [n-tile][m-tile][accumulator]; lo ones hold 16 acc_lo
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[n][c][v] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (t0 + s < t1) copier.copy(smem + s * kStage, (t0 + s) * kKTile);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+  for (int kt = t0; kt < t1; ++kt) {
+    cp_async_wait<kStages - 2>();  // tile kt has landed (this thread's copies)
+    __syncthreads();  // ... everyone's; and stage (kt - 1) is free to refill
+    const int next = kt + kStages - 1;
+    if (next < t1) copier.copy(smem + ((next - t0) % kStages) * kStage, next * kKTile);
+    cp_async_commit();
+    const uint8_t* st = smem + ((kt - t0) % kStages) * kStage;
+    // software pipeline over the k32 steps, as K2's: the A words of step
+    // s + 1 and all B fragments of step s are in registers before step s's
+    // MMAs
+    uint32_t wd[2][8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      wd[0][j] = *reinterpret_cast<const uint32_t*>(st + a_off + j * kCols);
+#pragma unroll
+    for (int s = 0; s < kKTile / 32; ++s) {
+      if (s + 1 < kKTile / 32) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          wd[(s + 1) & 1][j] =
+              *reinterpret_cast<const uint32_t*>(st + a_off + (32 * (s + 1) + j) * kCols);
+      }
+      uint2 b[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        b[n] = *reinterpret_cast<const uint2*>(st + b_off[s] + n * 8 * kXRowBytes);
+      uint32_t a[4][4];  // [m-tile c][A register]
+      unpack4(wd[s & 1], 0, a);      // inputs 8t..8t+3: registers 0 (lo), 1 (hi)
+      unpack4(wd[s & 1] + 4, 2, a);  // inputs 8t+4..8t+7: registers 2, 3
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n < n_live) {  // uniform over the block
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mma_s8(acc[n][c], a[c], b[n].x, b[n].y);
+        }
+      }
+    }
+  }
+
+  const int p0 = col0 + kWarpCols * warp + 4 * g;  // packed columns p0..p0+3
+  if (p0 >= OH) return;  // OH % 4 == 0: all four in or all out
+  const size_t ld = 2 * (size_t)OH;
+  float4 slo = make_float4(0.f, 0.f, 0.f, 0.f), shi = slo;
+  if (!partial) {
+    slo = *reinterpret_cast<const float4*>(s_lo + p0);
+    shi = *reinterpret_cast<const float4*>(s_hi16 + p0);
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (n >= n_live) continue;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = r0 + 8 * n + 2 * t + rr;
+      if (row >= R) continue;
+      // acc_lo: the lo sums are of multiples of 16, so >> 4 is exact
+      const int4 lo = make_int4(acc[n][0][rr] >> 4, acc[n][1][rr] >> 4, acc[n][2][rr] >> 4,
+                                acc[n][3][rr] >> 4);
+      const int4 hi = make_int4(acc[n][0][2 + rr], acc[n][1][2 + rr], acc[n][2][2 + rr],
+                                acc[n][3][2 + rr]);
+      if (partial) {
+        int* dst = partial + ((size_t)blockIdx.z * R + row) * ld;
+        *reinterpret_cast<int4*>(dst + p0) = lo;
+        *reinterpret_cast<int4*>(dst + OH + p0) = hi;
+      } else {
+        const float x = xs[row];
+        T* dst = out + (size_t)row * ld;
+        store4<T>(dst + p0, a8_scale<float>(lo.x, slo.x, x), a8_scale<float>(lo.y, slo.y, x),
+                  a8_scale<float>(lo.z, slo.z, x), a8_scale<float>(lo.w, slo.w, x));
+        store4<T>(dst + OH + p0, a8_scale<float>(hi.x, shi.x, x),
+                  a8_scale<float>(hi.y, shi.y, x), a8_scale<float>(hi.z, shi.z, x),
+                  a8_scale<float>(hi.w, shi.w, x));
+      }
+    }
+  }
+}
+
+template <int NT, typename T>
+cudaError_t launch(const void* x8, const float* xs, const void* w, const float* s_lo,
+                   const float* s_hi16, void* partial, void* out, int R, int I, int OH,
+                   int ksplit, cudaStream_t st) {
+  constexpr int smem = kStages * stage_bytes<NT>();
+  static bool smem_set = false;  // once per instance (the process drives one card)
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_a8_tc_kernel<NT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const int k_tiles = (I + kKTile - 1) / kKTile;
+  const dim3 grid((OH + kCols - 1) / kCols, (R + 8 * NT - 1) / (8 * NT), ksplit);
+  int* part = ksplit > 1 ? static_cast<int*>(partial) : nullptr;
+  T* o = static_cast<T*>(out);
+  int4_a8_tc_kernel<NT, T><<<grid, kThreads, smem, st>>>(
+      static_cast<const int8_t*>(x8), xs, static_cast<const int8_t*>(w), s_lo, s_hi16, part, o,
+      R, I, OH, (k_tiles + ksplit - 1) / ksplit);
+  if (part) {
+    const size_t n = (size_t)R * 2 * OH;
+    int4_a8_reduce<T><<<(unsigned)((n + kReduceThreads - 1) / kReduceThreads), kReduceThreads,
+                        0, st>>>(part, xs, s_lo, s_hi16, o, R, OH, ksplit);
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_rows(int row_tiles, const void* x8, const float* xs, const void* w,
+                        const float* s_lo, const float* s_hi16, void* partial, void* out, int R,
+                        int I, int OH, int ksplit, cudaStream_t st) {
+  switch (row_tiles) {
+    case 1: return launch<1, T>(x8, xs, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st);
+    case 2: return launch<2, T>(x8, xs, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st);
+    case 4: return launch<4, T>(x8, xs, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st);
+    case 8: return launch<8, T>(x8, xs, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace a8
 
 // ------------------------------------------------------------------ launches
 
@@ -722,20 +976,6 @@ void launch_w16(const void* x, const void* w, const float* s_lo,
   if (part)
     int4_w16_reduce<T><<<g.reduce, kReduceThreads, 0, st>>>(
         part, s_lo, s_hi16, static_cast<T*>(out), R, OH, ksplit);
-}
-
-template <typename T>
-void launch_a8(const void* x8, const float* xs, const void* w,
-               const float* s_lo, const float* s_hi16, void* partial,
-               void* out, int R, int I, int OH, int ksplit, cudaStream_t st) {
-  const Grid g = make_grid(R, I, OH, ksplit);
-  int* part = ksplit > 1 ? static_cast<int*>(partial) : nullptr;
-  int4_a8_kernel<T><<<g.main, kThreads, 0, st>>>(
-      static_cast<const int8_t*>(x8), xs, static_cast<const int8_t*>(w), s_lo,
-      s_hi16, part, static_cast<T*>(out), R, I, OH, g.tiles_per_split);
-  if (part)
-    int4_a8_reduce<T><<<g.reduce, kReduceThreads, 0, st>>>(
-        part, xs, s_lo, s_hi16, static_cast<T*>(out), R, OH, ksplit);
 }
 
 }  // namespace
@@ -785,19 +1025,27 @@ extern "C" int plangen_int4_matmul_w16_tc(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4 on the tensor cores: x8 int8 with xs fp32, `row_tiles` (1, 2, 4 or 8)
+// the 8-row n-tiles a warp covers, out in `dtype`, partial int32 as above.
 extern "C" int plangen_int4_matmul_a8(const void* x8, const float* xs,
                                       const void* w, const float* s_lo,
                                       const float* s_hi16, void* partial,
                                       void* out, int R, int I, int OH,
-                                      int ksplit, int dtype, void* stream) {
-  if (bad_args(R, I, OH, ksplit, partial) || I % 4)
+                                      int ksplit, int row_tiles, int dtype,
+                                      void* stream) {
+  if (R < 1 || I < 4 || I % 4 || OH < 4 || OH % 4 || ksplit < 1 ||
+      ksplit > (I + a8::kKTile - 1) / a8::kKTile || (ksplit > 1 && !partial))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (dtype == 1)
-    launch_a8<__nv_bfloat16>(x8, xs, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st);
+    e = a8::launch_rows<__nv_bfloat16>(row_tiles, x8, xs, w, s_lo, s_hi16, partial, out, R, I,
+                                       OH, ksplit, st);
   else if (dtype == 0)
-    launch_a8<float>(x8, xs, w, s_lo, s_hi16, partial, out, R, I, OH, ksplit, st);
+    e = a8::launch_rows<float>(row_tiles, x8, xs, w, s_lo, s_hi16, partial, out, R, I, OH,
+                               ksplit, st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,13 +21,14 @@ go to a kernel wrapper:
     nibbles unpacked in registers), fp32 on the CUDA cores (the check
     route); `w16_plan` is the launch geometry of both;
   * `int4_matmul_w4a8` (K4): per-row int8 activations (`quantize_activations_int8`,
-    plain torch) times the packed weight, exact int32 dots, then
+    plain torch) times the packed weight, exact int32 dots on the tensor
+    cores (`mma.sync` m16n8k32 s8; `a8_plan` is its launch geometry), then
     `float(acc_lo) * s_lo * xs` and `float(16 * acc_hi) * s_hi16 * xs`.
 
 Each wrapper launches the hand-written kernel `csrc/int4_matmul.cu` on a
 CUDA tensor (or raises) and runs its plain version (`*_reference`) on a CPU
 tensor. `<wrapper>.launches` counts kernel launches (and
-`int4_matmul_w16.tc_launches` those on the tensor-core route),
+`<wrapper>.tc_launches` those on the tensor-core route: every K4 launch),
 `<plain>.calls` counts plain-version calls.
 """
 
@@ -53,6 +54,11 @@ TC_THREADS = 128
 TC_K_TILE = 64  # inputs per pipeline stage
 TC_STAGES = 4  # cp.async ring depth: tiles t+1..t+3 in flight while t computes
 TC_ROW_TILES = (1, 2, 4, 8)  # 8-row n-tiles per warp (template instances)
+# K4 (int8 x8) on the tensor cores: the same 4 warps and n-tiles, `mma.sync`
+# m16n8k32 s8; a stage holds 128 inputs, i.e. 128 bytes of every x8 row as
+# K2's 64 bf16 inputs do, and a 16 KB weight tile
+A8_K_TILE = 128
+A8_STAGES = 4
 SHARED_MEMORY_LIMIT = 232448  # bytes a block may use on the H100 (227 KB)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -170,9 +176,9 @@ def _kernel_fns():
     fns = (lib.plangen_int4_matmul_w16, lib.plangen_int4_matmul_a8,
            lib.plangen_int4_matmul_w16_tc)
     # x, [xs], w_p4, s_lo, s_hi16, partial, out, R, I, OH, ksplit,
-    # dtype (row_tiles for the tensor-core route), stream
+    # [row_tiles,] dtype (K2's tensor-core route: row_tiles only), stream
     fns[0].argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fns[1].argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fns[1].argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fns[2].argtypes = fns[0].argtypes
     for fn in fns:
         fn.restype = ctypes.c_int
@@ -198,20 +204,20 @@ def split_k(R: int, I: int, OH: int, n_sm: int, row_tile: int = ROW_TILE,
 
 
 def tc_blocks_per_sm(row_tiles: int) -> int:
-    """Blocks per SM the tensor-core route's split aims at: two where a block
-    covers 8 or 16 rows (bound by weight bytes: more blocks, more bytes in
-    flight), one from 32 rows on, where the fp32 partials of the extra
-    splits cost more than the SMs they would fill (measured on the H100 by
-    `kernels/profile_int4.py`)."""
+    """Blocks per SM the tensor-core routes' split aims at (K2 and K4): two
+    where a block covers 8 or 16 rows (bound by weight bytes: more blocks,
+    more bytes in flight), one from 32 rows on, where the partials of the
+    extra splits cost more than the SMs they would fill (measured for each
+    kernel on the H100 by `kernels/profile_int4.py`)."""
     return 2 if row_tiles <= 2 else 1
 
 
 @dataclass(frozen=True)
-class W16Plan:
-    """Launch geometry of one K2 call (`w16_plan`); the C side computes the
-    same grid from (R, I, OH, ksplit, row_tiles)."""
+class Int4Plan:
+    """Launch geometry of one K2 or K4 call (`w16_plan`, `a8_plan`); the C
+    side computes the same grid from (R, I, OH, ksplit, row_tiles)."""
 
-    route: str  # "tensor_cores" (bf16) or "cuda_cores" (fp32)
+    route: str  # "tensor_cores" (bf16 K2, K4) or "cuda_cores" (fp32 K2)
     grid: Tuple[int, int, int]  # (column blocks, row blocks, ksplit)
     threads: int
     k_tile: int
@@ -235,7 +241,7 @@ def tc_row_tiles(R: int) -> int:
     return next((n for n in TC_ROW_TILES if n >= need), TC_ROW_TILES[-1])
 
 
-def w16_plan(R: int, I: int, OH: int, dtype, n_sm: int) -> W16Plan:
+def w16_plan(R: int, I: int, OH: int, dtype, n_sm: int) -> Int4Plan:
     """Route and geometry of K2 for x [R, I] in `dtype` and O/2 = OH: bf16
     takes the tensor cores, fp32 the CUDA cores. Pure: no card needed."""
     if dtype in (torch.bfloat16, "bfloat16"):
@@ -246,7 +252,7 @@ def w16_plan(R: int, I: int, OH: int, dtype, n_sm: int) -> W16Plan:
         k_tiles = -(-I // TC_K_TILE)
         # a stage: the packed weight tile [k, 128 columns] and x [rows, k] bf16
         stage = TC_K_TILE * COL_TILE + rows * TC_K_TILE * 2
-        return W16Plan("tensor_cores", (-(-OH // COL_TILE), -(-R // rows), ksplit),
+        return Int4Plan("tensor_cores", (-(-OH // COL_TILE), -(-R // rows), ksplit),
                        TC_THREADS, TC_K_TILE, ksplit, -(-k_tiles // ksplit), nt,
                        TC_STAGES, TC_STAGES * stage)
     if dtype in (torch.float32, "float32"):
@@ -254,9 +260,29 @@ def w16_plan(R: int, I: int, OH: int, dtype, n_sm: int) -> W16Plan:
         k_tiles = -(-I // K_TILE)
         # x_sh [8][128] fp32 and the block reduction's [8 warps][32][8] fp32
         smem = ROW_TILE * K_TILE * 4 + 8 * 32 * 8 * 4
-        return W16Plan("cuda_cores", (-(-OH // COL_TILE), -(-R // ROW_TILE), ksplit),
+        return Int4Plan("cuda_cores", (-(-OH // COL_TILE), -(-R // ROW_TILE), ksplit),
                        256, K_TILE, ksplit, -(-k_tiles // ksplit), 1, 1, smem)
     raise TypeError(f"K2 takes float32 or bfloat16 x, not {dtype}")
+
+
+def a8_plan(R: int, I: int, OH: int, n_sm: int) -> Int4Plan:
+    """Geometry of K4 for x8 [R, I] and O/2 = OH: always the tensor cores.
+    Pure: no card needed. Raises on shapes the kernel does not take."""
+    if not 0 < R <= MAX_KERNEL_ROWS:
+        raise ValueError(f"K4 takes 1..{MAX_KERNEL_ROWS} rows, not {R}")
+    if I < 4 or I % 4:
+        raise ValueError(f"K4 needs I ({I}) % 4 == 0")
+    if OH < 4 or OH % 4:
+        raise ValueError(f"K4 needs O/2 ({OH}) % 4 == 0")
+    nt = tc_row_tiles(R)
+    rows = 8 * nt
+    ksplit = split_k(R, I, OH, n_sm, row_tile=rows, k_tile=A8_K_TILE,
+                     per_sm=tc_blocks_per_sm(nt))
+    k_tiles = -(-I // A8_K_TILE)
+    # a stage: the packed weight tile [k, 128 columns] and x8 [rows, k] int8
+    stage = A8_K_TILE * COL_TILE + rows * A8_K_TILE
+    return Int4Plan("tensor_cores", (-(-OH // COL_TILE), -(-R // rows), ksplit), TC_THREADS,
+                    A8_K_TILE, ksplit, -(-k_tiles // ksplit), nt, A8_STAGES, A8_STAGES * stage)
 
 
 # The tensor-core kernel's register layout, mirrored from the comments of
@@ -308,6 +334,54 @@ def tc_unpack_pair(word_a: int, word_b: int, byte: int) -> Tuple[int, int]:
     return (p & 0x000F000F) | 0x43004300, ((p >> 4) & 0x000F000F) ^ 0x43084308
 
 
+# K4's register layout (`int4_a8_tc_kernel`), mirrored likewise for
+# mma.m16n8k32 with s8 operands. Inside one k32 step, MMA k-slot 4t + i
+# (+ 16) carries input 8t + i (+ 4), so that a lane reads inputs 8t..8t+7:
+# eight packed words (A) and one 8-byte load of x8 (B).
+
+
+def a8_a_fragment(lane: int, tile: int, reg: int, byte: int) -> Tuple[int, int, bool]:
+    """(input in the k32 step, packed column in the warp's 32, is_hi) that
+    byte `byte` of A register `reg` of m-tile `tile` (0..3) holds: byte
+    `tile` of word g of the warp's strip at input 8t + 4 (reg >> 1) + byte,
+    after `transpose4`; even registers take 16 x its lo nibble, odd 16 x its
+    hi nibble (`a8_unpack`)."""
+    g, t = lane >> 2, lane & 3
+    return 8 * t + 4 * (reg >> 1) + byte, 4 * g + tile, bool(reg & 1)
+
+
+def a8_b_fragment(lane: int, reg: int, byte: int) -> Tuple[int, int]:
+    """(row in the n-tile, input in the k32 step) of byte `byte` of B
+    register `reg`: the 8-byte load of x8[g][8t..8t+7]."""
+    g, t = lane >> 2, lane & 3
+    return g, 8 * t + 4 * reg + byte
+
+
+def a8_d_fragment(lane: int, tile: int, reg: int) -> Tuple[int, int, bool]:
+    """(row in the n-tile, packed column in the warp's 32, is_hi) of
+    accumulator `reg` of m-tile `tile`: K2's places (`tc_d_fragment`); the
+    lo accumulators hold 16 x acc_lo."""
+    return tc_d_fragment(lane, tile, reg)
+
+
+def transpose4(w0: int, w1: int, w2: int, w3: int) -> List[int]:
+    """The kernel's `transpose4`: four packed words of inputs k..k+3 (byte c
+    = packed column c) -> four words of one packed column each, holding its
+    bytes of inputs k..k+3 in order (8 PRMTs)."""
+    a01, a23 = byte_perm(w0, w1, 0x5140), byte_perm(w2, w3, 0x5140)
+    b01, b23 = byte_perm(w0, w1, 0x7362), byte_perm(w2, w3, 0x7362)
+    return [byte_perm(a01, a23, 0x5410), byte_perm(a01, a23, 0x7632),
+            byte_perm(b01, b23, 0x5410), byte_perm(b01, b23, 0x7632)]
+
+
+def a8_unpack(col: int) -> Tuple[int, int]:
+    """K4's A registers from one column word: (16 lo, 16 hi) as signed
+    bytes. The packed byte is 16 hi + (lo + 8), so `& 0xF0` is 16 hi, and
+    the lo nibble shifted up is 16 lo + 128 (mod 256), which `^ 0x80` makes
+    16 lo: one shift and two LOP3s, no per-byte subtraction."""
+    return ((col << 4) & 0xF0F0F0F0) ^ 0x80808080, col & 0xF0F0F0F0
+
+
 def _check_packed(w_p4, s_lo, s_hi16, I: int) -> int:
     if w_p4.dim() != 2 or w_p4.dtype != torch.int8:
         raise TypeError(f"w_p4 must be int8 [I, O/2], got {w_p4.dtype} {tuple(w_p4.shape)}")
@@ -334,13 +408,6 @@ def _check_cuda(tensors, OH: int) -> None:
         raise ValueError(f"the CUDA kernel needs O/2 ({OH}) % 4 == 0")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the CUDA kernel needs 16-byte aligned inputs")
-
-
-def _partials(R, I, OH, dev, dtype):
-    ksplit = split_k(R, I, OH, _sm_count(dev.index))
-    if ksplit == 1:
-        return ksplit, None
-    return ksplit, torch.empty((ksplit, R, 2 * OH), dtype=dtype, device=dev)
 
 
 def int4_matmul_w16(
@@ -396,8 +463,9 @@ def int4_matmul_w4a8(
     """K4: int8 activations x8 [R, I] with row scales xs fp32 [R, 1] @ packed
     int4 [I, O/2] -> [R, O] in `out_dtype` (float32 or bfloat16).
 
-    CUDA inputs launch the kernel and raise on anything else; CPU inputs run
-    the plain version. Both give the same bits: the dots are exact."""
+    CUDA inputs launch the kernel (on the tensor cores, as `a8_plan` says)
+    and raise on anything else; CPU inputs run the plain version. Both give
+    the same bits: the dots are exact."""
     if x8.dim() != 2 or x8.dtype != torch.int8:
         raise TypeError(f"x8 must be int8 [R, I], got {x8.dtype} {tuple(x8.shape)}")
     R, I = x8.shape
@@ -410,26 +478,26 @@ def int4_matmul_w4a8(
         raise ValueError(f"no int4 matmul for device {x8.device}")
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel writes float32 or bfloat16, not {out_dtype}")
-    if not 0 < R <= MAX_KERNEL_ROWS:
-        raise ValueError(f"the CUDA kernel takes 1..{MAX_KERNEL_ROWS} rows, not {R}")
-    if I % 4:
-        raise ValueError(f"the W4A8 kernel needs I ({I}) % 4 == 0")
     _check_cuda((x8, xs, w_p4, s_lo, s_hi16), OH)
-    ksplit, part = _partials(R, I, OH, x8.device, torch.int32)
+    plan = a8_plan(R, I, OH, _sm_count(x8.device.index))  # raises on R, I and OH it cannot take
+    part = None if plan.ksplit == 1 else torch.empty(
+        (plan.ksplit, R, 2 * OH), dtype=torch.int32, device=x8.device)
     out = torch.empty((R, 2 * OH), dtype=out_dtype, device=x8.device)
     err = _kernel_fns()[1](
         x8.data_ptr(), xs.data_ptr(), w_p4.data_ptr(), s_lo.data_ptr(),
         s_hi16.data_ptr(), 0 if part is None else part.data_ptr(), out.data_ptr(),
-        R, I, OH, ksplit, _DTYPE_CODES[out_dtype],
+        R, I, OH, plan.ksplit, plan.row_tiles, _DTYPE_CODES[out_dtype],
         torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"int4_matmul_w4a8 kernel launch failed: cudaError {err}")
     int4_matmul_w4a8.launches += 1
+    int4_matmul_w4a8.tc_launches += 1
     return out
 
 
 int4_matmul_w4a8.launches = 0
+int4_matmul_w4a8.tc_launches = 0  # of `launches`, those on the tensor cores: all
 
 
 # --------------------------------------------------------------- dispatcher

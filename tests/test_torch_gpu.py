@@ -285,18 +285,40 @@ def test_k2_tensor_cores_are_deterministic(cuda, R, I, O):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("R,I,O", INT4_CASES)
+# K4 beyond INT4_CASES: R = 64 (8 n-tiles at gate|up; and I % 16 != 0 with
+# O/2 % 16 != 0: x8 and the weight by 4-byte copies), 256 rows at down_proj,
+# and K2's extra cases (2 and 16 n-tiles, I = 100)
+K4_CASES = INT4_CASES + [(64, 2048, 11264), (64, 200, 1000), (256, 5632, 2048),
+                         (16, 2048, 6144), (128, 5632, 2048), (5, 100, 264)]
+
+
+@pytest.mark.parametrize("R,I,O", K4_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_k4_equals_plain_version_exactly(cuda, dtype, R, I, O):
     x, w, s_lo, s_hi16 = _int4_inputs(cuda, R, I, O, dtype, seed=1)
     x8, xs = im.quantize_activations_int8(x)
-    launches = im.int4_matmul_w4a8.launches
+    launches = (im.int4_matmul_w4a8.launches, im.int4_matmul_w4a8.tc_launches)
     got = im.int4_matmul_w4a8(x8, xs, w, s_lo, s_hi16, dtype)
-    assert im.int4_matmul_w4a8.launches == launches + 1
+    # every K4 launch runs on the tensor cores
+    assert (im.int4_matmul_w4a8.launches, im.int4_matmul_w4a8.tc_launches) == (
+        launches[0] + 1, launches[1] + 1)
     want = im.int4_matmul_w4a8_reference(x8, xs, w, s_lo, s_hi16, dtype)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (R, O)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R,I,O", [(8, 2048, 2048), (64, 2048, 11264), (256, 2048, 11264),
+                                   (37, 200, 1000)])
+def test_k4_tensor_cores_are_deterministic(cuda, R, I, O):
+    """Exact int32 sums, split-K partials added in a fixed order: two calls
+    give the same bits."""
+    x, w, s_lo, s_hi16 = _int4_inputs(cuda, R, I, O, torch.bfloat16, seed=2)
+    x8, xs = im.quantize_activations_int8(x)
+    a = im.int4_matmul_w4a8(x8, xs, w, s_lo, s_hi16, torch.bfloat16)
+    b = im.int4_matmul_w4a8(x8, xs, w, s_lo, s_hi16, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("bad", ["x_fp16", "rows_257", "oh_not_4", "w_on_cpu", "x_strided",
