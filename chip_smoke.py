@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run plangen_tpu_torch's layout-to-image and training paths once on one
-NVIDIA card.
+"""Run plangen_tpu_torch's layout-to-image, text, editing and training
+paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -22,16 +22,28 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      plain); in bf16 also the one-call counterpart
      (`scaled_dot_product_attention` of the query over the layer's live
      prefix with the pad mask), between the two kernel turns, and the
-     kernel's share of the bound and of SDPA's time;
+     kernel's share of the bound and of SDPA's time; then the same at the
+     plan cache (4 rows of the stage-1 prompt, S = its length + 512 rounded
+     to 128, q_pos = the prompt length: the first text decode step);
   4. the bf16 slice: `PlanGenPipeline.layout_to_image` at Janus-Pro-1B width
      (seeded random bf16 weights, byte-fallback tokenizer) on 4 requests
      and then on 1, checking shapes, ranges, and that every decode-attention
      call of each run went through K1 (576 x 24 launches, no plain calls);
      before that, K1 is checked on the cache the prefill wrote, and one
      cached decode step against the uncached forward;
+  4b. the bf16 text paths and editing on the same model: `plan` on the 4
+     captions (512 steps); the early exit (row 0 of the plan prompt alone,
+     then with the token it first emits near column 40 as EOS: the prefix,
+     then EOS, and the loop stops at that column); `joint_generate`
+     on 1 caption; `understand` on 2 seeded noise images; `edit_image` on
+     the 4 images phase 4 decoded with a box regenerated (every token
+     outside it equal to the VQ code of its image). Each call's text tokens
+     are in the vocabulary, its K1 launches are 24 x the steps its tokens
+     imply (plus 576 x 24 for an image), no plain call, no K3;
   5. K2 (W4A16) and K4 (W4A8) int4 matmuls vs their plain versions at the
      1B decode shapes (R = 8; fused qkv, o, fused gate|up, down, gen_head
-     fc2), R = 64 (batch 32 with CFG) and R = 256 at gate|up, timed in
+     fc2), R = 64 (batch 32 with CFG) and R = 256 at gate|up, `lm_head`
+     (2048 -> 102400) at the plan's R = 4, timed in
      turns. Every bf16 K2 call and every K4 call must take the tensor-core
      route (`tc_launches` rises by one), two calls must be bitwise equal, K4
      bit-equal to its plain version; beside each K2 row the time of cuBLAS
@@ -46,7 +58,10 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      `layout_to_image` on the 4 requests; a fresh seeded model quantized to
      `int4_a8` on 1 request. Every decode-step projection goes through K2
      (or K4), every K2 and K4 launch on the tensor-core route, every decode
-     attention through K1-q8, no plain version runs;
+     attention through K1-q8, no plain version runs; then `plan` in each
+     form (int4 on the 4 captions, int4_a8 on 1): K1-q8 at every step,
+     K2 / K4 at every projection and `lm_head`, all on the tensor cores,
+     launches as the code implies (7b);
   8. K3 (flash attention, forward and backward) vs its plain version at the
      training shapes: causal left-padded [3, 736, 16, 128], causal
      [3, 1024, 16, 128], non-causal [3, 576, 16, 64], bf16 (tensor cores)
@@ -137,7 +152,10 @@ TENSOR_CORE_SASS = {
     "int4_matmul": {"int4_w16_tc_kernel": ("HMMA", 4), "int4_a8_tc_kernel": ("IMMA", 8)},
 }
 SASS_INSTRUCTIONS = ("HGMMA", "HMMA", "IMMA")
-INT4_ROWS = (8, 64, 256)  # K2's and K4's row counts in phase 5
+# K2's and K4's row counts in phase 5: 4 is lm_head (2048 -> 102400) at the
+# text decode's 4 plan rows; 8 the image loop's decode shapes; 64 and 256
+# gate|up at larger batches
+INT4_ROWS = (4, 8, 64, 256)
 N_SMS = 132  # H100 SXM
 
 
@@ -283,9 +301,12 @@ def decode_bound(B: int, live: int, H: int, D: int, kv_bytes_per_row: int) -> tu
     return 4 * D * B * H * live, B * H * live * kv_bytes_per_row + 4 * B * H * D + 4 * B * live
 
 
-def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> dict:
+def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE,
+                          q_positions=None, mask=None) -> dict:
     """K1 against its plain version at the decode shapes of Janus-Pro-1B;
-    in bf16 also SDPA of the query over the layer's live prefix."""
+    in bf16 also SDPA of the query over the layer's live prefix. By default
+    the image loop's cache, left-padded rows, at five q_pos; else the given
+    pad `mask` at `q_positions`. The headline is the first q_pos."""
     import torch.nn.functional as F
 
     from plangen_tpu_torch.ops.decode_attention import (
@@ -298,8 +319,9 @@ def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> di
         f"one cluster of {n_split} blocks each; grid ({n_split}, {B * H}) = "
         f"{n_split * B * H} blocks = {n_split * B * H / N_SMS:.2f} per SM")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    mask = left_padded_mask(torch, B, S, min(prompt_len + 576, S), dev)
-    q_positions = [prompt_len, 127, 128, prompt_len + 287, S - 1]
+    if mask is None:
+        mask = left_padded_mask(torch, B, S, min(prompt_len + 576, S), dev)
+        q_positions = [prompt_len + 287, prompt_len, 127, 128, S - 1]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -370,7 +392,7 @@ def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> di
                    f"K1 takes {k_ms / lib_ms:.2f}x SDPA's time"))
         del k, v, q
     headline = next(r for r in rows
-                    if r["dtype"] == "bfloat16" and r["q_pos"] == prompt_len + 287)
+                    if r["dtype"] == "bfloat16" and r["q_pos"] == q_positions[0])
     return dict(max_abs_err=max(r["err"] for r in rows),
                 **{key: headline[key] for key in
                    ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
@@ -481,15 +503,17 @@ def reset_counters(counters) -> None:
         plain.calls = 0
 
 
-def expected_launches(cfg, quantize, n_rows: int, prompt_len: int) -> dict:
-    """Kernel launches of one `layout_to_image` call, from the code: each of
-    the 576 steps runs gen_head (fc2 quantized) and one decoder step whose
-    24 layers each make 1 decode attention and 4 quantized matmuls (q|k|v,
-    o, gate|up, down); the prefill's matmuls take the kernel only at
-    <= 256 rows (2B x prompt), else the dense route."""
+def expected_launches(cfg, quantize, n_rows: int, prompt_len: int, steps=None) -> dict:
+    """Kernel launches of one decode loop, from the code: each of its
+    `steps` (the image loop's 576 by default; a text decode's from its
+    tokens) runs the head (gen_head with fc2 quantized, or lm_head) and one
+    decoder step whose 24 layers each make 1 decode attention and 4
+    quantized matmuls (q|k|v, o, gate|up, down); the prefill's matmuls take
+    the kernel only at <= 256 rows (rows x prompt), else the dense route."""
     from plangen_tpu_torch.ops.int4_matmul import MAX_KERNEL_ROWS
 
-    N, L = cfg.image_seq_len, cfg.llama.num_layers
+    N = cfg.image_seq_len if steps is None else steps
+    L = cfg.llama.num_layers
     want = dict.fromkeys(kernel_counters(), 0)
     if quantize is None:
         want["prefix_decode_attention"] = N * L
@@ -501,53 +525,279 @@ def expected_launches(cfg, quantize, n_rows: int, prompt_len: int) -> dict:
     return want
 
 
-def run_slice(torch, pipe, cfg, captions, groundings, seeds):
-    """One `layout_to_image` call with every kernel's counts set to 0 just
-    before it and read just after; returns the launches by kernel."""
+def counted(torch, device, fn):
+    """fn() with every kernel's counts set to 0 just before it and read just
+    after: (its result, seconds, launches by kernel, plain calls, launches
+    on the tensor cores by int4 kernel)."""
     counters = kernel_counters()
-    n = len(captions)
-    ids, mask = pipe.proc.uni_batch(list(captions), list(groundings))
-    prompt_len = pipe.proc.cfg_batch(ids, mask)[0].shape[1]
-    sync = torch.cuda.synchronize if pipe.device.type == "cuda" else (lambda: None)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
     reset_counters(counters)
     t0 = time.perf_counter()
-    out = pipe.layout_to_image(captions, groundings, seeds=seeds)
+    out = fn()
     sync()
     seconds = time.perf_counter() - t0
     launches = {k: w.launches for k, (w, _) in counters.items()}
     plain_calls = sum(p.calls for _, p in counters.values())
     tc = {name: counters[name][0].tc_launches for name in ("int4_matmul_w16", "int4_matmul_a8")}
+    return out, seconds, launches, plain_calls, tc
 
-    mode = pipe.gen.quantize or "bf16"
-    want = expected_launches(cfg, pipe.gen.quantize, 2 * n, prompt_len)
+
+def check_launches(tag: str, what: str, launches: dict, want: dict, plain_calls: int,
+                   tc: dict) -> None:
+    """The launches are the code's, no plain version ran, and every int4
+    launch took the tensor cores."""
     for name, count in launches.items():
-        log(f"[{4 if mode == 'bf16' else 7}] {mode}: {name} launches {count} "
-            f"(expected from the code: {want[name]})")
-    check(launches == want, f"{mode}: launches {launches}, expected {want}")
-    check(plain_calls == 0, f"the plain versions ran {plain_calls} times on the main path")
+        log(f"[{tag}] {what}: {name} launches {count} (expected from the code: {want[name]})")
+    check(launches == want, f"{what}: launches {launches}, expected {want}")
+    check(plain_calls == 0, f"{what}: the plain versions ran {plain_calls} times")
     for name, on_tc in tc.items():
         if launches[name]:
-            log(f"[7] {mode}: {name} launches on the tensor cores {on_tc} of {launches[name]}")
+            log(f"[{tag}] {what}: {name} launches on the tensor cores {on_tc} of "
+                f"{launches[name]}")
             check(on_tc == launches[name],
-                  f"{mode}: {launches[name] - on_tc} {name} launches off the tensor cores")
+                  f"{what}: {launches[name] - on_tc} {name} launches off the tensor cores")
+
+
+def run_slice(torch, pipe, cfg, captions, groundings, seeds):
+    """One `layout_to_image` call with every kernel's counts set to 0 just
+    before it and read just after; returns (launches by kernel, output)."""
+    n = len(captions)
+    ids, mask = pipe.proc.uni_batch(list(captions), list(groundings))
+    prompt_len = pipe.proc.cfg_batch(ids, mask)[0].shape[1]
+    out, seconds, launches, plain_calls, tc = counted(
+        torch, pipe.device, lambda: pipe.layout_to_image(captions, groundings, seeds=seeds))
+    mode = pipe.gen.quantize or "bf16"
+    tag = "4" if mode == "bf16" else "7"
+    check_launches(tag, mode, launches,
+                   expected_launches(cfg, pipe.gen.quantize, 2 * n, prompt_len),
+                   plain_calls, tc)
+    check_image_output(cfg, out, n, pipe.gen.output_uint8)
+    toks, imgs = out.image_tokens, out.images
+    log(f"[{tag}] {mode}, {n} request(s): {seconds:.3f} s/call, "
+        f"{n * cfg.image_seq_len / seconds:.1f} image tokens/s, plain calls {plain_calls}, "
+        f"tokens {toks.shape} in [{toks.min()}, {toks.max()}], "
+        f"images {imgs.shape} {imgs.dtype} in [{imgs.min()}, {imgs.max()}]")
+    return launches, out
+
+
+def check_image_output(cfg, out, n: int, uint8: bool = False) -> None:
+    import numpy as np
+
     toks = out.image_tokens
-    check(toks.shape == (n, cfg.image_seq_len), f"tokens shape {toks.shape}")
+    check(toks.shape == (n, cfg.image_seq_len) and toks.dtype == np.int32,
+          f"tokens {toks.dtype} {toks.shape}")
     check(int(toks.min()) >= 0 and int(toks.max()) < cfg.image_token_size,
           f"tokens out of range [{toks.min()}, {toks.max()}]")
     size = cfg.vision.image_size
     imgs = out.images
     check(imgs.shape == (n, size, size, 3), f"images shape {imgs.shape}")
-    if pipe.gen.output_uint8:
+    if uint8:
         check(str(imgs.dtype) == "uint8", f"images dtype {imgs.dtype}")
     else:
-        import numpy as np
-
         check(bool(np.isfinite(imgs).all()), "non-finite pixels")
-    log(f"[{4 if mode == 'bf16' else 7}] {mode}, {n} request(s): {seconds:.3f} s/call, "
-        f"{n * cfg.image_seq_len / seconds:.1f} image tokens/s, plain calls {plain_calls}, "
-        f"tokens {toks.shape} in [{toks.min()}, {toks.max()}], "
-        f"images {imgs.shape} {imgs.dtype} in [{imgs.min()}, {imgs.max()}]")
+
+
+class TextTokens:
+    """Records the token rows of every text decode a pipeline runs, by
+    wrapping the instance's `_text_decode` while the `with` block lasts."""
+
+    def __init__(self, pipe):
+        self.pipe, self.runs = pipe, []
+
+    def __enter__(self):
+        inner = self.pipe._text_decode
+
+        def record(*args, **kw):
+            tokens = inner(*args, **kw)
+            self.runs.append(tokens)
+            return tokens
+
+        self.pipe._text_decode = record
+        return self.runs
+
+    def __exit__(self, *exc):
+        del self.pipe._text_decode
+
+
+def text_call(torch, pipe, cfg, tag: str, what: str, fn, n_rows: int, prompt_len: int,
+              image_launches=None):
+    """One call of a text entry point, counted: its text decode's tokens
+    (in the vocabulary, EOS after each row's first EOS, int32 [rows,
+    budget]) and the launches of the steps they imply, plus
+    `image_launches(output)` for a call that also generates an image.
+    Returns (the call's output, its tokens, its launches)."""
+    import numpy as np
+
+    from plangen_tpu_torch.runtime.generate import text_decode_steps
+
+    eos = pipe.proc.tok.special.eos_id
+    budget = pipe.gen.max_new_text_tokens
+    with TextTokens(pipe) as runs:
+        out, seconds, launches, plain_calls, tc = counted(torch, pipe.device, fn)
+    check(len(runs) == 1, f"{what}: {len(runs)} text decodes")
+    tokens = runs[0].cpu().numpy()
+    check(tokens.shape == (n_rows, budget) and tokens.dtype == np.int32,
+          f"{what}: text tokens {tokens.dtype} {tokens.shape}")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.llama.vocab_size,
+          f"{what}: text tokens out of range [{tokens.min()}, {tokens.max()}]")
+    for row in tokens:
+        hit = np.flatnonzero(row == eos)
+        check(not len(hit) or bool((row[hit[0]:] == eos).all()), f"{what}: tokens after EOS")
+    steps = text_decode_steps(tokens, eos)
+    want = expected_launches(cfg, pipe.gen.quantize, n_rows, prompt_len, steps)
+    if image_launches is not None:
+        add_launches(want, image_launches(out))
+    check_launches(tag, what, launches, want, plain_calls, tc)
+    log(f"[{tag}] {what}: {seconds:.3f} s/call, {steps} text decode steps of {budget} "
+        f"({n_rows} rows, prompt {prompt_len}), {n_rows * steps / seconds:.1f} text tokens/s"
+        + ("" if image_launches else f", {1e3 * seconds / steps:.2f} ms/step with the prefill"))
+    return out, tokens, launches
+
+
+def add_launches(total: dict, *more) -> dict:
+    for launches in more:
+        for name, count in launches.items():
+            total[name] += count
+    return total
+
+
+def clip_noise(n: int, size: int, seed: int):
+    """Seeded uniform noise images [n, size, size, 3], CLIP-normalized."""
+    import numpy as np
+
+    u = np.random.RandomState(seed).uniform(size=(n, size, size, 3))
+    mean = np.array([0.48145466, 0.4578275, 0.40821073])
+    std = np.array([0.26862954, 0.26130258, 0.27577711])
+    return ((u - mean) / std).astype(np.float32)
+
+
+def phase_text_paths(torch, pipe, cfg, images) -> dict:
+    """[4b] The bf16 text paths at Janus-Pro-1B width on the phase-4 model:
+    `plan` on the 4 captions; the early exit (row 0 of the plan prompt
+    alone, then again with one of its tokens as EOS); `joint_generate` on 1 caption; `understand` on 2 noise images;
+    `edit_image` on the 4 images phase 4 decoded, a box regenerated. Every
+    decode attention through K1, no plain call. Returns the launches."""
+    import numpy as np
+
+    from plangen_tpu_torch.runtime.generate import greedy_decode_text, text_decode_steps
+    from plangen_tpu_torch.text.grounding import truncate_grounding
+
+    proc, model, dev = pipe.proc, pipe.model, pipe.device
+    budget = pipe.gen.max_new_text_tokens
+    total = dict.fromkeys(kernel_counters(), 0)
+
+    plan_len = proc.stage1_batch(CAPTIONS, budget)[0].shape[1]
+    plans, tokens, launches = text_call(torch, pipe, cfg, "4b", "bf16 plan", lambda: pipe.plan(
+        CAPTIONS), len(CAPTIONS), plan_len)
+    check(all(g.startswith("<grounding>") and g.endswith("</grounding>") for g in plans),
+          f"plan strings {plans}")
+    log(f"[4b] bf16 plan: groundings {[g[:60] for g in plans]}")
+    add_launches(total, launches)
+
+    # the early exit: row 0 alone (a batch of 4 and one of 1 may round
+    # differently in bf16), then with the token it emits first at about
+    # column 40 as EOS: the prefix up to it, then EOS, and no step past it
+    exit_budget, L = 64, cfg.llama.num_layers
+    ids, mask = proc.stage1_batch(CAPTIONS, exit_budget)
+    embeds0 = model.embed_text(torch.from_numpy(ids[:1].astype(np.int64)).to(dev))
+    mask0 = torch.from_numpy(mask[:1]).to(dev)
+    eos = proc.tok.special.eos_id
+
+    def decode(eos_id):
+        return counted(torch, dev, lambda: greedy_decode_text(
+            model, cfg, embeds0, mask0, eos_id, max_new_tokens=exit_budget))
+
+    first_run, _, launches_a, plain_a, _ = decode(eos)
+    check(launches_a["prefix_decode_attention"]
+          == L * text_decode_steps(first_run.cpu(), eos), "early exit: the first run's launches")
+    row = first_run[0].cpu().numpy()
+    new = [c for c in range(exit_budget) if int(np.flatnonzero(row == row[c])[0]) == c]
+    col = min((c for c in new if c >= 8), key=lambda c: abs(c - 40), default=None)
+    check(col is not None, f"row 0 emits no new token after column 8: {row.tolist()}")
+    stop = int(row[col])
+    again, _, launches_b, plain_b, _ = decode(stop)
+    got = again[0].cpu().numpy()
+    steps = text_decode_steps(again.cpu(), stop)
+    want_steps = col + 1
+    check(bool((got[:col] == row[:col]).all()) and bool((got[col:] == stop).all()),
+          f"early exit: {got.tolist()} against {row.tolist()} cut at column {col}")
+    check(steps == want_steps and launches_b["prefix_decode_attention"] == L * steps
+          and plain_a == plain_b == 0,
+          f"early exit: {launches_b['prefix_decode_attention']} K1 launches, expected "
+          f"{L} x {want_steps}")
+    log(f"[4b] early exit: row 0 alone, token {stop} first at column {col} as EOS: the first "
+        f"run's prefix then EOS; {steps} steps run, "
+        f"{launches_b['prefix_decode_attention']} K1 launches, against {exit_budget} steps "
+        f"without it")
+    add_launches(total, launches_a, launches_b)
+
+    # joint_generate: the plan, then the image on the planned grounding
+    caption = CAPTIONS[:1]
+    plan_len = proc.stage1_batch(caption, budget)[0].shape[1]
+
+    def image_launches(out):
+        ids, mask = proc.uni_batch(caption, out.groundings)
+        return expected_launches(cfg, None, 2, proc.cfg_batch(ids, mask)[0].shape[1])
+
+    joint, joint_tokens, launches = text_call(
+        torch, pipe, cfg, "4b", "bf16 joint_generate",
+        lambda: pipe.joint_generate(caption, seeds=SEEDS[:1]), 1, plan_len,
+        image_launches=image_launches)
+    check(joint.groundings == [truncate_grounding(t) for t in proc.decode_until_eos(
+        joint_tokens)], f"joint_generate groundings {joint.groundings}")
+    check_image_output(cfg, joint, 1)
+    add_launches(total, launches)
+
+    # understand: 2 seeded noise images
+    noise = clip_noise(2, cfg.vision.image_size, seed=5)
+    mmu_len = proc.mmu_batch(2, decode_budget=budget).input_ids.shape[1]
+    understood, _, launches = text_call(torch, pipe, cfg, "4b", "bf16 understand",
+                                        lambda: pipe.understand(noise), 2, mmu_len)
+    check(len(understood.texts) == 2 and understood.groundings == understood.texts
+          and all(isinstance(t, str) for t in understood.texts),
+          f"understand texts {understood.texts}")
+    add_launches(total, launches)
+
+    # edit_image: the phase-4 images, a box of the 24 x 24 token grid
+    # regenerated; every token outside it is the VQ code of its image
+    n, grid = images.shape[0], pipe.grid
+    box = np.zeros((grid, grid), dtype=np.int32)
+    box[6:18, 4:16] = 1
+    region = np.broadcast_to(box.reshape(1, -1), (n, grid * grid)).copy()
+    with torch.inference_mode():
+        vq = model.gen_vision_model
+        codes = vq.encode_to_indices(torch.from_numpy(images).to(
+            device=dev, dtype=next(vq.parameters()).dtype)).cpu().numpy()
+    ids, mask = proc.uni_batch(CAPTIONS, GROUNDINGS)
+    edit_len = proc.cfg_batch(ids, mask)[0].shape[1]
+    edited, seconds, launches, plain_calls, tc = counted(torch, dev, lambda: pipe.edit_image(
+        CAPTIONS, GROUNDINGS, images, region, seeds=SEEDS))
+    check_launches("4b", "bf16 edit_image", launches,
+                   expected_launches(cfg, None, 2 * n, edit_len), plain_calls, tc)
+    check_image_output(cfg, edited, n)
+    check(edited.edit_mask is not None and bool((edited.edit_mask == region).all()),
+          "edit_image: edit_mask is not the region")
+    keep = region == 0
+    check(bool((edited.image_tokens[keep] == codes[keep]).all()),
+          f"edit_image: {(edited.image_tokens[keep] != codes[keep]).sum()} forced tokens "
+          "differ from the VQ codes")
+    changed = int((edited.image_tokens[~keep] != codes[~keep]).sum())
+    log(f"[4b] bf16 edit_image, {n} images: {seconds:.3f} s/call, {int(keep.sum())} tokens "
+        f"forced to the VQ codes, all equal; {int((~keep).sum())} regenerated, {changed} "
+        "of them differ from the codes")
+    return add_launches(total, launches)
+
+
+def quantized_plan(torch, pipe, cfg, captions) -> dict:
+    """[7b] `plan` in the pipeline's quantized form: every decode attention
+    through K1-q8, every int4 matmul (`lm_head` included) through K2 or K4
+    on the tensor cores, no plain call. Returns the launches."""
+    mode = pipe.gen.quantize
+    plan_len = pipe.proc.stage1_batch(list(captions), pipe.gen.max_new_text_tokens)[0].shape[1]
+    plans, _, launches = text_call(torch, pipe, cfg, "7b", f"{mode} plan",
+                                   lambda: pipe.plan(captions), len(captions), plan_len)
+    check(len(plans) == len(captions), f"{mode} plan: {plans}")
     return launches
 
 
@@ -582,7 +832,8 @@ def phase_int4_vs_plain(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4321)
     rows = []
     cases = ([(name, 8, I, O) for name, I, O in INT4_SHAPES]
-             + [("gate_up_proj", R, 2048, 11264) for R in INT4_ROWS[1:]])
+             + [("gate_up_proj", R, 2048, 11264) for R in INT4_ROWS[2:]]
+             + [("lm_head", 4, 2048, 102400)])
     k2, k4 = im.int4_matmul_w16, im.int4_matmul_w4a8
     for name, R, I, O in cases:
         OH = O // 2
@@ -1223,6 +1474,20 @@ def main() -> int:
     ids, mask = pipe.proc.uni_batch(CAPTIONS, GROUNDINGS)
     prompt_len = pipe.proc.cfg_batch(ids, mask)[0].shape[1]
     k1 = phase_kernel_vs_plain(torch, prompt_len, dev)
+    # K1 at the plan cache: the 4-caption stage-1 prompt and its budget,
+    # the first text decode step (q_pos = L)
+    from plangen_tpu_torch.runtime.generate import cache_length
+
+    budget = pipe.gen.max_new_text_tokens
+    plan_ids, plan_mask = pipe.proc.stage1_batch(CAPTIONS, budget)
+    plan_len = plan_ids.shape[1]
+    S_plan = cache_length(plan_len, budget)
+    plan_mask = torch.nn.functional.pad(torch.from_numpy(plan_mask).to(dev),
+                                        (0, S_plan - plan_mask.shape[1]))
+    log(f"[3] K1 at the plan cache: 4 rows, prompt {plan_len} + budget {budget} -> S={S_plan}")
+    k1_plan = phase_kernel_vs_plain(torch, plan_len, dev, dict(KERNEL_SHAPE, B=4, S=S_plan),
+                                    q_positions=[plan_len], mask=plan_mask.contiguous())
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_plan["max_abs_err"])
 
     n_params = sum(p.numel() for p in pipe.model.parameters())
     log(f"[4] PlanGenModel at Janus-Pro-1B width: {n_params / 1e9:.3f} B params, "
@@ -1238,12 +1503,16 @@ def main() -> int:
     check_prefill_cache_and_decode_step(torch, pipe, cfg)
 
     torch.cuda.reset_peak_memory_stats()
-    bf16 = run_slice(torch, pipe, cfg, CAPTIONS, GROUNDINGS, SEEDS)
+    bf16, decoded = run_slice(torch, pipe, cfg, CAPTIONS, GROUNDINGS, SEEDS)
     pipe_u8, _ = build_pipeline(torch, dev, output_uint8=True, model=pipe.model)
-    bf16_1 = run_slice(torch, pipe_u8, cfg, CAPTIONS[:1], GROUNDINGS[:1], SEEDS[:1])
+    bf16_1, _ = run_slice(torch, pipe_u8, cfg, CAPTIONS[:1], GROUNDINGS[:1], SEEDS[:1])
     log(f"[4] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    launches = {k: bf16[k] + bf16_1[k] for k in bf16}
+    launches = add_launches(dict.fromkeys(bf16, 0), bf16, bf16_1)
     del pipe_u8
+    torch.cuda.reset_peak_memory_stats()
+    add_launches(launches, phase_text_paths(torch, pipe, cfg, decoded.images))
+    log(f"[4b] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del decoded
 
     int4 = phase_int4_vs_plain(torch, dev)
     k1q8 = phase_k1_q8_vs_plain(torch, prompt_len, dev)
@@ -1254,24 +1523,23 @@ def main() -> int:
     qpipe, _ = quantized_pipeline(torch, dev, "int4", model=pipe.model)
     del pipe
     k1q8["max_abs_err"] = max(k1q8["max_abs_err"], check_q8_prefill_cache(torch, qpipe, cfg))
-    q4 = run_slice(torch, qpipe, cfg, CAPTIONS, GROUNDINGS, SEEDS)
+    q4, _ = run_slice(torch, qpipe, cfg, CAPTIONS, GROUNDINGS, SEEDS)
+    q4_plan = quantized_plan(torch, qpipe, cfg, CAPTIONS)
     log(f"[7] int4: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del qpipe
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     apipe, _ = quantized_pipeline(torch, dev, "int4_a8")
-    a8 = run_slice(torch, apipe, cfg, CAPTIONS[:1], GROUNDINGS[:1], SEEDS[:1])
+    a8, _ = run_slice(torch, apipe, cfg, CAPTIONS[:1], GROUNDINGS[:1], SEEDS[:1])
+    a8_plan = quantized_plan(torch, apipe, cfg, CAPTIONS[:1])
     log(f"[7] int4_a8: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for name in launches:
-        launches[name] += q4[name] + a8[name]
+    add_launches(launches, q4, q4_plan, a8, a8_plan)
     del apipe
     torch.cuda.empty_cache()
 
     flash = phase_flash_vs_plain(torch, dev)
     torch.cuda.empty_cache()
-    trained = phase_training(torch, dev)
-    for name in launches:
-        launches[name] += trained[name]
+    add_launches(launches, phase_training(torch, dev))
 
     kernels = [
         ("prefix_decode_attention", "prefix_decode_attention.cu",

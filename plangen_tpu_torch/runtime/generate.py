@@ -1,12 +1,12 @@
-"""Prefill and the CFG image-token decode loop.
+"""Prefill, the CFG image-token decode loop and the greedy text decode.
 
 Port of `plangen_tpu/runtime/generate.py` (`prefill`,
-`generate_image_tokens`) in the configuration `growing_cache=False,
-paged=True`: one fixed [L, 2B, S, H, D] cache, rounded up to a multiple of
-128 slots with a zero mask tail, whose live prefix the prefix
-decode-attention kernel reads at every step. The JAX package's default
+`generate_image_tokens`, `greedy_decode_text`) in the configuration
+`growing_cache=False, paged=True`: one fixed [L, B, S, H, D] cache, rounded
+up to a multiple of 128 slots with a zero mask tail, whose live prefix the
+prefix decode-attention kernel reads at every step. The JAX package's
 `growing_cache=True` computes the same function over a segmented cache, so
-both settings map to this one loop.
+both settings map to these loops.
 
 Each of the `num_tokens` steps: gen_head on the last hidden state -> CFG
 combine -> fp32 sampling (or teacher forcing) -> the token fed back through
@@ -20,8 +20,17 @@ With `quantized_cache` the cache is the int8 layout of `runtime/kvcache.py`
 mode sets): prefill writes quantized rows and attends over them, and each
 decode step reads through the int8-cache kernel K1-q8.
 
-The loop is plain Python over eager ops; capturing a step in a CUDA graph
-is later work.
+`greedy_decode_text` (layout planning, understanding): each step takes the
+fp32 `lm_head` logits of the last hidden state, their argmax (the first
+maximal index, as `jnp.argmax`), EOS for rows already done, and feeds the
+token back through the text embedding to one decoder step at `L + i`. The
+output is pre-filled with EOS, and the loop stops once every row has
+emitted EOS, as the JAX `while_loop` does. Reading that flag is a host
+sync at every step; while the loop is bound by the host it costs no more
+than a sparser check would (PERF.md).
+
+The loops are plain Python over eager ops; capturing a step in a CUDA
+graph is later work.
 """
 
 from __future__ import annotations
@@ -113,3 +122,56 @@ def generate_image_tokens(
         )
         last_hidden = hidden[:, -1]
     return torch.stack(tokens, dim=1)
+
+
+def text_decode_steps(tokens, eos_id: int) -> int:
+    """Decoder steps `greedy_decode_text` runs for its output `tokens`
+    [B, N]: up to the column where the last row first emits `eos_id`, or
+    all N if a row never does."""
+    tokens = torch.as_tensor(tokens)
+    hit = tokens == eos_id
+    if not bool(hit.any(dim=1).all()):
+        return tokens.shape[1]
+    return int(hit.int().argmax(dim=1).max()) + 1
+
+
+@torch.inference_mode()
+def greedy_decode_text(
+    model: PlanGenModel,
+    cfg: PlanGenModelConfig,
+    inputs_embeds: torch.Tensor,  # [B, L, H]
+    attn_mask: torch.Tensor,  # [B, L + max_new_tokens] pad mask (budget 1)
+    eos_id: int,
+    max_new_tokens: int = 512,
+    quantized_cache: bool = False,  # int8 KV cache with fp32 scales
+) -> torch.Tensor:
+    """Greedy KV-cached text decode; [B, max_new_tokens] int32 ids, EOS
+    after each row's first EOS."""
+    B, L, _ = inputs_embeds.shape
+    device = inputs_embeds.device
+    if attn_mask.shape != (B, L + max_new_tokens):
+        raise ValueError(
+            f"attn_mask must be [{B}, {L + max_new_tokens}], got "
+            f"{tuple(attn_mask.shape)}"
+        )
+    S = cache_length(L, max_new_tokens)
+    mask = torch.as_tensor(attn_mask, device=device).to(torch.int32)
+    mask = F.pad(mask, (0, S - mask.shape[1])).contiguous()  # zero tail
+    cache = init_kv_cache(cfg.llama, B, S, dtype=inputs_embeds.dtype, device=device,
+                          quantized=quantized_cache)
+    last_hidden = prefill(model, inputs_embeds, mask, cache)
+
+    lm = model.language_model
+    positions = torch.arange(L, L + max_new_tokens, dtype=torch.int32, device=device)
+    tokens = torch.full((B, max_new_tokens), eos_id, dtype=torch.int32, device=device)
+    done = torch.zeros(B, dtype=torch.bool, device=device)
+    for i in range(max_new_tokens):
+        if i and bool(done.all()):
+            break
+        token = lm.logits(last_hidden).argmax(dim=-1).to(torch.int32)
+        token = torch.where(done, eos_id, token)
+        done |= token == eos_id
+        tokens[:, i] = token
+        next_embeds = model.embed_text(token[:, None]).to(inputs_embeds.dtype)
+        last_hidden = lm(next_embeds, mask, positions[i:i + 1], cache)[:, -1]
+    return tokens

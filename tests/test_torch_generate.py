@@ -250,27 +250,6 @@ def _gt_inputs(n=1):
     return gt, region
 
 
-def test_teacher_forcing_from_images_raises():
-    """With teacher forcing on, `gt_images` raises: teacher-forced generation
-    is not in the port yet (the message says so, not that the encoder is
-    missing)."""
-    _, port = _pipelines()
-    gt, region = _gt_inputs()
-    with pytest.raises(NotImplementedError) as info:
-        port.layout_to_image(CAPTIONS[:1], GROUNDINGS[:1], gt_images=gt,
-                             edit_region=region, teacher_forcing=True)
-    message = str(info.value)
-    assert "teacher-forced" in message
-    assert "encoder" not in message.lower() and "VQ" not in message
-
-
-def test_teacher_forcing_from_config_raises():
-    _, port = _pipelines(use_teacher_forcing=True)
-    gt, _ = _gt_inputs()
-    with pytest.raises(NotImplementedError):
-        port.prepare_layout_to_image(CAPTIONS[:1], GROUNDINGS[:1], gt_images=gt)
-
-
 @pytest.mark.parametrize("how", ["argument", "config"])
 def test_gt_images_ignored_without_teacher_forcing(how):
     """As the JAX pipeline does (`plangen_tpu/tasks/pipeline.py:319-321`):
@@ -292,7 +271,11 @@ def test_gt_images_ignored_without_teacher_forcing(how):
     np.testing.assert_array_equal(got.image_tokens, want.image_tokens)
 
 
-@pytest.mark.parametrize("method", ["layout_to_image", "prepare_layout_to_image"])
+@pytest.mark.parametrize("method", [
+    "layout_to_image", "prepare_layout_to_image", "plan", "prepare_plan",
+    "plan_from_prepared", "understand", "prepare_understand", "understand_from_prepared",
+    "joint_generate", "edit_image",
+])
 def test_pipeline_signature_equals_jax(method):
     import inspect
 
@@ -300,3 +283,13 @@ def test_pipeline_signature_equals_jax(method):
     got = inspect.signature(getattr(PlanGenPipeline, method)).parameters
     assert list(got) == list(want)
     assert [p.default for p in got.values()] == [p.default for p in want.values()]
+
+
+def test_generation_output_fields_equal_jax():
+    import dataclasses
+
+    from plangen_tpu.tasks.pipeline import GenerationOutput as JaxOutput
+    from plangen_tpu_torch.tasks.pipeline import GenerationOutput
+
+    assert ([f.name for f in dataclasses.fields(GenerationOutput)]
+            == [f.name for f in dataclasses.fields(JaxOutput)])

@@ -21,7 +21,9 @@ from plangen_tpu_torch.ops import decode_attention as da
 from plangen_tpu_torch.ops import int4_matmul as im
 from plangen_tpu_torch.ops.attention import quantize_kv
 from plangen_tpu_torch.ops.quant import quantize_model_
-from plangen_tpu_torch.runtime.generate import generate_image_tokens
+from plangen_tpu_torch.runtime.generate import (
+    generate_image_tokens, greedy_decode_text, text_decode_steps,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -200,18 +202,23 @@ def test_kernel_wrapper_raises(cuda, bad):
     assert da.prefix_decode_attention.launches == launches
 
 
-def test_decode_loop_on_card_equals_cpu(cuda):
-    """Greedy tokens of a tiny model with the kernel's smallest head_dim
-    (64), fp32: the card (every decode step through the kernel) equals the
-    CPU (the plain version)."""
+def _tiny_d64() -> PlanGenModelConfig:
+    """The tiny model with the kernels' smallest head_dim (64)."""
     tiny = PlanGenModelConfig.tiny()
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         tiny,
         llama=LlamaConfig(vocab_size=512, hidden_size=128, intermediate_size=256,
                           num_layers=2, num_heads=2, num_kv_heads=2, head_dim=64),
         gen_aligner=dataclasses.replace(tiny.gen_aligner, n_embed=128),
         image_token_embed=128,
     )
+
+
+def test_decode_loop_on_card_equals_cpu(cuda):
+    """Greedy tokens of a tiny model with the kernel's smallest head_dim
+    (64), fp32: the card (every decode step through the kernel) equals the
+    CPU (the plain version)."""
+    cfg = _tiny_d64()
     cpu_model = init_params(PlanGenModel(cfg, dtype=torch.float32),
                             torch.Generator().manual_seed(0)).eval()
     gpu_model = PlanGenModel(cfg, dtype=torch.float32, device=cuda).eval()
@@ -410,14 +417,7 @@ def test_quantized_decode_loop_on_card_equals_cpu(cuda, mode):
     """Greedy tokens of a tiny int4 model over the int8 cache, fp32: the card
     (K2 or K4 and K1-q8 at every decode step) equals the CPU (the plain
     versions)."""
-    tiny = PlanGenModelConfig.tiny()
-    cfg = dataclasses.replace(
-        tiny,
-        llama=LlamaConfig(vocab_size=512, hidden_size=128, intermediate_size=256,
-                          num_layers=2, num_heads=2, num_kv_heads=2, head_dim=64),
-        gen_aligner=dataclasses.replace(tiny.gen_aligner, n_embed=128),
-        image_token_embed=128,
-    )
+    cfg = _tiny_d64()
     cpu_model = init_params(PlanGenModel(cfg, dtype=torch.float32),
                             torch.Generator().manual_seed(0)).eval()
     gpu_model = PlanGenModel(cfg, dtype=torch.float32, device=cuda).eval()
@@ -439,6 +439,43 @@ def test_quantized_decode_loop_on_card_equals_cpu(cuda, mode):
     assert wrapper.launches - launches[0] == n * (4 * L + 1) + 4 * L  # prefill: 48 rows
     assert da.prefix_decode_attention_q8.launches - launches[1] == n * L
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("mode", ["dense_cache", "int8_kv", "int4", "int4_a8"])
+def test_greedy_decode_text_on_card_equals_cpu(cuda, mode):
+    """Greedy text tokens of the tiny fp32 model over a 40-token budget whose
+    cache crosses a 128-slot chunk: the card (K1, or K1-q8 over the int8
+    cache, and K2 / K4 at every int4 projection and `lm_head`) equals the
+    CPU (the plain versions), the launches those of the steps it ran."""
+    cfg = _tiny_d64()
+    cpu_model = init_params(PlanGenModel(cfg, dtype=torch.float32),
+                            torch.Generator().manual_seed(0)).eval()
+    gpu_model = PlanGenModel(cfg, dtype=torch.float32, device=cuda).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    if mode.startswith("int4"):
+        quantize_model_(cpu_model, mode)
+        quantize_model_(gpu_model, mode)
+    rs = np.random.RandomState(0)
+    embeds = torch.from_numpy(rs.randn(3, 100, cfg.llama.hidden_size).astype(np.float32))
+    n = 40
+    mask = torch.ones((3, 100 + n), dtype=torch.int32)
+    mask[1, :3] = 0
+    mask[2, :70] = 0
+    kw = dict(max_new_tokens=n, quantized_cache=mode != "dense_cache")
+    want = greedy_decode_text(cpu_model, cfg, embeds, mask, 1, **kw)
+    attention = da.prefix_decode_attention_q8 if kw["quantized_cache"] else \
+        da.prefix_decode_attention
+    matmul = im.int4_matmul_w4a8 if mode == "int4_a8" else im.int4_matmul_w16
+    launches = (attention.launches, matmul.launches, matmul.tc_launches)
+    got = greedy_decode_text(gpu_model, cfg, embeds.to(cuda), mask.to(cuda), 1, **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    L = cfg.llama.num_layers
+    steps = text_decode_steps(want, 1)
+    assert attention.launches - launches[0] == steps * L
+    if mode.startswith("int4"):  # the 300-row prefill takes the dense route
+        assert matmul.launches - launches[1] == steps * (4 * L + 1)
+        assert matmul.tc_launches - launches[2] == (0 if mode == "int4" else steps * (4 * L + 1))
 
 
 # ------------------------------------------------ K3 (flash attention)
