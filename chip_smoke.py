@@ -29,6 +29,8 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      (seeded random bf16 weights, byte-fallback tokenizer) on 4 requests
      and then on 1, checking shapes, ranges, and that every decode-attention
      call of each run went through K1 (576 x 24 launches, no plain calls);
+     the image loop runs as the pipeline runs it on the card: step 0
+     eagerly, then a CUDA graph of one step replayed 575 times;
      before that, K1 is checked on the cache the prefill wrote, and one
      cached decode step against the uncached forward;
   4b. the bf16 text paths and editing on the same model: `plan` on the 4
@@ -40,6 +42,20 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      outside it equal to the VQ code of its image). Each call's text tokens
      are in the vocabulary, its K1 launches are 24 x the steps its tokens
      imply (plus 576 x 24 for an image), no plain call, no K3;
+  4c. the image loop's CUDA graph against its eager loop (`eager=True`) in
+     `layout_to_image` on the phase-4 model, 4 requests then 1, in turns
+     eager, graph, graph, eager, then one more graph call: every call's
+     tokens bitwise equal to the first's and its launches the code's; per
+     call s/call, host ms a step, capture + instantiate ms and peak memory;
+     in the last call the captured step's kernel nodes by name (read
+     through libcuda), replays 100-131 timed by CUDA events (the graph's
+     ms a step), then traces of `torch.profiler` over 2 + 32 + 2 replays,
+     the middle 32 set apart by 0.5 s idle gaps (up to three, until one shows
+     every kernel of the path at its launches a step; the profiler loses a
+     few records at a trace's end); both counts must be 24 K1, or 24
+     K1-q8 and 97 K2 or K4 in the int4 forms, as `expected_launches` says;
+     and the device-busy share: that window's kernel time a step over the
+     events' ms a step;
   5. K2 (W4A16) and K4 (W4A8) int4 matmuls vs their plain versions at the
      1B decode shapes (R = 8; fused qkv, o, fused gate|up, down, gen_head
      fc2), R = 64 (batch 32 with CFG) and R = 256 at gate|up, `lm_head`
@@ -61,7 +77,9 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      attention through K1-q8, no plain version runs; then `plan` in each
      form (int4 on the 4 captions, int4_a8 on 1): K1-q8 at every step,
      K2 / K4 at every projection and `lm_head`, all on the tensor cores,
-     launches as the code implies (7b);
+     launches as the code implies (7b); then 4c's comparison for each
+     (7c: int4 on 4 requests in the same turns, int4_a8 on 1 in turns
+     eager, graph);
   8. K3 (flash attention, forward and backward) vs its plain version at the
      training shapes: causal left-padded [3, 736, 16, 128], causal
      [3, 1024, 16, 128], non-causal [3, 576, 16, 64], bf16 (tensor cores)
@@ -157,6 +175,7 @@ SASS_INSTRUCTIONS = ("HGMMA", "HMMA", "IMMA")
 # gate|up at larger batches
 INT4_ROWS = (4, 8, 64, 256)
 N_SMS = 132  # H100 SXM
+GRAPH_TURNS = ("eager", "graph", "graph", "eager")  # phases 4c and 7c
 
 
 class SmokeFailure(RuntimeError):
@@ -801,6 +820,292 @@ def quantized_plan(torch, pipe, cfg, captions) -> dict:
     return launches
 
 
+class ImageLoop:
+    """While the `with` block lasts, the pipeline's image loop runs eagerly
+    (`eager=True`) or through its CUDA graph, and every decode step (eager)
+    or replay (graph) leaves its host clock (start, end) in `stamps`; the
+    graph's capture ms go to `capture_ms`.
+
+    With `profile`, the graph's kernel nodes by name go to `nodes`, replays
+    100-131 are timed by CUDA events (`window_ms`), and then up to
+    PROFILED_WINDOWS traces of `torch.profiler` follow, each over
+    GRAPH_PAD + GRAPH_WINDOW + GRAPH_PAD replays with the device idle for
+    GAP_S before and after the middle GRAPH_WINDOW, until `accept` holds for
+    the kernels of the middle ones. `profiles` keeps those kernels of each
+    trace (None when the gaps did not split it in three), `accepted` says
+    whether the last was accepted."""
+
+    def __init__(self, torch, eager: bool, profile: bool = False, accept=None):
+        self.torch, self.eager, self.profiled, self.accept = torch, eager, profile, accept
+        self.stamps, self.capture_ms, self.replays, self.profiles = [], [], 0, []
+        self.window_ms, self.nodes, self.accepted = None, None, False
+
+    def __enter__(self):
+        import functools
+
+        from plangen_tpu_torch.runtime import cuda_graph, generate
+        from plangen_tpu_torch.tasks import pipeline
+
+        self.saved = [(pipeline, "generate_image_tokens", pipeline.generate_image_tokens),
+                      (generate, "image_decode_step", generate.image_decode_step),
+                      (cuda_graph.StepGraph, "replay", cuda_graph.StepGraph.replay)]
+        step, replay = generate.image_decode_step, cuda_graph.StepGraph.replay
+        pipeline.generate_image_tokens = functools.partial(generate.generate_image_tokens,
+                                                           eager=self.eager)
+
+        def timed_step(*args, **kw):
+            t0 = time.perf_counter()
+            step(*args, **kw)
+            if self.eager:
+                self.stamps.append((t0, time.perf_counter()))
+
+        def timed_replay(graph):
+            if self.replays == 0:
+                self.capture_ms.append(graph.capture_ms)
+                if self.profiled:
+                    self.nodes = graph_kernel_nodes(graph.graph.raw_cuda_graph())
+            if self.profiled:
+                self.before(self.replays)
+            t0 = time.perf_counter()
+            replay(graph)
+            self.stamps.append((t0, time.perf_counter()))
+            self.replays += 1
+            if self.profiled:
+                self.after(self.replays)
+
+        generate.image_decode_step = timed_step
+        cuda_graph.StepGraph.replay = timed_replay
+        return self
+
+    def trace(self, i: int):
+        """(trace k, replay i's place in it) for replays from 132 on."""
+        k, j = divmod(i - 100 - GRAPH_WINDOW, GRAPH_WINDOW + 2 * GRAPH_PAD)
+        return (k, j) if i >= 100 + GRAPH_WINDOW and k < PROFILED_WINDOWS else (None, None)
+
+    def before(self, i: int) -> None:
+        torch = self.torch
+        k, j = self.trace(i)
+        if i == 100:
+            self.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            self.events[0].record()
+        elif k is None or self.accepted:
+            return
+        elif j == 0:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            self.profile = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.profile.__enter__()
+        elif j in (GRAPH_PAD, GRAPH_PAD + GRAPH_WINDOW):
+            torch.cuda.synchronize()
+            time.sleep(GAP_S)  # the device idles between the pads and the window
+
+    def after(self, i: int) -> None:
+        torch = self.torch
+        k, j = self.trace(i - 1)  # of the replay just run
+        if i == 100 + GRAPH_WINDOW:
+            self.events[1].record()
+            torch.cuda.synchronize()
+            self.window_ms = self.events[0].elapsed_time(self.events[1])
+        elif k is not None and j == GRAPH_WINDOW + 2 * GRAPH_PAD - 1 and not self.accepted:
+            torch.cuda.synchronize()
+            self.profile.__exit__(None, None, None)
+            parts = split_at_gaps(device_kernels(self.profile), GAP_S * 1e6 / 2)
+            self.profiles.append(parts[1] if len(parts) == 3 else None)
+            self.accepted = len(parts) == 3 and self.accept(parts[1])
+
+    def __exit__(self, *exc):
+        for owner, name, value in self.saved:
+            setattr(owner, name, value)
+
+    def host_ms_per_step(self) -> float:
+        return (self.stamps[-1][1] - self.stamps[0][0]) * 1e3 / len(self.stamps)
+
+
+# kernels of the path counted in the graph and on the device: (wrapper whose
+# launches a step they are, a piece of the kernel's name)
+GRAPH_KERNELS = (("prefix_decode_attention", "split_kv_decode_kernel"),
+                 ("prefix_decode_attention_q8", "split_kv_decode_kernel"),
+                 ("int4_matmul_w16", "int4_w16_tc_kernel"),
+                 ("int4_matmul_a8", "int4_a8_tc_kernel"))
+GRAPH_WINDOW = 32  # replays a window
+# The profiler loses kernel records of a trace, ~16 of 51,000 at its end
+# in one run on the H100 (one of them a K2), 0-3 in others; it never adds
+# one. So each trace pads the counted window with GRAPH_PAD replays on
+# either side, set apart by GAP_S of device idle, and counts the middle; a
+# trace that still shows a kernel of the path short is followed by
+# another, up to PROFILED_WINDOWS. Under the profiler a slow host can leave
+# the device idle for tens of ms between replays: GAP_S stays far above.
+GRAPH_PAD = 2
+GAP_S = 0.5
+PROFILED_WINDOWS = 3
+
+
+def graph_kernel_nodes(raw_graph: int) -> dict:
+    """{kernel name (mangled): nodes} of a captured CUDA graph, read through
+    libcuda (`cuGraphGetNodes`, the kernel nodes' functions and names)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph, n = ctypes.c_void_p(raw_graph), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    counts = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern (CUkernel) at byte 56
+        params = (ctypes.c_uint64 * 16)()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) == 0,
+              "cuGraphKernelNodeGetParams failed")
+        name = ctypes.c_char_p()
+        err = (cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params[0])) if params[0]
+               else cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params[7])))
+        check(err == 0 and name.value is not None, f"no name for a kernel node (error {err})")
+        key = name.value.decode()
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def device_kernels(prof) -> list:
+    """(start us, end us, name) of every device kernel the profiler
+    recorded, by start."""
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if "CUDA" in str(getattr(e, "device_type", ""))
+                  and e.time_range.end > e.time_range.start)
+
+
+def split_at_gaps(kernels: list, gap_us: float) -> list:
+    """`kernels` (by start) cut where the device idled more than `gap_us`."""
+    parts, end = [], None
+    for k in kernels:
+        if end is None or k[0] - end > gap_us:
+            parts.append([])
+            end = k[1]
+        parts[-1].append(k)
+        end = max(end, k[1])
+    return parts
+
+
+def profiled_kernels(prof) -> list:
+    """(device us, calls, name) of every device kernel the profiler saw."""
+    kernels = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = getattr(e, "cuda_time_total", 0) if t is None else t
+        if t > 0 and "CUDA" in str(getattr(e, "device_type", "")):
+            kernels.append((t, e.count, e.key))
+    return kernels
+
+
+def phase_graph_vs_eager(torch, pipe, cfg, tag: str, n: int, turns) -> dict:
+    """The image loop's CUDA graph against its eager loop (`eager=True`) in
+    `layout_to_image` on the first `n` requests, in `turns` ("eager" or
+    "graph"), then one more graph call with a window of replays timed by
+    events and profiled windows (`ImageLoop`). Every call's tokens equal the
+    first's, bit for bit, and its launches the code's; per call s/call, host
+    ms a step, capture ms and peak memory; over the accepted profiled window
+    the device-busy share and the kernels a step by name, each kernel of the
+    path at its launches a step from `expected_launches`. Returns the
+    numbers."""
+    mode = pipe.gen.quantize or "bf16"
+    captions, groundings, seeds = CAPTIONS[:n], GROUNDINGS[:n], SEEDS[:n]
+    ids, mask = pipe.proc.uni_batch(captions, groundings)
+    prompt_len = pipe.proc.cfg_batch(ids, mask)[0].shape[1]
+    want = expected_launches(cfg, pipe.gen.quantize, 2 * n, prompt_len)
+    one, two = (expected_launches(cfg, pipe.gen.quantize, 2 * n, prompt_len, steps)
+                for steps in (1, 2))
+    per_step = {k: two[k] - one[k] for k in two}
+    path = [(name, piece) for name, piece in GRAPH_KERNELS if per_step[name]]
+
+    def on_device(kernels) -> dict:
+        return {name: sum(piece in k for _, _, k in kernels) / GRAPH_WINDOW
+                for name, piece in path}
+
+    def exact(kernels) -> bool:
+        return all(v == per_step[k] for k, v in on_device(kernels).items())
+
+    first, rows = None, []
+    for i, kind in enumerate(list(turns) + ["graph (profiled)"]):
+        loop = ImageLoop(torch, eager=kind == "eager", profile="profiled" in kind,
+                         accept=exact)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with loop:
+            out, seconds, launches, plain_calls, tc = counted(
+                torch, pipe.device,
+                lambda: pipe.layout_to_image(captions, groundings, seeds=seeds))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_launches(tag, f"{mode} x{n} turn {i + 1} ({kind})", launches, want,
+                       plain_calls, tc)
+        check_image_output(cfg, out, n)
+        if first is None:
+            first = out.image_tokens
+        same = bool((out.image_tokens == first).all())
+        check(same, f"{mode} x{n} turn {i + 1} ({kind}): tokens differ from turn 1's in "
+              f"{int((out.image_tokens != first).sum())} places")
+        steps = len(loop.stamps)
+        check(steps == (cfg.image_seq_len if kind == "eager" else cfg.image_seq_len - 1),
+              f"{mode} x{n} turn {i + 1} ({kind}): {steps} timed steps")
+        row = dict(kind=kind, s_per_call=seconds, host_ms_per_step=loop.host_ms_per_step(),
+                   capture_ms=loop.capture_ms[0] if loop.capture_ms else None,
+                   peak_gib=peak)
+        rows.append(row)
+        log(f"[{tag}] {mode}, {n} request(s), turn {i + 1} ({kind}): {seconds:.3f} s/call, "
+            f"{n * cfg.image_seq_len / seconds:.1f} image tokens/s, host "
+            f"{row['host_ms_per_step']:.3f} ms a step over {steps} "
+            + ("steps" if kind == "eager" else
+               f"replays, capture + instantiate {row['capture_ms']:.2f} ms")
+            + f", peak device memory {peak:.2f} GiB, tokens bitwise equal to turn 1's")
+    prof_row = rows.pop()
+    graph_ms = loop.window_ms / GRAPH_WINDOW
+    nodes = {name: sum(c for k, c in loop.nodes.items() if piece in k) for name, piece in path}
+    log(f"[{tag}] {mode}, {n} request(s), the captured step: {sum(loop.nodes.values())} kernel "
+        "nodes; of the path's kernels " + ", ".join(
+            f"{k} {v} (expected {per_step[k]})" for k, v in nodes.items()))
+    check(all(v == per_step[k] for k, v in nodes.items()),
+          f"{mode} x{n}: kernel nodes of the captured step {nodes}, expected {per_step}")
+    for w, kernels in enumerate(loop.profiles):
+        log(f"[{tag}] {mode}, {n} request(s), profiled trace {w + 1}: " + (
+            "the device's idle gaps did not set the window apart" if kernels is None else
+            f"{GRAPH_WINDOW} replays between two idle gaps, "
+            f"{len(kernels) / GRAPH_WINDOW:.5f} kernels a step on the device; by kernel "
+            + ", ".join(f"{k} {v:g} (expected {per_step[k]})"
+                        for k, v in on_device(kernels).items())))
+    check(loop.accepted, f"{mode} x{n}: in none of {len(loop.profiles)} profiled traces "
+          "did every kernel of the path show its launches a step")
+    kernels = loop.profiles[-1]
+    # the kernels' device time a step (profiled) over the step's device time
+    # (CUDA events, no profiler, whose host cost may idle the device)
+    busy = sum(e - s for s, e, _ in kernels) / 1e3 / GRAPH_WINDOW
+    span_ms = (max(e for _, e, _ in kernels) - kernels[0][0]) / 1e3
+    launched = len(kernels) / GRAPH_WINDOW
+    log(f"[{tag}] {mode}, {n} request(s), graph: {graph_ms:.3f} ms a step on the device "
+        f"(CUDA events over replays 100-{100 + GRAPH_WINDOW - 1}), of it {busy:.3f} ms of "
+        f"kernels (the accepted window; {100 * busy / graph_ms:.1f}% busy, idle "
+        f"{100 * (1 - busy / graph_ms):.1f}%; under the profiler {span_ms / GRAPH_WINDOW:.3f} "
+        f"ms a step), {launched:.5f} kernels a step (the graph has "
+        f"{sum(loop.nodes.values())} kernel nodes; a replay also fills each generator's seed "
+        "and offset), every kernel of the path at its launches a step")
+    by_name = {}
+    for s_us, e_us, name in kernels:
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e_us - s_us, c + 1)
+    log(f"[{tag}] largest kernels a step: " + "; ".join(
+        f"{name[:60]} {t / GRAPH_WINDOW:.1f} us x{c / GRAPH_WINDOW:g}"
+        for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]))
+    summary = dict(mode=mode, requests=n, turns=rows, graph_ms_per_step=graph_ms,
+                   device_busy_share=busy / graph_ms, kernels_per_step=launched,
+                   graph_kernel_nodes=sum(loop.nodes.values()),
+                   profiled_windows=len(loop.profiles), profiled_call_s=prof_row["s_per_call"])
+    log(f"[{tag}] " + json.dumps(summary))
+    return summary
+
+
 def rotating(make, nbytes: int):
     """Enough copies of an input to rotate through more than the L2 cache."""
     return [make() for _ in range(max(2, -(-2 * L2_BYTES // nbytes)))]
@@ -1426,12 +1731,7 @@ def profile_step(torch, trainer, loader) -> None:
         trainer.state, _ = trainer.step_fn(trainer.state, batches)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = []
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        t = getattr(e, "cuda_time_total", 0) if t is None else t
-        if t > 0 and "CUDA" in str(getattr(e, "device_type", "")):
-            kernels.append((t, e.count, e.key))
+    kernels = profiled_kernels(prof)
     if not kernels:
         log("[9] profile: not measured (the profiler showed no device time)")
         return
@@ -1513,6 +1813,8 @@ def main() -> int:
     add_launches(launches, phase_text_paths(torch, pipe, cfg, decoded.images))
     log(f"[4b] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del decoded
+    for n in (4, 1):
+        phase_graph_vs_eager(torch, pipe, cfg, "4c", n, GRAPH_TURNS)
 
     int4 = phase_int4_vs_plain(torch, dev)
     k1q8 = phase_k1_q8_vs_plain(torch, prompt_len, dev)
@@ -1526,6 +1828,7 @@ def main() -> int:
     q4, _ = run_slice(torch, qpipe, cfg, CAPTIONS, GROUNDINGS, SEEDS)
     q4_plan = quantized_plan(torch, qpipe, cfg, CAPTIONS)
     log(f"[7] int4: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_graph_vs_eager(torch, qpipe, cfg, "7c", 4, GRAPH_TURNS)
     del qpipe
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1533,6 +1836,7 @@ def main() -> int:
     a8, _ = run_slice(torch, apipe, cfg, CAPTIONS[:1], GROUNDINGS[:1], SEEDS[:1])
     a8_plan = quantized_plan(torch, apipe, cfg, CAPTIONS[:1])
     log(f"[7] int4_a8: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_graph_vs_eager(torch, apipe, cfg, "7c", 1, ("eager", "graph"))
     add_launches(launches, q4, q4_plan, a8, a8_plan)
     del apipe
     torch.cuda.empty_cache()

@@ -10,6 +10,12 @@ row draws from its own generator once per step, so a row's stream depends
 only on its seed and the step, not on what else is in the batch. The torch
 and JAX streams differ, so sampled runs are compared at the level of
 probabilities; greedy and teacher-forced runs are token-exact.
+
+The draw is `torch.multinomial(probs, 1, generator=g)` written out as the
+arithmetic of its one-sample path, `argmax(probs / E)` with `E ~ Exp(1)`
+from `g`: the same tokens and the same generator state, without the host
+read of the validity check that comes first in `torch.multinomial`, so a
+decode step that samples can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -42,15 +48,21 @@ def sample_categorical(
         return logits.argmax(dim=-1)
     probs = torch.softmax(logits / temperature, dim=-1)
     if isinstance(generator, torch.Generator):
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return draw(probs, generator)
     if len(generator) != probs.shape[0]:
         raise ValueError(
             f"{len(generator)} generators for {probs.shape[0]} rows"
         )
-    return torch.cat([
-        torch.multinomial(row[None], 1, generator=g)[:, 0]
-        for row, g in zip(probs, generator)
-    ])
+    return torch.cat([draw(row[None], g) for row, g in zip(probs, generator)])
+
+
+def draw(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One index per row of `probs` [B, V]; [B] int64. The tokens and the
+    generator state of `torch.multinomial(probs, 1, generator=generator)[:, 0]`,
+    without its host-side check that `probs` holds no inf, NaN or negative
+    entry."""
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / noise).argmax(dim=-1)
 
 
 def apply_teacher_forcing(

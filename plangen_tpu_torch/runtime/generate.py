@@ -29,12 +29,20 @@ emitted EOS, as the JAX `while_loop` does. Reading that flag is a host
 sync at every step; while the loop is bound by the host it costs no more
 than a sparser check would (PERF.md).
 
-The loops are plain Python over eager ops; capturing a step in a CUDA
-graph is later work.
+Each image step is `image_decode_step`, which reads and writes only static
+buffers in place (`StepBuffers`: the last hidden state, the query position
+`q_pos`, the step index and the [B, N] token buffer; the position and the
+step advance on the device). On CPU tensors the loop calls it N times. On
+CUDA tensors step 0 runs eagerly, one step is captured in a CUDA graph and
+the graph is replayed for the other N - 1 (`runtime/cuda_graph.py`): the
+counterpart of the JAX package's one jitted program. `eager=True` runs the
+eager loop on the card too, to compare the two; the pipeline never sets it.
+The text loop is eager Python on either device.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -45,6 +53,7 @@ from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.ops.sampling import (
     Generators, apply_teacher_forcing, cfg_combine, sample_categorical,
 )
+from plangen_tpu_torch.runtime.cuda_graph import StepGraph
 from plangen_tpu_torch.runtime.kvcache import KVCache, init_kv_cache
 
 CACHE_ALIGN = 128  # the prefix kernel reads the cache in 128-slot chunks
@@ -70,6 +79,50 @@ def prefill(
     return hidden[:, -1]
 
 
+@dataclass
+class StepBuffers:
+    """What an image decode step reads and writes in place: the static
+    buffers a CUDA graph of the step is captured over."""
+
+    last_hidden: torch.Tensor  # [2B, H]: the hidden state the step's head reads
+    q_pos: torch.Tensor  # int32 [1]: the cache slot the step writes, L + i
+    step: torch.Tensor  # int64 [1]: i, the column of `tokens` it writes
+    tokens: torch.Tensor  # int64 [B, N]
+
+
+def image_decode_step(
+    model: PlanGenModel,
+    buffers: StepBuffers,
+    mask: torch.Tensor,  # [2B, S] int32 pad mask of the cache
+    cache: KVCache,
+    cfg_weight: float,
+    temperature: float,
+    generator: Optional[Generators],
+    dtype: torch.dtype,  # of the embeds fed back
+    gt_tokens: Optional[torch.Tensor] = None,  # [B, N] forced ids
+    regen_mask: Optional[torch.Tensor] = None,  # [B, N] 1 = sample
+) -> None:
+    """Step i = `buffers.step`: gen_head -> CFG combine -> fp32 sampling (or
+    teacher forcing) into column i of `buffers.tokens` -> the token fed back
+    through gen_embed + gen_aligner to both rows of its cond/uncond pair ->
+    one decoder step at `buffers.q_pos`, whose hidden state becomes
+    `buffers.last_hidden`; then `q_pos` and `step` advance by one. Every
+    index stays on the device."""
+    b = buffers
+    combined = cfg_combine(model.image_gen_logits(b.last_hidden), cfg_weight)
+    token = sample_categorical(combined, temperature, generator)
+    if gt_tokens is not None:
+        token = apply_teacher_forcing(token, gt_tokens.index_select(1, b.step)[:, 0],
+                                      regen_mask.index_select(1, b.step)[:, 0])
+    b.tokens.index_copy_(1, b.step, token[:, None])
+    pair_token = token[:, None].expand(-1, 2).reshape(-1)  # [2B], repeat_interleave(2)
+    next_embeds = model.gen_img_embeds(pair_token[:, None]).to(dtype)
+    hidden = model.language_model(next_embeds, mask, b.q_pos, cache)
+    b.last_hidden.copy_(hidden[:, -1])
+    b.q_pos.add_(1)
+    b.step.add_(1)
+
+
 @torch.inference_mode()
 def generate_image_tokens(
     model: PlanGenModel,
@@ -83,8 +136,12 @@ def generate_image_tokens(
     regen_mask: Optional[torch.Tensor] = None,  # [B, num_tokens] 1 = sample
     num_tokens: int = 576,
     quantized_cache: bool = False,  # int8 KV cache with fp32 scales
+    eager: bool = False,  # on the card, the eager loop instead of the graph
 ) -> torch.Tensor:
-    """Prefill + `num_tokens` KV-cached CFG decode steps; [B, N] int64 ids."""
+    """Prefill + `num_tokens` KV-cached CFG decode steps; [B, N] int64 ids.
+
+    On CUDA tensors steps 1 .. N-1 replay a CUDA graph of one step, unless
+    `eager`; a step that cannot be captured raises."""
     B2, L, _ = cfg_embeds.shape
     device = cfg_embeds.device
     if attn_mask.shape != (B2, L + num_tokens):
@@ -105,23 +162,29 @@ def generate_image_tokens(
     mask = F.pad(mask, (0, S - mask.shape[1])).contiguous()  # zero tail
     cache = init_kv_cache(cfg.llama, B2, S, dtype=cfg_embeds.dtype, device=device,
                           quantized=quantized_cache)
-    last_hidden = prefill(model, cfg_embeds, mask, cache)
+    buffers = StepBuffers(
+        last_hidden=prefill(model, cfg_embeds, mask, cache).clone(
+            memory_format=torch.contiguous_format),
+        q_pos=torch.full((1,), L, dtype=torch.int32, device=device),
+        step=torch.zeros(1, dtype=torch.int64, device=device),
+        tokens=torch.zeros((B2 // 2, num_tokens), dtype=torch.int64, device=device),
+    )
 
-    positions = torch.arange(L, L + num_tokens, dtype=torch.int32, device=device)
-    tokens = []
-    for i in range(num_tokens):
-        combined = cfg_combine(model.image_gen_logits(last_hidden), cfg_weight)
-        token = sample_categorical(combined, temperature, generator)
-        if gt_tokens is not None:
-            token = apply_teacher_forcing(token, gt_tokens[:, i], regen_mask[:, i])
-        tokens.append(token)
-        pair_token = token.repeat_interleave(2)  # [2B]: cond and uncond rows
-        next_embeds = model.gen_img_embeds(pair_token[:, None]).to(cfg_embeds.dtype)
-        hidden = model.language_model(
-            next_embeds, mask, positions[i:i + 1], cache
-        )
-        last_hidden = hidden[:, -1]
-    return torch.stack(tokens, dim=1)
+    def step():
+        image_decode_step(model, buffers, mask, cache, cfg_weight, temperature, generator,
+                          cfg_embeds.dtype, gt_tokens, regen_mask)
+
+    if device.type == "cuda" and not eager and num_tokens > 1:
+        # every generator the step draws from, so each replay draws afresh
+        generators = [] if temperature == 0 else (
+            [generator] if isinstance(generator, torch.Generator) else list(generator))
+        graph = StepGraph(step, generators)
+        for _ in range(num_tokens - 1):
+            graph.replay()
+    else:
+        for _ in range(num_tokens):
+            step()
+    return buffers.tokens
 
 
 def text_decode_steps(tokens, eos_id: int) -> int:

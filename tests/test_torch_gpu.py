@@ -759,3 +759,141 @@ def test_tiny_train_step_on_card_equals_cpu(cuda):
     for k, w in results["cpu"][2].items():
         torch.testing.assert_close(results["cuda"][2][k], w, rtol=0, atol=2 * lr,
                                    msg=lambda m, k=k: f"weight {k}: {m}")
+
+
+# ------------------------------------- the image loop in a CUDA graph
+
+
+def _graph_model(cuda, quantize=None):
+    """The tiny head_dim-64 model in bf16 on the card, quantized in place."""
+    cfg = _tiny_d64()
+    model = init_params(PlanGenModel(cfg, dtype=torch.bfloat16, device=cuda),
+                        torch.Generator(device=cuda).manual_seed(0)).eval()
+    if quantize is not None:
+        quantize_model_(model, quantize)
+    return cfg, model
+
+
+def _graph_prompt(cuda, cfg, n):
+    rs = np.random.RandomState(0)
+    embeds = torch.from_numpy(rs.randn(4, 12, cfg.llama.hidden_size).astype(np.float32))
+    mask = torch.ones((4, 12 + n), dtype=torch.int32)
+    mask[1, :3] = 0
+    mask[2, :7] = 0
+    return embeds.to(cuda, torch.bfloat16), mask.to(cuda)
+
+
+def _loop_counts():
+    return (da.prefix_decode_attention.launches, da.prefix_decode_attention_q8.launches,
+            im.int4_matmul_w16.launches, im.int4_matmul_w16.tc_launches,
+            im.int4_matmul_w4a8.launches)
+
+
+# case: (quantize, int8 cache, temperature, generators, teacher forcing)
+GRAPH_CASES = {
+    "bf16_greedy": (None, False, 0.0, None, False),
+    "bf16_per_row_sampled": (None, False, 1.0, "per_row", False),
+    "bf16_partial_forcing": (None, False, 1.0, "one", True),
+    "int8_cache": (None, True, 1.0, "per_row", False),
+    "int4": ("int4", True, 1.0, "per_row", True),
+    "int4_a8": ("int4_a8", True, 0.0, None, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_equals_eager_loop(cuda, case):
+    """`generate_image_tokens` on the card (step 0 eager, then a captured
+    step replayed) against its eager loop (`eager=True`): the same tokens,
+    bit for bit, from generators seeded alike, and the same launch counts."""
+    quantize, q8, temperature, gens, forcing = GRAPH_CASES[case]
+    cfg, model = _graph_model(cuda, quantize)
+    n = 16
+    embeds, mask = _graph_prompt(cuda, cfg, n)
+    rs = np.random.RandomState(3)
+    gt = regen = None
+    if forcing:
+        gt = torch.from_numpy(rs.randint(0, cfg.image_token_size, (2, n))).to(cuda)
+        regen = torch.from_numpy((rs.rand(2, n) < 0.5).astype(np.int32)).to(cuda)
+
+    def run(eager):
+        generator = None
+        if gens == "one":
+            generator = torch.Generator(device=cuda).manual_seed(5)
+        elif gens == "per_row":
+            generator = [torch.Generator(device=cuda).manual_seed(s) for s in (5, 6)]
+        before = _loop_counts()
+        tokens = generate_image_tokens(
+            model, cfg, embeds, mask, generator=generator, cfg_weight=5.0,
+            temperature=temperature, gt_tokens=gt, regen_mask=regen, num_tokens=n,
+            quantized_cache=q8, eager=eager)
+        torch.cuda.synchronize()
+        return tokens.cpu(), tuple(a - b for a, b in zip(_loop_counts(), before))
+
+    eager_tokens, eager_counts = run(eager=True)
+    graph_tokens, graph_counts = run(eager=False)
+    assert torch.equal(graph_tokens, eager_tokens)
+    assert graph_counts == eager_counts
+    L = cfg.llama.num_layers
+    assert eager_counts[1 if q8 else 0] == n * L
+    if quantize is not None:  # the prefill's 4 x 12 rows take the kernel too
+        assert eager_counts[4 if quantize == "int4_a8" else 2] == n * (4 * L + 1) + 4 * L
+    if forcing:
+        keep = (regen == 0).cpu()
+        assert torch.equal(graph_tokens[keep], gt.cpu()[keep])
+    if temperature:
+        assert len(set(graph_tokens.flatten().tolist())) > 1
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+@pytest.mark.parametrize("per_row", [False, True], ids=["one_generator", "per_row"])
+def test_draw_equals_multinomial_on_card(cuda, per_row, temperature):
+    """The capture-safe draw against `torch.multinomial` on CUDA generators:
+    the same tokens and the same generator state, step after step."""
+    from plangen_tpu_torch.ops.sampling import sample_categorical
+
+    B, V = 4, 16384
+    mine = [torch.Generator(device=cuda).manual_seed(r) for r in range(B)]
+    theirs = [torch.Generator(device=cuda).manual_seed(r) for r in range(B)]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for _ in range(5):
+        logits = torch.randn((B, V), generator=g, device=cuda) * 4
+        probs = torch.softmax(logits / temperature, dim=-1)
+        if per_row:
+            got = sample_categorical(logits, temperature, mine)
+            want = torch.cat([torch.multinomial(p[None], 1, generator=r)[:, 0]
+                              for p, r in zip(probs, theirs)])
+        else:
+            got = sample_categorical(logits, temperature, mine[0])
+            want = torch.multinomial(probs, 1, generator=theirs[0])[:, 0]
+        assert torch.equal(got, want)
+        for a, b in zip(mine, theirs):
+            assert torch.equal(a.get_state(), b.get_state())
+
+
+def test_host_read_in_a_step_raises(cuda, monkeypatch):
+    """A step that reads a device value on the host cannot be captured:
+    `generate_image_tokens` raises instead of running the eager loop, and
+    the launch counts keep only what ran (the prefill and step 0)."""
+    from plangen_tpu_torch.runtime import generate as gen_mod
+
+    cfg, model = _graph_model(cuda)
+    n = 8
+    embeds, mask = _graph_prompt(cuda, cfg, n)
+    combine = gen_mod.cfg_combine
+
+    def reads_on_host(logits, w):
+        if float(logits.abs().max()) < 0:  # a host read of a device value
+            raise AssertionError
+        return combine(logits, w)
+
+    monkeypatch.setattr(gen_mod, "cfg_combine", reads_on_host)
+    before = da.prefix_decode_attention.launches
+    with pytest.raises(RuntimeError):
+        generate_image_tokens(model, cfg, embeds, mask, generator=None, cfg_weight=5.0,
+                              temperature=0.0, num_tokens=n)
+    assert da.prefix_decode_attention.launches - before == cfg.llama.num_layers
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    tokens = generate_image_tokens(model, cfg, embeds, mask, generator=None,
+                                   cfg_weight=5.0, temperature=0.0, num_tokens=n)
+    assert tokens.shape == (2, n)
