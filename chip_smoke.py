@@ -41,7 +41,20 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      the 4 images phase 4 decoded with a box regenerated (every token
      outside it equal to the VQ code of its image). Each call's text tokens
      are in the vocabulary, its K1 launches are 24 x the steps its tokens
-     imply (plus 576 x 24 for an image), no plain call, no K3;
+     imply (plus 576 x 24 for an image), no plain call, no K3. The text
+     loop runs as the pipeline runs it on the card: step 0 eagerly, then a
+     CUDA graph of one step replayed until every row has emitted EOS;
+  4d. the text loop's CUDA graph against its eager loop (`eager=True`) on
+     the same model: `plan` on the 4 captions in turns eager, graph, graph,
+     eager, then one profiled graph call; `understand` on 2 noise images and
+     `joint_generate` on 1 caption (its image stage on the graph in both),
+     eager then graph. Every call checked as in 4b, its tokens bitwise equal
+     to the first turn's; per call s/call, host ms a step (the flag read
+     included), capture + instantiate ms and peak memory; in every graph
+     call the captured step's kernel nodes (24 K1) and the device ms a step
+     by CUDA events over replays 100-131; in the profiled call 4c's traces:
+     kernels a step on the device, the device-busy share and the largest
+     kernels;
   4c. the image loop's CUDA graph against its eager loop (`eager=True`) in
      `layout_to_image` on the phase-4 model, 4 requests then 1, in turns
      eager, graph, graph, eager, then one more graph call: every call's
@@ -49,7 +62,7 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      call s/call, host ms a step, capture + instantiate ms and peak memory;
      in the last call the captured step's kernel nodes by name (read
      through libcuda), replays 100-131 timed by CUDA events (the graph's
-     ms a step), then traces of `torch.profiler` over 2 + 32 + 2 replays,
+     ms a step, and the device's time between replays), then traces of `torch.profiler` over 2 + 32 + 2 replays,
      the middle 32 set apart by 0.5 s idle gaps (up to three, until one shows
      every kernel of the path at its launches a step; the profiler loses a
      few records at a trace's end); both counts must be 24 K1, or 24
@@ -77,9 +90,10 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      attention through K1-q8, no plain version runs; then `plan` in each
      form (int4 on the 4 captions, int4_a8 on 1): K1-q8 at every step,
      K2 / K4 at every projection and `lm_head`, all on the tensor cores,
-     launches as the code implies (7b); then 4c's comparison for each
-     (7c: int4 on 4 requests in the same turns, int4_a8 on 1 in turns
-     eager, graph);
+     launches as the code implies (7b); then 4d's comparison of `plan` in
+     each form, eager then graph (7d: the captured step holds 24 K1-q8 and
+     97 K2 or K4 kernel nodes), and 4c's for each (7c: int4 on 4 requests
+     in the same turns, int4_a8 on 1 in turns eager, graph);
   8. K3 (flash attention, forward and backward) vs its plain version at the
      training shapes: causal left-padded [3, 736, 16, 128], causal
      [3, 1024, 16, 128], non-causal [3, 576, 16, 64], bf16 (tensor cores)
@@ -175,7 +189,7 @@ SASS_INSTRUCTIONS = ("HGMMA", "HMMA", "IMMA")
 # gate|up at larger batches
 INT4_ROWS = (4, 8, 64, 256)
 N_SMS = 132  # H100 SXM
-GRAPH_TURNS = ("eager", "graph", "graph", "eager")  # phases 4c and 7c
+GRAPH_TURNS = ("eager", "graph", "graph", "eager")  # phases 4c, 7c and 4d's plan
 
 
 class SmokeFailure(RuntimeError):
@@ -645,7 +659,7 @@ def text_call(torch, pipe, cfg, tag: str, what: str, fn, n_rows: int, prompt_len
     (in the vocabulary, EOS after each row's first EOS, int32 [rows,
     budget]) and the launches of the steps they imply, plus
     `image_launches(output)` for a call that also generates an image.
-    Returns (the call's output, its tokens, its launches)."""
+    Returns (the call's output, its tokens, its launches, its seconds)."""
     import numpy as np
 
     from plangen_tpu_torch.runtime.generate import text_decode_steps
@@ -671,7 +685,17 @@ def text_call(torch, pipe, cfg, tag: str, what: str, fn, n_rows: int, prompt_len
     log(f"[{tag}] {what}: {seconds:.3f} s/call, {steps} text decode steps of {budget} "
         f"({n_rows} rows, prompt {prompt_len}), {n_rows * steps / seconds:.1f} text tokens/s"
         + ("" if image_launches else f", {1e3 * seconds / steps:.2f} ms/step with the prefill"))
-    return out, tokens, launches
+    return out, tokens, launches, seconds
+
+
+def joint_image_launches(pipe, cfg, caption):
+    """The launches of `joint_generate`'s image stage, from its output's
+    groundings: for `text_call`'s `image_launches`."""
+    def image_launches(out):
+        ids, mask = pipe.proc.uni_batch(caption, out.groundings)
+        return expected_launches(cfg, pipe.gen.quantize, 2,
+                                 pipe.proc.cfg_batch(ids, mask)[0].shape[1])
+    return image_launches
 
 
 def add_launches(total: dict, *more) -> dict:
@@ -707,7 +731,7 @@ def phase_text_paths(torch, pipe, cfg, images) -> dict:
     total = dict.fromkeys(kernel_counters(), 0)
 
     plan_len = proc.stage1_batch(CAPTIONS, budget)[0].shape[1]
-    plans, tokens, launches = text_call(torch, pipe, cfg, "4b", "bf16 plan", lambda: pipe.plan(
+    plans, tokens, launches, _ = text_call(torch, pipe, cfg, "4b", "bf16 plan", lambda: pipe.plan(
         CAPTIONS), len(CAPTIONS), plan_len)
     check(all(g.startswith("<grounding>") and g.endswith("</grounding>") for g in plans),
           f"plan strings {plans}")
@@ -754,15 +778,10 @@ def phase_text_paths(torch, pipe, cfg, images) -> dict:
     # joint_generate: the plan, then the image on the planned grounding
     caption = CAPTIONS[:1]
     plan_len = proc.stage1_batch(caption, budget)[0].shape[1]
-
-    def image_launches(out):
-        ids, mask = proc.uni_batch(caption, out.groundings)
-        return expected_launches(cfg, None, 2, proc.cfg_batch(ids, mask)[0].shape[1])
-
-    joint, joint_tokens, launches = text_call(
+    joint, joint_tokens, launches, _ = text_call(
         torch, pipe, cfg, "4b", "bf16 joint_generate",
         lambda: pipe.joint_generate(caption, seeds=SEEDS[:1]), 1, plan_len,
-        image_launches=image_launches)
+        image_launches=joint_image_launches(pipe, cfg, caption))
     check(joint.groundings == [truncate_grounding(t) for t in proc.decode_until_eos(
         joint_tokens)], f"joint_generate groundings {joint.groundings}")
     check_image_output(cfg, joint, 1)
@@ -771,8 +790,8 @@ def phase_text_paths(torch, pipe, cfg, images) -> dict:
     # understand: 2 seeded noise images
     noise = clip_noise(2, cfg.vision.image_size, seed=5)
     mmu_len = proc.mmu_batch(2, decode_budget=budget).input_ids.shape[1]
-    understood, _, launches = text_call(torch, pipe, cfg, "4b", "bf16 understand",
-                                        lambda: pipe.understand(noise), 2, mmu_len)
+    understood, _, launches, _ = text_call(torch, pipe, cfg, "4b", "bf16 understand",
+                                           lambda: pipe.understand(noise), 2, mmu_len)
     check(len(understood.texts) == 2 and understood.groundings == understood.texts
           and all(isinstance(t, str) for t in understood.texts),
           f"understand texts {understood.texts}")
@@ -814,20 +833,25 @@ def quantized_plan(torch, pipe, cfg, captions) -> dict:
     on the tensor cores, no plain call. Returns the launches."""
     mode = pipe.gen.quantize
     plan_len = pipe.proc.stage1_batch(list(captions), pipe.gen.max_new_text_tokens)[0].shape[1]
-    plans, _, launches = text_call(torch, pipe, cfg, "7b", f"{mode} plan",
-                                   lambda: pipe.plan(captions), len(captions), plan_len)
+    plans, _, launches, _ = text_call(torch, pipe, cfg, "7b", f"{mode} plan",
+                                      lambda: pipe.plan(captions), len(captions), plan_len)
     check(len(plans) == len(captions), f"{mode} plan: {plans}")
     return launches
 
 
-class ImageLoop:
-    """While the `with` block lasts, the pipeline's image loop runs eagerly
-    (`eager=True`) or through its CUDA graph, and every decode step (eager)
-    or replay (graph) leaves its host clock (start, end) in `stamps`; the
-    graph's capture ms go to `capture_ms`.
+class DecodeLoop:
+    """While the `with` block lasts, the pipeline's image loop (with `text`,
+    its text loop) runs eagerly (`eager=True`) or through its CUDA graph,
+    and every decode step (eager) or replay (graph) of that loop leaves its
+    host clock (start, end) in `stamps`; the graph's capture ms go to
+    `capture_ms`. The other loop's replays (`joint_generate`'s image stage
+    under `text`) are not recorded.
 
-    With `profile`, the graph's kernel nodes by name go to `nodes`, replays
-    100-131 are timed by CUDA events (`window_ms`), and then up to
+    With `measure`, the graph's kernel nodes by name go to `nodes`, and
+    events recorded before and after each of replays 100-131 time the
+    window (`window_ms`) and the device's time between one replay's end and
+    the next one's start (`between_ms`: where the text loop's host reads its
+    flag and launches the next replay). With `profile` as well, up to
     PROFILED_WINDOWS traces of `torch.profiler` follow, each over
     GRAPH_PAD + GRAPH_WINDOW + GRAPH_PAD replays with the device idle for
     GAP_S before and after the middle GRAPH_WINDOW, until `accept` holds for
@@ -835,10 +859,13 @@ class ImageLoop:
     trace (None when the gaps did not split it in three), `accepted` says
     whether the last was accepted."""
 
-    def __init__(self, torch, eager: bool, profile: bool = False, accept=None):
-        self.torch, self.eager, self.profiled, self.accept = torch, eager, profile, accept
+    def __init__(self, torch, text: bool = False, eager: bool = False, measure: bool = False,
+                 profile: bool = False, accept=None):
+        self.torch, self.text, self.eager, self.accept = torch, text, eager, accept
+        self.measure, self.profiled = measure or profile, profile
         self.stamps, self.capture_ms, self.replays, self.profiles = [], [], 0, []
-        self.window_ms, self.nodes, self.accepted = None, None, False
+        self.window_ms, self.nodes, self.accepted, self.active = None, None, False, False
+        self.starts, self.ends, self.between_ms = [], [], None
 
     def __enter__(self):
         import functools
@@ -846,12 +873,20 @@ class ImageLoop:
         from plangen_tpu_torch.runtime import cuda_graph, generate
         from plangen_tpu_torch.tasks import pipeline
 
-        self.saved = [(pipeline, "generate_image_tokens", pipeline.generate_image_tokens),
-                      (generate, "image_decode_step", generate.image_decode_step),
+        loop, step_name = (("greedy_decode_text", "text_decode_step") if self.text
+                           else ("generate_image_tokens", "image_decode_step"))
+        self.saved = [(pipeline, loop, getattr(pipeline, loop)),
+                      (generate, step_name, getattr(generate, step_name)),
                       (cuda_graph.StepGraph, "replay", cuda_graph.StepGraph.replay)]
-        step, replay = generate.image_decode_step, cuda_graph.StepGraph.replay
-        pipeline.generate_image_tokens = functools.partial(generate.generate_image_tokens,
-                                                           eager=self.eager)
+        run = functools.partial(getattr(generate, loop), eager=self.eager)
+        step, replay = getattr(generate, step_name), cuda_graph.StepGraph.replay
+
+        def active_loop(*args, **kw):
+            self.active = True
+            try:
+                return run(*args, **kw)
+            finally:
+                self.active = False
 
         def timed_step(*args, **kw):
             t0 = time.perf_counter()
@@ -860,34 +895,42 @@ class ImageLoop:
                 self.stamps.append((t0, time.perf_counter()))
 
         def timed_replay(graph):
+            if not self.active:
+                return replay(graph)
             if self.replays == 0:
                 self.capture_ms.append(graph.capture_ms)
-                if self.profiled:
+                if self.measure:
                     self.nodes = graph_kernel_nodes(graph.graph.raw_cuda_graph())
-            if self.profiled:
+            if self.measure:
                 self.before(self.replays)
             t0 = time.perf_counter()
             replay(graph)
             self.stamps.append((t0, time.perf_counter()))
             self.replays += 1
-            if self.profiled:
+            if self.measure:
                 self.after(self.replays)
 
-        generate.image_decode_step = timed_step
+        setattr(pipeline, loop, active_loop)
+        setattr(generate, step_name, timed_step)
         cuda_graph.StepGraph.replay = timed_replay
         return self
 
     def trace(self, i: int):
         """(trace k, replay i's place in it) for replays from 132 on."""
         k, j = divmod(i - 100 - GRAPH_WINDOW, GRAPH_WINDOW + 2 * GRAPH_PAD)
-        return (k, j) if i >= 100 + GRAPH_WINDOW and k < PROFILED_WINDOWS else (None, None)
+        return ((k, j) if self.profiled and i >= 100 + GRAPH_WINDOW and k < PROFILED_WINDOWS
+                else (None, None))
+
+    def event(self):
+        event = self.torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
 
     def before(self, i: int) -> None:
         torch = self.torch
         k, j = self.trace(i)
-        if i == 100:
-            self.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            self.events[0].record()
+        if 100 <= i < 100 + GRAPH_WINDOW:
+            self.starts.append(self.event())
         elif k is None or self.accepted:
             return
         elif j == 0:
@@ -903,10 +946,12 @@ class ImageLoop:
     def after(self, i: int) -> None:
         torch = self.torch
         k, j = self.trace(i - 1)  # of the replay just run
+        if 100 < i <= 100 + GRAPH_WINDOW:
+            self.ends.append(self.event())
         if i == 100 + GRAPH_WINDOW:
-            self.events[1].record()
             torch.cuda.synchronize()
-            self.window_ms = self.events[0].elapsed_time(self.events[1])
+            self.window_ms = self.starts[0].elapsed_time(self.ends[-1])
+            self.between_ms = sum(e.elapsed_time(s) for e, s in zip(self.ends, self.starts[1:]))
         elif k is not None and j == GRAPH_WINDOW + 2 * GRAPH_PAD - 1 and not self.accepted:
             torch.cuda.synchronize()
             self.profile.__exit__(None, None, None)
@@ -1002,11 +1047,77 @@ def profiled_kernels(prof) -> list:
     return kernels
 
 
+def path_per_step(cfg, quantize, n_rows: int, prompt_len: int):
+    """(launches a decode step by kernel, from `expected_launches`; the
+    kernels of the path with their name pieces, from GRAPH_KERNELS)."""
+    one, two = (expected_launches(cfg, quantize, n_rows, prompt_len, steps) for steps in (1, 2))
+    per_step = {k: two[k] - one[k] for k in two}
+    return per_step, [(name, piece) for name, piece in GRAPH_KERNELS if per_step[name]]
+
+
+def on_device(kernels, path) -> dict:
+    """Kernels a step of each kernel of the path in a profiled window."""
+    return {name: sum(piece in k for _, _, k in kernels) / GRAPH_WINDOW for name, piece in path}
+
+
+def check_graph_nodes(tag: str, label: str, loop, per_step: dict, path) -> int:
+    """The captured step's kernel nodes of each kernel of the path equal its
+    launches a step; returns the graph's kernel nodes."""
+    nodes = {name: sum(c for k, c in loop.nodes.items() if piece in k) for name, piece in path}
+    total = sum(loop.nodes.values())
+    log(f"[{tag}] {label}, the captured step: {total} kernel nodes; of the path's kernels "
+        + ", ".join(f"{k} {v} (expected {per_step[k]})" for k, v in nodes.items()))
+    check(all(v == per_step[k] for k, v in nodes.items()),
+          f"{label}: kernel nodes of the captured step {nodes}, expected {per_step}")
+    return total
+
+
+def report_profile(tag: str, label: str, loop, per_step: dict, path) -> dict:
+    """The profiled traces of `loop`: kernels a step on the device by kernel
+    of the path, then over the accepted window the device-busy share of the
+    events' ms a step and the largest kernels a step. Returns the numbers."""
+    for w, kernels in enumerate(loop.profiles):
+        log(f"[{tag}] {label}, profiled trace {w + 1}: " + (
+            "the device's idle gaps did not set the window apart" if kernels is None else
+            f"{GRAPH_WINDOW} replays between two idle gaps, "
+            f"{len(kernels) / GRAPH_WINDOW:.5f} kernels a step on the device; by kernel "
+            + ", ".join(f"{k} {v:g} (expected {per_step[k]})"
+                        for k, v in on_device(kernels, path).items())))
+    check(loop.accepted, f"{label}: in none of {len(loop.profiles)} profiled traces "
+          "did every kernel of the path show its launches a step")
+    graph_ms = loop.window_ms / GRAPH_WINDOW
+    kernels = loop.profiles[-1]
+    # the kernels' device time a step (profiled) over the step's device time
+    # (CUDA events, no profiler, whose host cost may idle the device)
+    busy = sum(e - s for s, e, _ in kernels) / 1e3 / GRAPH_WINDOW
+    span_ms = (max(e for _, e, _ in kernels) - kernels[0][0]) / 1e3
+    launched = len(kernels) / GRAPH_WINDOW
+    between = loop.between_ms / (GRAPH_WINDOW - 1)
+    log(f"[{tag}] {label}: {graph_ms:.3f} ms a step on the device "
+        f"(CUDA events over replays 100-{100 + GRAPH_WINDOW - 1}), of it {busy:.3f} ms of "
+        f"kernels (the accepted window; {100 * busy / graph_ms:.1f}% busy, idle "
+        f"{100 * (1 - busy / graph_ms):.1f}%, of which {between:.3f} ms a step between "
+        f"replays; under the profiler {span_ms / GRAPH_WINDOW:.3f} "
+        f"ms a step), {launched:.5f} kernels a step (the graph has "
+        f"{sum(loop.nodes.values())} kernel nodes; a replay also fills each generator's seed "
+        "and offset), every kernel of the path at its launches a step")
+    by_name = {}
+    for s_us, e_us, name in kernels:
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e_us - s_us, c + 1)
+    log(f"[{tag}] largest kernels a step: " + "; ".join(
+        f"{name[:60]} {t / GRAPH_WINDOW:.1f} us x{c / GRAPH_WINDOW:g}"
+        for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]))
+    return dict(graph_ms_per_step=graph_ms, device_busy_share=busy / graph_ms,
+                between_replays_ms=between, kernels_per_step=launched,
+                profiled_windows=len(loop.profiles))
+
+
 def phase_graph_vs_eager(torch, pipe, cfg, tag: str, n: int, turns) -> dict:
     """The image loop's CUDA graph against its eager loop (`eager=True`) in
     `layout_to_image` on the first `n` requests, in `turns` ("eager" or
     "graph"), then one more graph call with a window of replays timed by
-    events and profiled windows (`ImageLoop`). Every call's tokens equal the
+    events and profiled windows (`DecodeLoop`). Every call's tokens equal the
     first's, bit for bit, and its launches the code's; per call s/call, host
     ms a step, capture ms and peak memory; over the accepted profiled window
     the device-busy share and the kernels a step by name, each kernel of the
@@ -1017,22 +1128,15 @@ def phase_graph_vs_eager(torch, pipe, cfg, tag: str, n: int, turns) -> dict:
     ids, mask = pipe.proc.uni_batch(captions, groundings)
     prompt_len = pipe.proc.cfg_batch(ids, mask)[0].shape[1]
     want = expected_launches(cfg, pipe.gen.quantize, 2 * n, prompt_len)
-    one, two = (expected_launches(cfg, pipe.gen.quantize, 2 * n, prompt_len, steps)
-                for steps in (1, 2))
-    per_step = {k: two[k] - one[k] for k in two}
-    path = [(name, piece) for name, piece in GRAPH_KERNELS if per_step[name]]
-
-    def on_device(kernels) -> dict:
-        return {name: sum(piece in k for _, _, k in kernels) / GRAPH_WINDOW
-                for name, piece in path}
+    per_step, path = path_per_step(cfg, pipe.gen.quantize, 2 * n, prompt_len)
 
     def exact(kernels) -> bool:
-        return all(v == per_step[k] for k, v in on_device(kernels).items())
+        return all(v == per_step[k] for k, v in on_device(kernels, path).items())
 
     first, rows = None, []
     for i, kind in enumerate(list(turns) + ["graph (profiled)"]):
-        loop = ImageLoop(torch, eager=kind == "eager", profile="profiled" in kind,
-                         accept=exact)
+        loop = DecodeLoop(torch, eager=kind == "eager", profile="profiled" in kind,
+                          accept=exact)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         with loop:
@@ -1062,48 +1166,102 @@ def phase_graph_vs_eager(torch, pipe, cfg, tag: str, n: int, turns) -> dict:
                f"replays, capture + instantiate {row['capture_ms']:.2f} ms")
             + f", peak device memory {peak:.2f} GiB, tokens bitwise equal to turn 1's")
     prof_row = rows.pop()
-    graph_ms = loop.window_ms / GRAPH_WINDOW
-    nodes = {name: sum(c for k, c in loop.nodes.items() if piece in k) for name, piece in path}
-    log(f"[{tag}] {mode}, {n} request(s), the captured step: {sum(loop.nodes.values())} kernel "
-        "nodes; of the path's kernels " + ", ".join(
-            f"{k} {v} (expected {per_step[k]})" for k, v in nodes.items()))
-    check(all(v == per_step[k] for k, v in nodes.items()),
-          f"{mode} x{n}: kernel nodes of the captured step {nodes}, expected {per_step}")
-    for w, kernels in enumerate(loop.profiles):
-        log(f"[{tag}] {mode}, {n} request(s), profiled trace {w + 1}: " + (
-            "the device's idle gaps did not set the window apart" if kernels is None else
-            f"{GRAPH_WINDOW} replays between two idle gaps, "
-            f"{len(kernels) / GRAPH_WINDOW:.5f} kernels a step on the device; by kernel "
-            + ", ".join(f"{k} {v:g} (expected {per_step[k]})"
-                        for k, v in on_device(kernels).items())))
-    check(loop.accepted, f"{mode} x{n}: in none of {len(loop.profiles)} profiled traces "
-          "did every kernel of the path show its launches a step")
-    kernels = loop.profiles[-1]
-    # the kernels' device time a step (profiled) over the step's device time
-    # (CUDA events, no profiler, whose host cost may idle the device)
-    busy = sum(e - s for s, e, _ in kernels) / 1e3 / GRAPH_WINDOW
-    span_ms = (max(e for _, e, _ in kernels) - kernels[0][0]) / 1e3
-    launched = len(kernels) / GRAPH_WINDOW
-    log(f"[{tag}] {mode}, {n} request(s), graph: {graph_ms:.3f} ms a step on the device "
-        f"(CUDA events over replays 100-{100 + GRAPH_WINDOW - 1}), of it {busy:.3f} ms of "
-        f"kernels (the accepted window; {100 * busy / graph_ms:.1f}% busy, idle "
-        f"{100 * (1 - busy / graph_ms):.1f}%; under the profiler {span_ms / GRAPH_WINDOW:.3f} "
-        f"ms a step), {launched:.5f} kernels a step (the graph has "
-        f"{sum(loop.nodes.values())} kernel nodes; a replay also fills each generator's seed "
-        "and offset), every kernel of the path at its launches a step")
-    by_name = {}
-    for s_us, e_us, name in kernels:
-        t, c = by_name.get(name, (0.0, 0))
-        by_name[name] = (t + e_us - s_us, c + 1)
-    log(f"[{tag}] largest kernels a step: " + "; ".join(
-        f"{name[:60]} {t / GRAPH_WINDOW:.1f} us x{c / GRAPH_WINDOW:g}"
-        for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]))
-    summary = dict(mode=mode, requests=n, turns=rows, graph_ms_per_step=graph_ms,
-                   device_busy_share=busy / graph_ms, kernels_per_step=launched,
-                   graph_kernel_nodes=sum(loop.nodes.values()),
-                   profiled_windows=len(loop.profiles), profiled_call_s=prof_row["s_per_call"])
+    label = f"{mode}, {n} request(s)"
+    nodes = check_graph_nodes(tag, label, loop, per_step, path)
+    summary = dict(mode=mode, requests=n, turns=rows,
+                   **report_profile(tag, f"{label}, graph", loop, per_step, path),
+                   graph_kernel_nodes=nodes, profiled_call_s=prof_row["s_per_call"])
     log(f"[{tag}] " + json.dumps(summary))
     return summary
+
+
+def phase_text_graph_vs_eager(torch, pipe, cfg, tag: str, what: str, fn, n_rows: int,
+                              prompt_len: int, turns, image_launches=None) -> dict:
+    """The text loop's CUDA graph against its eager loop (`eager=True`) in
+    one text entry point `fn` on `n_rows` rows, in `turns` ("eager", "graph"
+    or "graph (profiled)"), each call counted and checked by `text_call`: its
+    tokens bitwise equal to the first turn's, its launches those of the
+    steps they imply. Per call s/call, host ms a step, capture ms and peak
+    memory; in each graph call the captured step's kernel nodes (24 K1 or
+    K1-q8, and 97 K2 or K4 in the int4 forms) and the device ms a step by
+    CUDA events over replays 100-131, each with the host's flag read after
+    it; in a profiled call the device-busy share and the kernels a step by
+    name. Returns the numbers."""
+    from plangen_tpu_torch.runtime.generate import text_decode_steps
+
+    mode = pipe.gen.quantize or "bf16"
+    eos = pipe.proc.tok.special.eos_id
+    per_step, path = path_per_step(cfg, pipe.gen.quantize, n_rows, prompt_len)
+
+    def exact(kernels) -> bool:
+        return all(v == per_step[k] for k, v in on_device(kernels, path).items())
+
+    first, rows = None, []
+    for i, kind in enumerate(turns):
+        label = f"{mode} {what} turn {i + 1} ({kind})"
+        graph = kind != "eager"
+        loop = DecodeLoop(torch, text=True, eager=not graph, measure=graph,
+                          profile="profiled" in kind, accept=exact)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with loop:
+            _, tokens, _, seconds = text_call(torch, pipe, cfg, tag, label, fn, n_rows,
+                                              prompt_len, image_launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if first is None:
+            first = tokens
+        check(bool((tokens == first).all()), f"{label}: tokens differ from turn 1's in "
+              f"{int((tokens != first).sum())} places")
+        steps = text_decode_steps(tokens, eos)
+        check(len(loop.stamps) == (steps - 1 if graph else steps),
+              f"{label}: {len(loop.stamps)} timed steps of {steps}")
+        row = dict(kind=kind, s_per_call=seconds, steps=steps,
+                   host_ms_per_step=loop.host_ms_per_step(),
+                   capture_ms=loop.capture_ms[0] if loop.capture_ms else None, peak_gib=peak)
+        if graph:
+            row.update(graph_kernel_nodes=check_graph_nodes(tag, label, loop, per_step, path),
+                       events_ms_per_step=loop.window_ms / GRAPH_WINDOW,
+                       between_replays_ms=loop.between_ms / (GRAPH_WINDOW - 1))
+        if "profiled" in kind:
+            row.update(report_profile(tag, label, loop, per_step, path))
+        rows.append(row)
+        log(f"[{tag}] {label}: {seconds:.3f} s/call, host {row['host_ms_per_step']:.3f} ms a "
+            f"step over {len(loop.stamps)} " + ("steps" if not graph else
+            f"replays, capture + instantiate {row['capture_ms']:.2f} ms, "
+            f"{row['events_ms_per_step']:.3f} ms a step on the device (CUDA events), "
+            f"{row['between_replays_ms']:.3f} ms of it between replays")
+            + f", peak device memory {peak:.2f} GiB, tokens bitwise equal to turn 1's")
+    summary = dict(mode=mode, call=what, rows=n_rows, prompt=prompt_len, turns=rows)
+    log(f"[{tag}] " + json.dumps(summary))
+    return summary
+
+
+def phase_text_graphs(torch, pipe, cfg, tag: str, captions, more: bool = False) -> list:
+    """[4d], [7d] The text loop's CUDA graph against its eager loop
+    (`phase_text_graph_vs_eager`): `plan` on `captions`; with `more` in
+    turns GRAPH_TURNS then one profiled graph call, and also `understand` on
+    2 noise images and `joint_generate` on the first caption, eager then
+    graph; without it eager then graph. Returns the summaries."""
+    proc, budget = pipe.proc, pipe.gen.max_new_text_tokens
+    captions = list(captions)
+    plan_len = proc.stage1_batch(captions, budget)[0].shape[1]
+    turns = GRAPH_TURNS + ("graph (profiled)",) if more else ("eager", "graph")
+    out = [phase_text_graph_vs_eager(torch, pipe, cfg, tag, f"plan x{len(captions)}",
+                                     lambda: pipe.plan(captions), len(captions), plan_len,
+                                     turns)]
+    if more:
+        noise = clip_noise(2, cfg.vision.image_size, seed=5)
+        mmu_len = proc.mmu_batch(2, decode_budget=budget).input_ids.shape[1]
+        out.append(phase_text_graph_vs_eager(torch, pipe, cfg, tag, "understand x2",
+                                             lambda: pipe.understand(noise), 2, mmu_len,
+                                             ("eager", "graph")))
+        caption = captions[:1]
+        out.append(phase_text_graph_vs_eager(
+            torch, pipe, cfg, tag, "joint_generate x1",
+            lambda: pipe.joint_generate(caption, seeds=SEEDS[:1]), 1,
+            proc.stage1_batch(caption, budget)[0].shape[1], ("eager", "graph"),
+            image_launches=joint_image_launches(pipe, cfg, caption)))
+    return out
 
 
 def rotating(make, nbytes: int):
@@ -1813,6 +1971,7 @@ def main() -> int:
     add_launches(launches, phase_text_paths(torch, pipe, cfg, decoded.images))
     log(f"[4b] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del decoded
+    phase_text_graphs(torch, pipe, cfg, "4d", CAPTIONS, more=True)
     for n in (4, 1):
         phase_graph_vs_eager(torch, pipe, cfg, "4c", n, GRAPH_TURNS)
 
@@ -1828,6 +1987,7 @@ def main() -> int:
     q4, _ = run_slice(torch, qpipe, cfg, CAPTIONS, GROUNDINGS, SEEDS)
     q4_plan = quantized_plan(torch, qpipe, cfg, CAPTIONS)
     log(f"[7] int4: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_text_graphs(torch, qpipe, cfg, "7d", CAPTIONS)
     phase_graph_vs_eager(torch, qpipe, cfg, "7c", 4, GRAPH_TURNS)
     del qpipe
     torch.cuda.empty_cache()
@@ -1836,6 +1996,7 @@ def main() -> int:
     a8, _ = run_slice(torch, apipe, cfg, CAPTIONS[:1], GROUNDINGS[:1], SEEDS[:1])
     a8_plan = quantized_plan(torch, apipe, cfg, CAPTIONS[:1])
     log(f"[7] int4_a8: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_text_graphs(torch, apipe, cfg, "7d", CAPTIONS[:1])
     phase_graph_vs_eager(torch, apipe, cfg, "7c", 1, ("eager", "graph"))
     add_launches(launches, q4, q4_plan, a8, a8_plan)
     del apipe

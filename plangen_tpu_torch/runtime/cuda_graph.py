@@ -1,21 +1,24 @@
 """One decode step captured in a CUDA graph and replayed.
 
 The port's counterpart of the JAX package's one-program decode
-(`plangen_tpu/runtime/generate.py`: prefill + `lax.scan` over every step in
-one jitted program). An eager step enqueues some 1,300 kernels from Python
-(more in the int4 forms), and the host, not the card, then sets the pace. A
+(`plangen_tpu/runtime/generate.py`: prefill + a `lax.scan` over the image
+steps, or a `lax.while_loop` over the text steps, in one jitted program). An
+eager step enqueues some 1,100-2,600 kernels from Python (the most in the
+int4 forms), and the host, not the card, then sets the pace. A
 step that reads and writes only static buffers in place can be captured once
 and replayed: one graph launch a step.
 
-`StepGraph(step, generators)`:
-  1. runs `step()` once eagerly on a side stream: a real step, which also
-     builds and loads each kernel library (`kernels/build.py` runs nvcc at a
-     kernel's first launch), sets each kernel's shared-memory attribute and
-     gives cuBLAS its workspace on that stream, none of which may happen
-     under capture;
-  2. captures `step()` on the same stream into a `torch.cuda.CUDAGraph`,
-     with every generator the step draws from registered with the graph, so
-     each replay draws the numbers the next eager step would draw;
+  1. `eager_step(step)` runs `step()` once eagerly on a side stream, the
+     capture stream: a real step, which also builds and loads each kernel
+     library (`kernels/build.py` runs nvcc at a kernel's first launch), sets
+     each kernel's shared-memory attribute and gives cuBLAS its workspace on
+     that stream, none of which may happen under capture;
+  2. `StepGraph(step, generators)` captures `step()` on the same stream into
+     a `torch.cuda.CUDAGraph`, with every generator the step draws from
+     registered with the graph, so each replay draws the numbers the next
+     eager step would draw. A loop that may end after its first step (the
+     text decode at EOS) reads its flag between the two and captures
+     nothing if it ends there;
   3. `replay()` launches the graph on the current stream.
 
 Nothing falls back to eager: an operation that cannot be captured (a host
@@ -55,8 +58,20 @@ def capture_stream(device_index: int) -> torch.cuda.Stream:
     return torch.cuda.Stream(device=device_index)
 
 
+def eager_step(step: Callable[[], None]) -> None:
+    """`step()` once, eagerly, on the capture stream, ordered after the
+    current stream's work and before its later work: what `StepGraph` needs
+    to have run before it captures the same step."""
+    main = torch.cuda.current_stream()
+    side = capture_stream(main.device.index)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        step()
+    main.wait_stream(side)
+
+
 class StepGraph:
-    """`step()` run once eagerly, then captured in a CUDA graph that
+    """`step()`, run once by `eager_step`, captured in a CUDA graph that
     `replay()` launches (module docstring). `capture_ms` is the host time of
     the capture and the graph's instantiation; `launches` the kernel
     launches one replay adds to the wrappers' counts."""
@@ -70,7 +85,6 @@ class StepGraph:
         for g in generators:
             graph.register_generator_state(g)
         with torch.cuda.stream(side):
-            step()
             before = _counts()
             t0 = time.perf_counter()
             graph.capture_begin()

@@ -25,19 +25,20 @@ fp32 `lm_head` logits of the last hidden state, their argmax (the first
 maximal index, as `jnp.argmax`), EOS for rows already done, and feeds the
 token back through the text embedding to one decoder step at `L + i`. The
 output is pre-filled with EOS, and the loop stops once every row has
-emitted EOS, as the JAX `while_loop` does. Reading that flag is a host
-sync at every step; while the loop is bound by the host it costs no more
-than a sparser check would (PERF.md).
+emitted EOS, as the JAX `while_loop` does: the host reads the all-done
+flag, one byte, after every step.
 
-Each image step is `image_decode_step`, which reads and writes only static
-buffers in place (`StepBuffers`: the last hidden state, the query position
-`q_pos`, the step index and the [B, N] token buffer; the position and the
-step advance on the device). On CPU tensors the loop calls it N times. On
-CUDA tensors step 0 runs eagerly, one step is captured in a CUDA graph and
-the graph is replayed for the other N - 1 (`runtime/cuda_graph.py`): the
-counterpart of the JAX package's one jitted program. `eager=True` runs the
-eager loop on the card too, to compare the two; the pipeline never sets it.
-The text loop is eager Python on either device.
+Each step of either loop reads and writes only static buffers in place,
+every index on the device: `image_decode_step` over `StepBuffers` (the last
+hidden state, the query position `q_pos`, the step index and the [B, N]
+token buffer) and `text_decode_step` over `TextStepBuffers` (the same, and
+the per-row done flags and the all-done flag). On CPU tensors a loop calls
+its step once a token. On CUDA tensors step 0 runs eagerly, one step is
+captured in a CUDA graph and the graph is replayed for the later steps
+(`runtime/cuda_graph.py`): the counterpart of the JAX package's one jitted
+program. A text decode that is done after step 0, or has a budget of 1,
+captures nothing. `eager=True` runs the eager loop on the card too, to
+compare the two; the pipeline never sets it.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.ops.sampling import (
     Generators, apply_teacher_forcing, cfg_combine, sample_categorical,
 )
-from plangen_tpu_torch.runtime.cuda_graph import StepGraph
+from plangen_tpu_torch.runtime.cuda_graph import StepGraph, eager_step
 from plangen_tpu_torch.runtime.kvcache import KVCache, init_kv_cache
 
 CACHE_ALIGN = 128  # the prefix kernel reads the cache in 128-slot chunks
@@ -178,6 +179,7 @@ def generate_image_tokens(
         # every generator the step draws from, so each replay draws afresh
         generators = [] if temperature == 0 else (
             [generator] if isinstance(generator, torch.Generator) else list(generator))
+        eager_step(step)
         graph = StepGraph(step, generators)
         for _ in range(num_tokens - 1):
             graph.replay()
@@ -198,6 +200,46 @@ def text_decode_steps(tokens, eos_id: int) -> int:
     return int(hit.int().argmax(dim=1).max()) + 1
 
 
+@dataclass
+class TextStepBuffers:
+    """What a text decode step reads and writes in place: the static
+    buffers a CUDA graph of the step is captured over."""
+
+    last_hidden: torch.Tensor  # [B, H]: the hidden state `lm_head` reads
+    q_pos: torch.Tensor  # int32 [1]: the cache slot the step writes, L + i
+    step: torch.Tensor  # int64 [1]: i, the column of `tokens` it writes
+    tokens: torch.Tensor  # int32 [B, budget], pre-filled with EOS
+    done: torch.Tensor  # bool [B]: the row has emitted EOS
+    all_done: torch.Tensor  # bool []: every row has, the byte the host reads
+
+
+def text_decode_step(
+    model: PlanGenModel,
+    buffers: TextStepBuffers,
+    mask: torch.Tensor,  # [B, S] int32 pad mask of the cache
+    cache: KVCache,
+    eos_id: int,
+    dtype: torch.dtype,  # of the embeds fed back
+) -> None:
+    """Step i = `buffers.step`: fp32 `lm_head` logits -> their first argmax
+    -> EOS for the rows already done, into column i of `buffers.tokens` ->
+    the done flags -> the token fed back through the text embedding to one
+    decoder step at `buffers.q_pos`, whose hidden state becomes
+    `buffers.last_hidden`; then `q_pos` and `step` advance by one. Every
+    index stays on the device."""
+    b = buffers
+    lm = model.language_model
+    token = lm.logits(b.last_hidden).argmax(dim=-1).to(torch.int32)
+    token = torch.where(b.done, eos_id, token)
+    b.done.logical_or_(token == eos_id)
+    b.all_done.copy_(b.done.all())
+    b.tokens.index_copy_(1, b.step, token[:, None])
+    next_embeds = model.embed_text(token[:, None]).to(dtype)
+    b.last_hidden.copy_(lm(next_embeds, mask, b.q_pos, cache)[:, -1])
+    b.q_pos.add_(1)
+    b.step.add_(1)
+
+
 @torch.inference_mode()
 def greedy_decode_text(
     model: PlanGenModel,
@@ -207,9 +249,13 @@ def greedy_decode_text(
     eos_id: int,
     max_new_tokens: int = 512,
     quantized_cache: bool = False,  # int8 KV cache with fp32 scales
+    eager: bool = False,  # on the card, the eager loop instead of the graph
 ) -> torch.Tensor:
     """Greedy KV-cached text decode; [B, max_new_tokens] int32 ids, EOS
-    after each row's first EOS."""
+    after each row's first EOS. It stops once every row has emitted EOS.
+
+    On CUDA tensors the steps after step 0 replay a CUDA graph of one step,
+    unless `eager`; a step that cannot be captured raises."""
     B, L, _ = inputs_embeds.shape
     device = inputs_embeds.device
     if attn_mask.shape != (B, L + max_new_tokens):
@@ -222,19 +268,30 @@ def greedy_decode_text(
     mask = F.pad(mask, (0, S - mask.shape[1])).contiguous()  # zero tail
     cache = init_kv_cache(cfg.llama, B, S, dtype=inputs_embeds.dtype, device=device,
                           quantized=quantized_cache)
-    last_hidden = prefill(model, inputs_embeds, mask, cache)
+    buffers = TextStepBuffers(
+        last_hidden=prefill(model, inputs_embeds, mask, cache).clone(
+            memory_format=torch.contiguous_format),
+        q_pos=torch.full((1,), L, dtype=torch.int32, device=device),
+        step=torch.zeros(1, dtype=torch.int64, device=device),
+        tokens=torch.full((B, max_new_tokens), eos_id, dtype=torch.int32, device=device),
+        done=torch.zeros(B, dtype=torch.bool, device=device),
+        all_done=torch.zeros((), dtype=torch.bool, device=device),
+    )
 
-    lm = model.language_model
-    positions = torch.arange(L, L + max_new_tokens, dtype=torch.int32, device=device)
-    tokens = torch.full((B, max_new_tokens), eos_id, dtype=torch.int32, device=device)
-    done = torch.zeros(B, dtype=torch.bool, device=device)
+    def step():
+        text_decode_step(model, buffers, mask, cache, eos_id, inputs_embeds.dtype)
+
+    on_graph = device.type == "cuda" and not eager and max_new_tokens > 1
+    graph = None
     for i in range(max_new_tokens):
-        if i and bool(done.all()):
+        if i and bool(buffers.all_done):
             break
-        token = lm.logits(last_hidden).argmax(dim=-1).to(torch.int32)
-        token = torch.where(done, eos_id, token)
-        done |= token == eos_id
-        tokens[:, i] = token
-        next_embeds = model.embed_text(token[:, None]).to(inputs_embeds.dtype)
-        last_hidden = lm(next_embeds, mask, positions[i:i + 1], cache)[:, -1]
-    return tokens
+        if not on_graph:
+            step()
+        elif i == 0:
+            eager_step(step)
+        else:
+            if graph is None:
+                graph = StepGraph(step)
+            graph.replay()
+    return buffers.tokens

@@ -897,3 +897,129 @@ def test_host_read_in_a_step_raises(cuda, monkeypatch):
     tokens = generate_image_tokens(model, cfg, embeds, mask, generator=None,
                                    cfg_weight=5.0, temperature=0.0, num_tokens=n)
     assert tokens.shape == (2, n)
+
+
+# -------------------------------------- the text loop in a CUDA graph
+
+TEXT_EOS = 1  # the byte-fallback tokenizer's EOS id
+
+
+def _text_prompt(cuda, cfg, n, shared=False):
+    """Text embeds [3, 12, H] bf16 and mask [3, 12 + n]: left-padded rows,
+    or (`shared`) three rows of one prompt behind 2 pads."""
+    rs = np.random.RandomState(1)
+    embeds = rs.randn(3, 12, cfg.llama.hidden_size).astype(np.float32)
+    mask = np.ones((3, 12 + n), dtype=np.int32)
+    if shared:
+        embeds[:] = embeds[0]
+        mask[:, :2] = 0
+    else:
+        mask[1, :3] = 0
+        mask[2, :7] = 0
+    return (torch.from_numpy(embeds).to(cuda, torch.bfloat16),
+            torch.from_numpy(mask).to(cuda))
+
+
+def _graphs_made(monkeypatch):
+    """A list that gets one entry for each CUDA graph the runtime captures."""
+    from plangen_tpu_torch.runtime import generate as gen_mod
+
+    made, cls = [], gen_mod.StepGraph
+    monkeypatch.setattr(gen_mod, "StepGraph", lambda *a, **kw: made.append(1) or cls(*a, **kw))
+    return made
+
+
+def _text_run(model, cfg, embeds, mask, eos, n, q8=False, eager=False):
+    before = _loop_counts()
+    tokens = greedy_decode_text(model, cfg, embeds, mask, eos, max_new_tokens=n,
+                                quantized_cache=q8, eager=eager)
+    torch.cuda.synchronize()
+    return tokens.cpu(), tuple(a - b for a, b in zip(_loop_counts(), before))
+
+
+# mode: (quantize, int8 cache)
+TEXT_GRAPH_MODES = {"dense": (None, False), "int8_kv": (None, True),
+                    "int4": ("int4", True), "int4_a8": ("int4_a8", True)}
+
+
+@pytest.mark.parametrize("mode", sorted(TEXT_GRAPH_MODES))
+def test_text_graph_equals_eager_loop(cuda, mode, monkeypatch):
+    """`greedy_decode_text` on the card (step 0 eager, then one captured
+    step replayed; in the int4 forms K2 or K4 at `lm_head` too) against its
+    eager loop (`eager=True`): the same tokens, bit for bit, and the same
+    launch counts; one graph captured, none by the eager loop."""
+    quantize, q8 = TEXT_GRAPH_MODES[mode]
+    cfg, model = _graph_model(cuda, quantize)
+    n = 40
+    embeds, mask = _text_prompt(cuda, cfg, n)
+    graphs = _graphs_made(monkeypatch)
+    eager_tokens, eager_counts = _text_run(model, cfg, embeds, mask, TEXT_EOS, n, q8, True)
+    assert not graphs
+    graph_tokens, graph_counts = _text_run(model, cfg, embeds, mask, TEXT_EOS, n, q8)
+    assert len(graphs) == 1
+    assert graph_tokens.dtype == torch.int32 and graph_tokens.shape == (3, n)
+    assert torch.equal(graph_tokens, eager_tokens)
+    assert graph_counts == eager_counts
+    L = cfg.llama.num_layers
+    steps = text_decode_steps(eager_tokens, TEXT_EOS)
+    assert eager_counts[1 if q8 else 0] == steps * L
+    if quantize is not None:  # the prefill's 3 x 12 rows take the kernel too
+        assert eager_counts[4 if quantize == "int4_a8" else 2] == steps * (4 * L + 1) + 4 * L
+    if quantize == "int4":
+        assert eager_counts[3] == eager_counts[2]  # bf16 K2 on the tensor cores
+
+
+@pytest.mark.parametrize("exit_at", ["mid_way", "step_0", "budget_1"])
+def test_text_graph_stops_at_the_exit(cuda, exit_at, monkeypatch):
+    """Rows of one prompt, with EOS a token their no-EOS stream emits first
+    at a column from 8 on: the graph loop stops at the step the tokens
+    imply, each row the stream's prefix and then EOS. With EOS the first
+    token, or a budget of 1, the loop ends after step 0 and captures
+    nothing."""
+    cfg, model = _graph_model(cuda)
+    n = 1 if exit_at == "budget_1" else 40
+    embeds, mask = _text_prompt(cuda, cfg, n, shared=True)
+    free, _ = _text_run(model, cfg, embeds, mask, TEXT_EOS, n, eager=True)
+    free = free.numpy()
+    eos, col = TEXT_EOS, n  # budget 1: the free stream, one step
+    if exit_at == "step_0":
+        eos, col = int(free[0, 0]), 0
+    elif exit_at == "mid_way":
+        row = free[0]
+        col = next(c for c in range(8, n) if int(np.flatnonzero(row == row[c])[0]) == c
+                   and all((r[:c] != row[c]).all() and r[c] == row[c] for r in free))
+        eos = int(row[col])
+    graphs = _graphs_made(monkeypatch)
+    got, counts = _text_run(model, cfg, embeds, mask, eos, n)
+    got = got.numpy()
+    steps = min(col + 1, n)
+    assert len(graphs) == (1 if exit_at == "mid_way" else 0)
+    assert text_decode_steps(got, eos) == steps
+    assert counts[0] == steps * cfg.llama.num_layers
+    np.testing.assert_array_equal(got[:, :col], free[:, :col])
+    assert (got[:, col:] == eos).all()
+
+
+def test_host_read_in_a_text_step_raises(cuda, monkeypatch):
+    """A text step that reads a device value on the host cannot be
+    captured: `greedy_decode_text` raises instead of running the eager loop,
+    and the launch counts keep only what ran (step 0)."""
+    cfg, model = _graph_model(cuda)
+    n = 8
+    embeds, mask = _text_prompt(cuda, cfg, n)
+    embed = model.embed_text
+
+    def reads_on_host(ids):
+        if int(ids.max()) < 0:  # a host read of a device value
+            raise AssertionError
+        return embed(ids)
+
+    monkeypatch.setattr(model, "embed_text", reads_on_host)
+    before = da.prefix_decode_attention.launches
+    with pytest.raises(RuntimeError):
+        greedy_decode_text(model, cfg, embeds, mask, TEXT_EOS, max_new_tokens=n)
+    assert da.prefix_decode_attention.launches - before == cfg.llama.num_layers
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    tokens = greedy_decode_text(model, cfg, embeds, mask, TEXT_EOS, max_new_tokens=n)
+    assert tokens.shape == (3, n)
