@@ -46,7 +46,7 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      CUDA graph of one step replayed until every row has emitted EOS;
   4d. the text loop's CUDA graph against its eager loop (`eager=True`) on
      the same model: `plan` on the 4 captions in turns eager, graph, graph,
-     eager, then one profiled graph call; `understand` on 2 noise images and
+     then one profiled graph call; `understand` on 2 noise images and
      `joint_generate` on 1 caption (its image stage on the graph in both),
      eager then graph. Every call checked as in 4b, its tokens bitwise equal
      to the first turn's; per call s/call, host ms a step (the flag read
@@ -57,7 +57,7 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      kernels;
   4c. the image loop's CUDA graph against its eager loop (`eager=True`) in
      `layout_to_image` on the phase-4 model, 4 requests then 1, in turns
-     eager, graph, graph, eager, then one more graph call: every call's
+     eager, graph, graph, then one more graph call: every call's
      tokens bitwise equal to the first's and its launches the code's; per
      call s/call, host ms a step, capture + instantiate ms and peak memory;
      in the last call the captured step's kernel nodes by name (read
@@ -113,6 +113,24 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      tokens/s, peak memory and the model-FLOPs share printed; then one more
      step under `torch.profiler`: device busy time against the step's
      wall time, and device time by kernel group.
+
+  10. serving at Janus-Pro-1B width: the seeded model written as an HF
+     checkout (2 `pytorch_model-0000{1,2}-of-00002.bin` shards, and the first
+     shard again as safetensors through the port's writer, read back
+     bitwise equal), `tasks/eval.py::build_pipeline` from it (every weight
+     bitwise equal to the seeded model's), `serve.Batcher` and the HTTP
+     server in-process on 127.0.0.1:0; from client threads: 4 `/generate`
+     in one batch (a cold and a warm burst), `/plan` (equal to `pipe.plan`
+     on the same caption), 4 `/plan`, `/understand` on a 384 px PNG and one
+     to resize, `/joint`, `/edit` with `edit_boxes` (the tokens outside the
+     box equal the image's VQ codes), and seed 7 in two batches of 4 with
+     other companions (bitwise equal; against the same request alone, in
+     bucket 1, reported); p50 latency, requests/s and peak memory per
+     mode, the batcher's stats, K1 the only kernel of the bf16 serving run;
+     then `quantize="auto"` through `build_pipeline`: at 32 captions (64
+     rows) K2 and K1-q8 as `expected_launches` says and no dense LM matmul,
+     at 33 (66 rows) no K2; the peak with both trees; and both routes
+     timed at B = 4, 32, 48 (a warm call, then a timed one).
 
 The last two lines are a JSON object describing the kernels (each with its
 launches on the main path, error, time, plain time, the one-call
@@ -189,7 +207,9 @@ SASS_INSTRUCTIONS = ("HGMMA", "HMMA", "IMMA")
 # gate|up at larger batches
 INT4_ROWS = (4, 8, 64, 256)
 N_SMS = 132  # H100 SXM
-GRAPH_TURNS = ("eager", "graph", "graph", "eager")  # phases 4c, 7c and 4d's plan
+# phases 4c, 7c and 4d's plan: one eager turn (two before phase 10 was added,
+# which kept the smoke within its time)
+GRAPH_TURNS = ("eager", "graph", "graph")
 
 
 class SmokeFailure(RuntimeError):
@@ -1906,6 +1926,357 @@ def profile_step(torch, trainer, loader) -> None:
         f"{name[:70]} {t / 1e3:.2f} ms x{c}" for t, c, name in sorted(kernels, reverse=True)[:8]))
 
 
+# ------------------------------------------------------------ [10] serving
+
+
+SERVE_WAIT_MS = 150.0  # long enough for a burst of client threads to batch
+AUTO_TIMING_BATCHES = (4, 32, 48)
+
+
+def write_checkpoint(torch, model, path: pathlib.Path) -> dict:
+    """`model` as an HF checkout in `path`: its state dict in two
+    `pytorch_model-0000{1,2}-of-00002.bin` shards (the released layout),
+    and the first shard once more as safetensors through the port's writer
+    in `path / "st"`, read back by its reader and held bitwise equal.
+    Returns the CPU state dict."""
+    from plangen_tpu_torch.convert import safetensors
+
+    t0 = time.perf_counter()
+    sd = {k: v.detach().to("cpu") for k, v in model.state_dict().items()}
+    keys = list(sd)
+    shards = (keys[:len(keys) // 2], keys[len(keys) // 2:])
+    for i, part in enumerate(shards, 1):
+        torch.save({k: sd[k] for k in part}, path / f"pytorch_model-0000{i}-of-00002.bin")
+    (path / "st").mkdir()
+    st_file = path / "st" / "model-00001-of-00002.safetensors"
+    safetensors.save_file({k: sd[k] for k in shards[0]}, str(st_file))
+    back = safetensors.load_file(str(st_file))
+    check(sorted(back) == sorted(shards[0]), "safetensors shard: keys differ")
+    for k in shards[0]:
+        check(back[k].dtype == sd[k].dtype and torch.equal(back[k], sd[k]),
+              f"safetensors shard: {k} differs after the round trip")
+    nbytes = sum(v.numel() * v.element_size() for v in sd.values())
+    log(f"[10] wrote the seeded model as 2 .bin shards ({nbytes / 2**30:.2f} GiB) and "
+        f"{len(shards[0])} tensors as a safetensors shard "
+        f"({st_file.stat().st_size / 2**30:.2f} GiB, read back bitwise equal) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return sd
+
+
+class ServeClient:
+    """The port's batcher and HTTP server in-process on 127.0.0.1:0, and
+    client threads that fire requests at it."""
+
+    def __init__(self, pipe, **kw):
+        import threading
+
+        from plangen_tpu_torch.serve import Batcher, make_server
+
+        self.batcher = Batcher(pipe, **kw)
+        self.httpd = make_server(self.batcher, "127.0.0.1", 0)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def post(self, path: str, payload: dict):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=900) as r:
+                code, body = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.loads(e.read())
+        return code, body, time.perf_counter() - t0
+
+    def burst(self, requests) -> tuple:
+        """[(path, payload)] fired at once from one thread each: (their
+        (code, body, seconds) in order, wall seconds, batches run)."""
+        import threading
+
+        out = [None] * len(requests)
+        batches = self.batcher.stats["batches"]
+
+        def call(i):
+            out[i] = self.post(*requests[i])
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(requests))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        check(not any(t.is_alive() for t in threads), "a client thread did not return")
+        wall = time.perf_counter() - t0
+        for code, body, _ in out:
+            check(code == 200, f"served request failed: {code} {body}")
+        return out, wall, self.batcher.stats["batches"] - batches
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.batcher.close()
+
+
+def noise_png(np, h: int, w: int, seed: int) -> str:
+    import base64
+
+    from plangen_tpu_torch.utils.visualize import encode_png
+
+    img = np.random.RandomState(seed).randint(0, 256, (h, w, 3)).astype(np.uint8)
+    return base64.b64encode(encode_png(img)).decode()
+
+
+def decoded_png(b64: str, size: int):
+    import base64
+
+    from plangen_tpu_torch.utils.visualize import decode_png
+
+    img = decode_png(base64.b64decode(b64))
+    check(img.shape == (size, size, 3), f"served PNG decodes to {img.shape}")
+    return img
+
+
+def check_served_tokens(cfg, tokens) -> None:
+    check(len(tokens) == cfg.image_seq_len, f"{len(tokens)} served image tokens")
+    check(0 <= min(tokens) and max(tokens) < cfg.image_token_size,
+          f"served tokens out of range [{min(tokens)}, {max(tokens)}]")
+
+
+def report_mode(tag: str, mode: str, results, wall: float, batches: int, peak: float,
+                stats: dict) -> dict:
+    """One burst's numbers; `stats` holds the batcher's `device_s` and
+    `assembly_s` over the burst."""
+    import numpy as np
+
+    lat = [s for _, _, s in results]
+    row = dict(mode=mode, requests=len(results), batches=batches,
+               p50_s=float(np.median(lat)), requests_per_s=len(results) / wall,
+               peak_gib=peak, **stats)
+    log(f"[{tag}] {mode}: {len(results)} request(s) in {batches} batch(es), p50 latency "
+        f"{row['p50_s']:.3f} s, {row['requests_per_s']:.3f} requests/s, batcher device_s "
+        f"{stats['device_s']:.3f} s and assembly_s {stats['assembly_s']:.3f} s, peak "
+        f"device memory {peak:.2f} GiB")
+    return row
+
+
+def phase_serving(torch, dev) -> dict:
+    """[10] Serving at Janus-Pro-1B width from a checkpoint on disk: the
+    seeded model written as an HF checkout, `tasks/eval.py::build_pipeline`
+    from it (weights bitwise equal to the seeded model's), `serve.Batcher`
+    and the HTTP server in-process; every endpoint from client threads,
+    checked; then `quantize="auto"`: K2 and K1-q8 at 64 rows as
+    `expected_launches` says and no dense LM matmul, no K2 at 66 rows; and
+    both routes timed at B = 4, 32, 48. Returns the launches by kernel."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from plangen_tpu_torch.config import GenerationConfig, PlanGenConfig, PlanGenModelConfig
+    from plangen_tpu_torch.convert import init_params
+    from plangen_tpu_torch.data.preprocess import build_edit_region
+    from plangen_tpu_torch.models.vlm import PlanGenModel
+    from plangen_tpu_torch.tasks.eval import build_pipeline
+    from plangen_tpu_torch.tasks.pipeline import PlanGenPipeline
+
+    mcfg = PlanGenModelConfig()  # Janus-Pro-1B widths
+    seeded = PlanGenModel(mcfg, dtype=torch.bfloat16, device=dev)
+    init_params(seeded, torch.Generator(device=dev).manual_seed(0))
+    seeded.eval()
+    gen = GenerationConfig(cfg_weight=5.0, temperature=1.0, output_uint8=True)
+    numbers = {}
+    with tempfile.TemporaryDirectory(prefix="plangen_ckpt_") as tmp:
+        path = pathlib.Path(tmp)
+        write_checkpoint(torch, seeded, path)
+        cfg = PlanGenConfig(model=mcfg, janus_path=str(path), generation=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = build_pipeline(cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    own = dict(seeded.named_parameters())
+    loaded = dict(pipe.model.named_parameters())
+    check(sorted(own) == sorted(loaded), "loaded model: parameter names differ")
+    for k, v in own.items():
+        check(loaded[k].dtype == v.dtype and loaded[k].device.type == dev.type
+              and torch.equal(loaded[k], v), f"loaded {k} is not bitwise the seeded weight")
+    log(f"[10] build_pipeline from the checkout: {load_s:.1f} s, {len(own)} parameters "
+        f"bitwise equal to the seeded model's, on {pipe.device}")
+    del seeded, own, loaded
+    torch.cuda.empty_cache()
+
+    pipe.defer_fetch = True  # as serve() sets it
+    size = mcfg.vision.image_size
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    reset_counters(counters)
+    server = ServeClient(pipe, max_batch=32, wait_ms=SERVE_WAIT_MS)
+    rows = []
+    try:
+        def mode_run(mode, requests):
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(server.batcher.stats)
+            results, wall, batches = server.burst(requests)
+            # a batch's stats are counted before its clients are answered
+            stats = {k: server.batcher.stats[k] - before[k]
+                     for k in ("device_s", "assembly_s")}
+            rows.append(report_mode("10", mode, results, wall, batches,
+                                    torch.cuda.max_memory_allocated() / 2**30, stats))
+            return results, batches
+
+        # the first batch of the process (kernels loaded, cuBLAS and the
+        # capture stream set up) apart from a warm one
+        for when in ("cold", "warm"):
+            gens, batches = mode_run(f"/generate x4 ({when})", [
+                ("/generate", {"caption": c, "grounding": g, "seed": s})
+                for c, g, s in zip(CAPTIONS, GROUNDINGS, SEEDS)])
+            check(batches == 1, f"4 concurrent /generate ran in {batches} batches, not 1")
+        for (_, body, _), s in zip(gens, SEEDS):
+            check_served_tokens(mcfg, body["tokens"])
+            check(body["seed"] == s, f"seed {body['seed']} echoed for {s}")
+            decoded_png(body["image_b64"], size)
+        check(len({tuple(b["tokens"]) for _, b, _ in gens}) == 4,
+              "4 requests got fewer than 4 token streams")
+
+        plan_one, _ = mode_run("/plan x1", [("/plan", {"caption": CAPTIONS[1]})])
+        mode_run("/plan x4", [("/plan", {"caption": c}) for c in CAPTIONS])
+        mode_run("/understand x2 (384 px, 500 x 300 resized)", [
+            ("/understand", {"image_b64": noise_png(np, size, size, 1)}),
+            ("/understand", {"image_b64": noise_png(np, 300, 500, 2)})])
+        joint, _ = mode_run("/joint x1", [("/joint", {"caption": CAPTIONS[0], "seed": 5})])
+        check_served_tokens(mcfg, joint[0][1]["tokens"])
+        decoded_png(joint[0][1]["image_b64"], size)
+        box = [[0.25, 0.25, 0.75, 0.75]]
+        edit, _ = mode_run("/edit x1 (edit_boxes)", [("/edit", {
+            "caption": CAPTIONS[0], "grounding": GROUNDINGS[0], "seed": 9,
+            "image_b64": gens[0][1]["image_b64"], "edit_boxes": box})])
+        edit_tokens = edit[0][1]["tokens"]
+        check_served_tokens(mcfg, edit_tokens)
+        decoded_png(edit[0][1]["image_b64"], size)
+
+        # the seed contract: seed 7 beside different companions, one bucket
+        def seeded_group(companions):
+            reqs = [("/generate", {"caption": CAPTIONS[2], "grounding": GROUNDINGS[2],
+                                   "seed": 7})]
+            reqs += [("/generate", {"caption": c, "grounding": g, "seed": s})
+                     for c, g, s in companions]
+            results, _, batches = server.burst(reqs)
+            check(batches == 1, f"a seeded group of 4 ran in {batches} batches")
+            return results[0][1]["tokens"]
+
+        a = seeded_group([(CAPTIONS[0], GROUNDINGS[0], 101), (CAPTIONS[3], GROUNDINGS[3], 102),
+                          (CAPTIONS[1], GROUNDINGS[1], 103)])
+        b = seeded_group([(CAPTIONS[3], GROUNDINGS[3], 201), (CAPTIONS[0], GROUNDINGS[0], 202),
+                          (CAPTIONS[1], GROUNDINGS[1], 203)])
+        check(a == b, "seed 7 in bucket 4: tokens differ with other companions in "
+              f"{sum(x != y for x, y in zip(a, b))} places")
+        alone = server.post("/generate", {"caption": CAPTIONS[2], "grounding": GROUNDINGS[2],
+                                          "seed": 7})[1]["tokens"]
+        across = sum(x != y for x, y in zip(a, alone))
+        log(f"[10] seed contract: seed 7 bitwise equal in bucket 4 beside two sets of "
+            f"companions; alone in bucket 1 it differs in {across} of {len(a)} tokens "
+            "(reported, not asserted)")
+        stats = dict(server.batcher.stats)
+    finally:
+        server.close()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, (w, _) in counters.items()}
+    plain_calls = sum(p.calls for _, p in counters.values())
+    log(f"[10] serving launches {launches}, plain calls {plain_calls}")
+    check(launches["prefix_decode_attention"] > 0, "serving launched no K1")
+    check(plain_calls == 0, f"serving ran the plain versions {plain_calls} times")
+    check(all(v == 0 for k, v in launches.items() if k != "prefix_decode_attention"),
+          f"bf16 serving launched other kernels: {launches}")
+    log(f"[10] batcher stats: {json.dumps(stats)}")
+    numbers.update(modes=rows, stats=stats, seed_across_buckets_diff=across,
+                   load_s=load_s)
+
+    # the served answers, against direct calls (no server running)
+    want_plan = pipe.plan([CAPTIONS[1]])[0]
+    check(plan_one[0][1]["grounding"] == want_plan,
+          "/plan differs from pipe.plan on the same caption")
+    with torch.inference_mode():
+        pixels = torch.from_numpy(
+            decoded_png(gens[0][1]["image_b64"], size).astype(np.float32) / 127.5 - 1.0)
+        codes = pipe.model.gen_vision_model.encode_to_indices(
+            pixels[None].to(dev, torch.bfloat16))[0].cpu().numpy()
+    keep = build_edit_region(np.asarray(box), grid=pipe.grid) == 0
+    check(bool((np.asarray(edit_tokens)[keep] == codes[keep]).all()),
+          "/edit: tokens outside the box differ from the image's VQ codes")
+    log(f"[10] /plan equals pipe.plan; /edit keeps the {int(keep.sum())} tokens outside "
+        "its box at the image's VQ codes")
+
+    # quantize="auto" on the loaded model: the int4 view beside it
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    acfg = dataclasses.replace(cfg, generation=dataclasses.replace(gen, quantize="auto"))
+    apipe = build_pipeline(acfg, model=pipe.model, device=dev)
+    dense_calls = []
+    hooks = [m.register_forward_pre_hook(lambda *args: dense_calls.append(1))
+             for m in apipe.model.language_model.modules()
+             if isinstance(m, torch.nn.Linear)]
+    auto_launches = dict.fromkeys(counters, 0)
+    try:
+        for n in (32, 33):
+            caps = [CAPTIONS[i % 4] for i in range(n)]
+            grds = [GROUNDINGS[i % 4] for i in range(n)]
+            ids, mask = apipe.proc.uni_batch(caps, grds)
+            prompt_len = apipe.proc.cfg_batch(ids, mask)[0].shape[1]
+            dense_calls.clear()
+            out, seconds, got, plain, tc = counted(
+                torch, dev, lambda: apipe.layout_to_image(caps, grds, seeds=list(range(n))))
+            check_image_output(mcfg, out, n, uint8=True)
+            if 2 * n <= apipe.gen.auto_int4_max_rows:
+                want = expected_launches(mcfg, "int4", 2 * n, prompt_len)
+                check(not dense_calls, f"auto at {2 * n} rows ran {len(dense_calls)} dense "
+                      "LM matmuls")
+            else:
+                want = dict.fromkeys(counters, 0)
+                want["prefix_decode_attention_q8"] = mcfg.image_seq_len * mcfg.llama.num_layers
+                check(bool(dense_calls), f"auto at {2 * n} rows ran no dense LM matmul")
+            check_launches("10", f"auto, {n} captions ({2 * n} rows)", got, want, plain, tc)
+            add_launches(auto_launches, got)
+            log(f"[10] auto, {n} captions ({2 * n} rows): {seconds:.3f} s/call, route "
+                f"{'int4' if 2 * n <= 64 else 'dense'}, dense LM matmul calls "
+                f"{len(dense_calls)}")
+    finally:
+        for h in hooks:
+            h.remove()
+    peak_auto = torch.cuda.max_memory_allocated() / 2**30
+    view_bytes = sum(b.numel() * b.element_size() for b in apipe.model_int4.buffers())
+    log(f"[10] auto: peak device memory {peak_auto:.2f} GiB with both trees resident "
+        f"(int4 view buffers {view_bytes / 2**30:.3f} GiB beside the dense model)")
+    numbers.update(auto_peak_gib=peak_auto, int4_view_gib=view_bytes / 2**30)
+
+    # the auto crossover: each route at B = 4, 32, 48, a warm call then a timed one
+    timing = []
+    for route, max_rows in (("int4", 10**9), ("dense", 0)):
+        rpipe = PlanGenPipeline(apipe.model, mcfg, apipe.proc, model_int4=apipe.model_int4,
+                                gen_cfg=dataclasses.replace(apipe.gen,
+                                                            auto_int4_max_rows=max_rows))
+        for B in AUTO_TIMING_BATCHES:
+            caps = [CAPTIONS[i % 4] for i in range(B)]
+            grds = [GROUNDINGS[i % 4] for i in range(B)]
+            rpipe.layout_to_image(caps, grds, seeds=list(range(B)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rpipe.layout_to_image(caps, grds, seeds=list(range(B)))
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            timing.append(dict(route=route, B=B, s_per_call=s, images_per_s=B / s))
+            log(f"[10] auto route {route}, B = {B} ({2 * B} rows): {s:.3f} s/call, "
+                f"{B / s:.2f} images/s")
+    numbers["route_timing"] = timing
+    log("[10] " + json.dumps(numbers))
+    del apipe, pipe
+    torch.cuda.empty_cache()
+    return add_launches(launches, auto_launches)
+
+
 def device_line(torch) -> dict:
     """The last line: the run drives cuda:0 only, so it used one card,
     whatever `torch.cuda.device_count()` says the machine shows."""
@@ -2005,6 +2376,8 @@ def main() -> int:
     flash = phase_flash_vs_plain(torch, dev)
     torch.cuda.empty_cache()
     add_launches(launches, phase_training(torch, dev))
+    torch.cuda.empty_cache()
+    add_launches(launches, phase_serving(torch, dev))
 
     kernels = [
         ("prefix_decode_attention", "prefix_decode_attention.cu",

@@ -21,10 +21,16 @@ Norms, embeddings, `gen_head.output_mlp_projector` (fc1), the aligners and
 the VQ decoder stay dense. The int4 forms fuse same-input projections as
 `INT4_FUSED_GROUPS` does (`qkv_proj`, or `k_v_proj` under GQA, and
 `gate_up_proj`); int8 keeps them split, as `quantize_lm_params` does.
+
+`int4_view(model)` is the dual-resident form of `quantize="auto"` (the
+counterpart of `quantize_lm_params_int4_shared`): a second model whose
+int4 targets are `Int4Linear` modules and whose every other module is the
+dense model's own object, so only the packed weights cost memory.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -247,3 +253,43 @@ def quantize_model_(model: nn.Module, mode: str) -> nn.Module:
             delattr(p, m)
         setattr(parent, name, mod)
     return model
+
+
+def _fresh_copy(mod: nn.Module) -> nn.Module:
+    """A shallow copy with its own `_modules` dict: replacing a child of the
+    copy leaves `mod` as it is (`copy.copy` alone shares the dict)."""
+    new = copy.copy(mod)
+    new._modules = dict(mod._modules)
+    return new
+
+
+@torch.no_grad()
+def int4_view(model: nn.Module, a8: bool = False) -> nn.Module:
+    """The int4 view of a dense `model` (module docstring): every module on
+    the path from the root to an int4 target is copied with its own child
+    dict, the target replaced there by an `Int4Linear` quantized from the
+    dense weight; every other module, with its parameters, is shared."""
+    if quant_form(model) is not None:
+        raise ValueError(f"the model is already {quant_form(model)}-quantized: "
+                         "the int4 view is built from the dense model")
+    names = {id(mod): name for name, mod in model.named_modules()}
+    view = _fresh_copy(model)
+    fresh = {"": view}
+
+    def in_view(path: str) -> nn.Module:
+        if path not in fresh:
+            parent_path, _, name = path.rpartition(".")
+            parent = in_view(parent_path)
+            fresh[path] = parent._modules[name] = _fresh_copy(parent._modules[name])
+        return fresh[path]
+
+    for parent, name, sources in targets(model, "int4_a8" if a8 else "int4"):
+        dense = [getattr(p, m) for p, m in sources]
+        w_io = torch.cat([d.weight for d in dense], dim=0).t()
+        bias = dense[0].bias if len(dense) == 1 else None
+        mod = Int4Linear.from_dense(w_io, a8=a8, bias=bias)
+        target = in_view(names[id(parent)])
+        for p, m in sources:
+            delattr(in_view(names[id(p)]), m)
+        setattr(target, name, mod)
+    return view

@@ -22,7 +22,11 @@ and replayed: one graph launch a step.
   3. `replay()` launches the graph on the current stream.
 
 Nothing falls back to eager: an operation that cannot be captured (a host
-read of a device value, a synchronisation) makes the capture raise.
+read of a device value, a synchronisation) makes the capture raise. The
+capture's error mode is `thread_local`: that check holds on the capturing
+thread, and another thread may wait on an event of its own meanwhile (the
+server's assembler waits for a batch's pixels while the device-owner
+thread captures the next batch's step).
 
 The kernel wrappers count their launches in Python, which runs at capture
 and not at replay. The capture's counts are taken back, and each replay adds
@@ -87,7 +91,7 @@ class StepGraph:
         with torch.cuda.stream(side):
             before = _counts()
             t0 = time.perf_counter()
-            graph.capture_begin()
+            graph.capture_begin(capture_error_mode="thread_local")
             try:
                 step()
             except BaseException:

@@ -9,21 +9,36 @@ the image) and `edit_image` (teacher-forced editing and removal).
 Host-side batch construction is the JAX package's processor (copied to
 `tasks/processor.py`); the device work is the embeds (text, or SigLIP
 features spliced into the text), the decode loops of `runtime/generate.py`
-and the VQ encode and decode.
+and the VQ encode and decode. Each `prepare_*` is split in two: `host_*`
+(tokenization and the CFG batch, numpy only, no CUDA call) and `embed_*`
+(the device work), so a server can run the first on any thread and the
+second on the one thread that owns the card.
 
 Quantized serving (`GenerationConfig.quantize`): 'int8', 'int4' and
 'int4_a8' quantize the model's matmuls in place at construction
 (`ops/quant.py::quantize_model_`, the counterpart of `tasks/eval.py::
-_apply_quantize`); 'int8_kv' keeps bf16 weights. All four decode over the
-int8 KV cache, text and image loops alike. A model that is already
-quantized keeps its form: with `quantize=None` the pipeline engages that
-form and the int8 cache, and any other mode raises, as the JAX package
-does.
+_apply_quantize`); 'int8_kv' keeps bf16 weights. 'auto' keeps the dense
+model and an int4 view of it (`model_int4`, built by `ops/quant.py::
+int4_view` when not given) that shares every module but the LM matmuls,
+and routes each whole call, prefill included, by its matmul rows
+(`_model_for`, the counterpart of `_params_for`): image generation by its
+CFG rows (2 x captions x parallel_size), the text decode by its batch; at
+<= `auto_int4_max_rows` rows the int4 view, above it the dense model. All
+five decode over the int8 KV cache, text and image loops alike. A model
+that is already quantized keeps its form: with `quantize=None` the
+pipeline engages that form and the int8 cache, and any other mode
+(`auto` included) raises, as the JAX package does.
+
+`defer_fetch` (set by the server) leaves the pixels' copy to the host
+queued: `_detokenize` enqueues a non-blocking copy into pinned host memory
+and records a CUDA event, and the images come back as `DeferredPixels`,
+which a consumer on another thread turns into an array by waiting on that
+event (`np.asarray`), without any other CUDA call.
 
 Options the port does not have yet raise `NotImplementedError` instead of
-being ignored: `quantize='auto'`, `kv_a8`, `speculative`, `fast_edit` and
-`jacobi`. As in the JAX pipeline, `gt_images` and `edit_region` take effect
-only with teacher forcing (the `teacher_forcing` argument, or
+being ignored: `kv_a8`, `speculative`, `fast_edit` and `jacobi`. As in the
+JAX pipeline, `gt_images` and `edit_region` take effect only with teacher
+forcing (the `teacher_forcing` argument, or
 `GenerationConfig.use_teacher_forcing` when it is None): the images are
 VQ-encoded and every token outside the region (`edit_region` 0, all of them
 by default) is forced to their codes. Without teacher forcing they are
@@ -42,7 +57,7 @@ import torch
 
 from plangen_tpu_torch.config import GenerationConfig, PlanGenModelConfig
 from plangen_tpu_torch.models.vlm import PlanGenModel
-from plangen_tpu_torch.ops.quant import MODES, quant_form, quantize_model_
+from plangen_tpu_torch.ops.quant import MODES, int4_view, quant_form, quantize_model_
 from plangen_tpu_torch.ops.sampling import Generators
 from plangen_tpu_torch.runtime.generate import generate_image_tokens, greedy_decode_text
 from plangen_tpu_torch.tasks.processor import PlanGenProcessor
@@ -51,7 +66,7 @@ from plangen_tpu_torch.text.grounding import truncate_grounding
 
 def _unsupported_options(gen: GenerationConfig) -> List[str]:
     names = []
-    if gen.quantize not in (None,) + MODES:
+    if gen.quantize not in (None, "auto") + MODES:
         names.append(f"quantize={gen.quantize!r}")
     for flag in ("kv_a8", "speculative", "fast_edit", "jacobi"):
         if getattr(gen, flag):
@@ -59,19 +74,35 @@ def _unsupported_options(gen: GenerationConfig) -> List[str]:
     return names
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def copy_seed(seed: int, copy: int) -> int:
+    """The generator seed of `copy` of a caption seeded `seed`: the seed
+    itself (mod 2**32, like the JAX package's per-row keys) for copy 0, a
+    splitmix64 mix of (seed, copy) for the others. The CPU generator
+    (mt19937) reads only a seed's low 32 bits, so copies must differ there
+    too; the card's (Philox) reads all 64."""
+    s = int(seed) & 0xFFFFFFFF
+    if copy == 0:
+        return s
+    x = (s + (copy << 32) + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
 def row_generators(
     seeds: Sequence[int], parallel_size: int, device
 ) -> List[torch.Generator]:
-    """One generator per image row: row r is copy r // B of caption r % B.
-
-    Copy 0 of a caption is seeded with its seed (mod 2**32, like the JAX
-    package's per-row keys); copy c > 0 with `seed + c * 2**32`, so copies
-    draw different streams and every stream depends only on (seed, copy)."""
+    """One generator per image row: row r is copy r // B of caption r % B,
+    seeded by `copy_seed`, so copies draw different streams and every
+    stream depends only on (seed, copy)."""
     out = []
     for c in range(parallel_size):
         for s in seeds:
             g = torch.Generator(device=device)
-            g.manual_seed((int(s) & 0xFFFFFFFF) + (c << 32))
+            g.manual_seed(copy_seed(s, c))
             out.append(g)
     return out
 
@@ -79,11 +110,43 @@ def row_generators(
 @dataclass
 class GenerationOutput:
     images: Optional[np.ndarray] = None  # [B*, H, W, 3]: float [-1, 1], or
-    # uint8 when GenerationConfig.output_uint8
+    # uint8 when GenerationConfig.output_uint8; DeferredPixels with defer_fetch
     image_tokens: Optional[np.ndarray] = None  # [B*, N] int32
     groundings: Optional[List[str]] = None  # layout strings (planned or given)
     texts: Optional[List[str]] = None  # decoded texts (mmu)
     edit_mask: Optional[np.ndarray] = None  # [B*, N] regen mask used (teacher forcing)
+
+
+class DeferredPixels:
+    """Pixels whose copy to pinned host memory was enqueued on the card,
+    with a CUDA event recorded after it; `np.asarray` waits on the event
+    (the one CUDA call a consumer makes) and returns the host array."""
+
+    def __init__(self, pixels: torch.Tensor):
+        self._host = torch.empty(pixels.shape, dtype=pixels.dtype, pin_memory=True)
+        self._host.copy_(pixels, non_blocking=True)
+        self._ready = torch.cuda.Event()
+        self._ready.record()
+
+    def __array__(self, dtype=None, copy=None):
+        self._ready.synchronize()
+        out = self._host.numpy()
+        return out if dtype is None else out.astype(dtype)
+
+
+@dataclass
+class HostImageGen:
+    """The host half of `prepare_layout_to_image` (numpy only): the CFG
+    dual batch's ids and mask and what the device half needs."""
+
+    cfg_ids: np.ndarray  # [2B*, L]
+    cfg_mask: np.ndarray  # [2B*, L + N]
+    groundings: List[str]
+    parallel_size: int
+    seed: Optional[int] = None
+    seeds: Optional[List[int]] = None
+    gt_images: Optional[np.ndarray] = None  # [B, H, W, 3] with teacher forcing
+    edit_mask: Optional[np.ndarray] = None  # [B*, N] int32, 1 = sample
 
 
 @dataclass
@@ -107,6 +170,7 @@ class PlanGenPipeline:
         model_cfg: PlanGenModelConfig,
         processor: PlanGenProcessor,
         gen_cfg: Optional[GenerationConfig] = None,
+        model_int4: Optional[PlanGenModel] = None,
     ):
         self.model = model
         self.cfg = model_cfg
@@ -120,7 +184,9 @@ class PlanGenPipeline:
             )
         have = quant_form(model)
         if have is None:
-            if gen.quantize is not None:
+            if gen.quantize == "auto":
+                model_int4 = int4_view(model) if model_int4 is None else model_int4
+            elif gen.quantize is not None:
                 quantize_model_(model, gen.quantize)
         elif gen.quantize is None:
             # a quantized model engages its own serving form, int8 cache
@@ -131,17 +197,34 @@ class PlanGenPipeline:
                 f"the model is already {have}-quantized but "
                 f"GenerationConfig.quantize={gen.quantize!r}"
             )
+        if model_int4 is not None and gen.quantize != "auto":
+            raise ValueError(f"model_int4 is the quantize='auto' form, but "
+                             f"GenerationConfig.quantize={gen.quantize!r}")
         self.gen = gen
+        self.model_int4 = model_int4
         embed = model.language_model.model.embed_tokens.weight
         self.device = embed.device
         self._dtype = embed.dtype  # the compute dtype, as the JAX pipeline's
         # the image-token grid is the VQ downsampling of the image (24 at 384px)
         self.grid = model_cfg.vision.image_size // model_cfg.vq.downsample_factor
 
+    # when True, `_detokenize` returns `DeferredPixels` on the card (module
+    # docstring); the server sets it
+    defer_fetch: bool = False
+
     @property
     def _quantized_cache(self) -> bool:
-        """Every quantized serving mode decodes over the int8 KV cache."""
-        return self.gen.quantize in MODES
+        """Every quantized serving mode decodes over the int8 KV cache,
+        'auto' on both of its routes."""
+        return self.gen.quantize in MODES + ("auto",)
+
+    def _model_for(self, n_rows: int) -> PlanGenModel:
+        """The model a call of `n_rows` matmul rows runs on: under 'auto'
+        the int4 view up to `auto_int4_max_rows`, the dense model above;
+        otherwise the one model."""
+        if self.model_int4 is not None and n_rows <= self.gen.auto_int4_max_rows:
+            return self.model_int4
+        return self.model
 
     def _ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(ids, dtype=np.int64)).to(self.device)
@@ -156,16 +239,22 @@ class PlanGenPipeline:
         vq = self.model.gen_vision_model
         grid = (self.grid, self.grid)
         if self.gen.output_uint8:
-            return vq.decode_code_uint8(tokens, grid).cpu().numpy()
-        return vq.decode_code(tokens, grid).float().cpu().numpy()
+            pixels = vq.decode_code_uint8(tokens, grid)
+        else:
+            pixels = vq.decode_code(tokens, grid).float()
+        if self.defer_fetch and pixels.is_cuda:
+            return DeferredPixels(pixels)
+        return pixels.cpu().numpy()
 
     # ------------------------------------------------------------------ plan
 
     def _text_decode(self, embeds: torch.Tensor, mask: torch.Tensor,
                      budget: int) -> torch.Tensor:
-        """Greedy text decode over the pipeline's cache form."""
+        """Greedy text decode over the pipeline's cache form, routed by its
+        rows."""
         return greedy_decode_text(
-            self.model, self.cfg, embeds, mask, self.proc.tok.special.eos_id,
+            self._model_for(int(embeds.shape[0])), self.cfg, embeds, mask,
+            self.proc.tok.special.eos_id,
             max_new_tokens=budget, quantized_cache=self._quantized_cache,
         )
 
@@ -173,14 +262,21 @@ class PlanGenPipeline:
         """Text -> layout grounding strings (task 'plan')."""
         return self.plan_from_prepared(self.prepare_plan(captions))
 
-    @torch.inference_mode()
     def prepare_plan(self, captions: Sequence[str]) -> Dict[str, Any]:
-        """Host half of `plan`: the stage-1 prompt batch, embedded on the
-        device."""
+        """The stage-1 prompt batch, embedded on the device."""
+        return self.embed_plan(self.host_plan(captions))
+
+    def host_plan(self, captions: Sequence[str]) -> Dict[str, Any]:
+        """Host half of `prepare_plan`: the stage-1 prompt ids and mask."""
         budget = self.gen.max_new_text_tokens
         ids, mask = self.proc.stage1_batch(list(captions), budget)
-        return {"embeds": self.model.embed_text(self._ids(ids)),
-                "mask": self._mask(mask), "budget": budget}
+        return {"ids": ids, "mask": mask, "budget": budget}
+
+    @torch.inference_mode()
+    def embed_plan(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        """Device half of `prepare_plan`."""
+        return {"embeds": self.model.embed_text(self._ids(host["ids"])),
+                "mask": self._mask(host["mask"]), "budget": host["budget"]}
 
     def plan_from_prepared(self, prep: Dict[str, Any]) -> List[str]:
         tokens = self._text_decode(prep["embeds"], prep["mask"], prep["budget"])
@@ -198,21 +294,33 @@ class PlanGenPipeline:
             self.prepare_understand(images, question)
         )
 
-    @torch.inference_mode()
     def prepare_understand(
         self, images: np.ndarray, question: Optional[str] = None
     ) -> Dict[str, Any]:
-        """Host half of `understand`: the mmu prompt batch and its embeds,
-        SigLIP features spliced into the image placeholders."""
+        """The mmu prompt batch and its embeds, SigLIP features spliced into
+        the image placeholders."""
+        return self.embed_understand(self.host_understand(images, question))
+
+    def host_understand(
+        self, images: np.ndarray, question: Optional[str] = None
+    ) -> Dict[str, Any]:
+        """Host half of `prepare_understand`: the mmu prompt batch."""
         budget = self.gen.max_new_text_tokens
         kwargs = {} if question is None else {"question": question}
         batch = self.proc.mmu_batch(images.shape[0], decode_budget=budget, **kwargs)
-        pixels = torch.as_tensor(np.asarray(images)).to(device=self.device,
-                                                         dtype=self._dtype)
-        seq_mask = torch.from_numpy(np.asarray(batch.images_seq_mask)).to(self.device)
-        embeds = self.model.prepare_inputs_embeds(self._ids(batch.input_ids), pixels,
+        return {"ids": batch.input_ids, "images": np.asarray(images),
+                "images_seq_mask": np.asarray(batch.images_seq_mask),
+                "mask": batch.attn_mask, "budget": budget}
+
+    @torch.inference_mode()
+    def embed_understand(self, host: Dict[str, Any]) -> Dict[str, Any]:
+        """Device half of `prepare_understand`."""
+        pixels = torch.as_tensor(host["images"]).to(device=self.device, dtype=self._dtype)
+        seq_mask = torch.from_numpy(host["images_seq_mask"]).to(self.device)
+        embeds = self.model.prepare_inputs_embeds(self._ids(host["ids"]), pixels,
                                                   seq_mask)  # in the model's dtype
-        return {"embeds": embeds, "mask": self._mask(batch.attn_mask), "budget": budget}
+        return {"embeds": embeds, "mask": self._mask(host["mask"]),
+                "budget": host["budget"]}
 
     def understand_from_prepared(self, prep: Dict[str, Any]) -> GenerationOutput:
         tokens = self._text_decode(prep["embeds"], prep["mask"], prep["budget"])
@@ -248,7 +356,6 @@ class PlanGenPipeline:
         )
         return self.execute_image_gen(prep)
 
-    @torch.inference_mode()
     def prepare_layout_to_image(
         self,
         captions: Sequence[str],
@@ -262,10 +369,32 @@ class PlanGenPipeline:
         parallel_size: Optional[int] = None,
         teacher_forcing: Optional[bool] = None,
     ) -> PreparedImageGen:
-        """Host half of `layout_to_image`: tokenization, the CFG dual batch,
-        its embedding on the device, the sampling generators and, with
-        teacher forcing, the VQ codes of `gt_images` and the regen mask,
-        replicated over `parallel_size`.
+        """The batch `execute_image_gen` decodes: `host_layout_to_image`,
+        then `embed_layout_to_image`."""
+        return self.embed_layout_to_image(self.host_layout_to_image(
+            captions, groundings,
+            neg_captions=neg_captions, neg_groundings=neg_groundings,
+            gt_images=gt_images, edit_region=edit_region,
+            seed=seed, seeds=seeds, parallel_size=parallel_size,
+            teacher_forcing=teacher_forcing,
+        ))
+
+    def host_layout_to_image(
+        self,
+        captions: Sequence[str],
+        groundings: Sequence[str],
+        neg_captions: Optional[Sequence[str]] = None,
+        neg_groundings: Optional[Sequence[str]] = None,
+        gt_images: Optional[np.ndarray] = None,
+        edit_region: Optional[np.ndarray] = None,
+        seed: Optional[int] = None,
+        seeds: Optional[Sequence[int]] = None,
+        parallel_size: Optional[int] = None,
+        teacher_forcing: Optional[bool] = None,
+    ) -> HostImageGen:
+        """Host half of `prepare_layout_to_image`: tokenization, the CFG
+        dual batch and, with teacher forcing, the regen mask, replicated
+        over `parallel_size`.
 
         `gt_images` / `edit_region` are ignored unless teacher forcing is on
         (`teacher_forcing`, or `gen.use_teacher_forcing` when it is None)."""
@@ -275,40 +404,60 @@ class PlanGenPipeline:
         cfg_ids, cfg_mask = self.proc.cfg_batch(
             ids, mask, neg_captions, neg_groundings, parallel_size=ps
         )
-        gt_tokens = regen = edit_mask_out = None
+        if seeds is not None and len(seeds) != len(captions):
+            raise ValueError(f"{len(seeds)} seeds for {len(captions)} captions")
         if teacher_forcing is None:
             teacher_forcing = self.gen.use_teacher_forcing
+        edit_mask = None
         if gt_images is not None and teacher_forcing:
-            pixels = torch.as_tensor(np.asarray(gt_images)).to(device=self.device,
-                                                                dtype=self._dtype)
-            gt_tok = self.model.gen_vision_model.encode_to_indices(pixels)
             if edit_region is None:
                 edit_region = np.zeros((len(captions), self.cfg.image_seq_len),
                                        dtype=np.int32)
             # copy c of caption b is row c * B + b, as the CFG batch's copies
-            gt_tokens = torch.cat([gt_tok] * ps, dim=0)
-            edit_mask_out = np.concatenate(
+            edit_mask = np.concatenate(
                 [np.asarray(edit_region, dtype=np.int32)] * ps, axis=0)
-            regen = torch.from_numpy(edit_mask_out).to(self.device)
-        embeds = self.model.embed_text(self._ids(cfg_ids))  # in the model's dtype
-        if seeds is not None:
-            if len(seeds) != len(captions):
-                raise ValueError(f"{len(seeds)} seeds for {len(captions)} captions")
-            generator = row_generators(seeds, ps, self.device)
+        else:
+            gt_images = None
+        return HostImageGen(
+            cfg_ids=cfg_ids, cfg_mask=cfg_mask, groundings=list(groundings),
+            parallel_size=ps, seed=seed,
+            seeds=None if seeds is None else [int(s) for s in seeds],
+            gt_images=None if gt_images is None else np.asarray(gt_images),
+            edit_mask=edit_mask,
+        )
+
+    @torch.inference_mode()
+    def embed_layout_to_image(self, host: HostImageGen) -> PreparedImageGen:
+        """Device half of `prepare_layout_to_image`: the embeds, the
+        sampling generators and, with teacher forcing, the VQ codes of the
+        images, replicated over `parallel_size`."""
+        ps = host.parallel_size
+        gt_tokens = regen = None
+        if host.gt_images is not None:
+            pixels = torch.as_tensor(host.gt_images).to(device=self.device,
+                                                        dtype=self._dtype)
+            gt_tok = self.model.gen_vision_model.encode_to_indices(pixels)
+            gt_tokens = torch.cat([gt_tok] * ps, dim=0)
+            regen = torch.from_numpy(host.edit_mask).to(self.device)
+        embeds = self.model.embed_text(self._ids(host.cfg_ids))  # in the model's dtype
+        if host.seeds is not None:
+            generator = row_generators(host.seeds, ps, self.device)
         else:
             generator = torch.Generator(device=self.device)
-            generator.manual_seed(self.gen.seed if seed is None else seed)
+            generator.manual_seed(self.gen.seed if host.seed is None else host.seed)
         return PreparedImageGen(
-            embeds=embeds, cfg_mask=self._mask(cfg_mask), generator=generator,
-            groundings=list(groundings), gt_tokens=gt_tokens, regen=regen,
-            edit_mask_out=edit_mask_out,
+            embeds=embeds, cfg_mask=self._mask(host.cfg_mask), generator=generator,
+            groundings=host.groundings, gt_tokens=gt_tokens, regen=regen,
+            edit_mask_out=host.edit_mask,
         )
 
     def execute_image_gen(self, prep: PreparedImageGen) -> GenerationOutput:
         """Device half of `layout_to_image`: the decode loop, then the VQ
         decode to pixels."""
+        # routed by the decode's matmul rows: the CFG dual of every image
         tokens = generate_image_tokens(
-            self.model, self.cfg, prep.embeds, prep.cfg_mask,
+            self._model_for(int(prep.embeds.shape[0])), self.cfg, prep.embeds,
+            prep.cfg_mask,
             generator=prep.generator,
             cfg_weight=self.gen.cfg_weight,
             temperature=self.gen.temperature,
@@ -317,9 +466,10 @@ class PlanGenPipeline:
             num_tokens=self.cfg.image_seq_len,
             quantized_cache=self._quantized_cache,
         )
+        image_tokens = tokens.cpu().numpy().astype(np.int32)
         return GenerationOutput(
             images=self._detokenize(tokens),
-            image_tokens=tokens.cpu().numpy().astype(np.int32),
+            image_tokens=image_tokens,
             groundings=prep.groundings,
             edit_mask=prep.edit_mask_out,
         )

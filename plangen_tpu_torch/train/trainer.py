@@ -10,10 +10,13 @@ step; log JSONL metrics; check the loss for non-finite values at the logging
 cadence (save and raise); save every `checkpointing_steps` with FIFO
 rotation; resume from the latest checkpoint; save at the end.
 
+Without `model=`, the weights come from `cfg.janus_path` (and the
+`cfg.finetune_path` overlay) through `convert/loading.py::load_params`, in
+fp32 masters, or are seeded random when it names none.
+
 Not ported, and raising `NotImplementedError`: gradient checkpointing,
-FSDP, a mesh of more than one device, LoRA, bf16 masters, weights loaded
-from `params_path` / `janus_path` / `finetune_path` (pass `model=`
-instead), and a `validate_fn`.
+FSDP, a mesh of more than one device, LoRA, bf16 masters, weights from an
+orbax `params_path`, and a `validate_fn`.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ import numpy as np
 import torch
 
 from plangen_tpu_torch.config import PlanGenConfig, validate_config
-from plangen_tpu_torch.text.tokenizer import load_tokenizer
 from plangen_tpu_torch.convert.from_jax import init_params
+from plangen_tpu_torch.convert.loading import load_params, load_tokenizer_for
 from plangen_tpu_torch.data.collate import collate_flows
 from plangen_tpu_torch.data.loader import BatchLoader, CombinedLoader, PrefetchLoader, infinite
 from plangen_tpu_torch.data.registry import get_dataset
@@ -51,9 +54,10 @@ def _check_supported(cfg: PlanGenConfig, model_given: bool) -> None:
         raise NotImplementedError("tuning_mode 'lora' is not ported")
     if tcfg.master_dtype != "float32":
         raise NotImplementedError(f"master_dtype {tcfg.master_dtype!r}: fp32 masters only")
-    if not model_given and (cfg.params_path or cfg.janus_path or cfg.finetune_path):
+    if not model_given and cfg.params_path:
         raise NotImplementedError(
-            "loading weights in the Trainer is not ported; pass model= instead")
+            f"params_path={cfg.params_path!r} is an orbax artifact of the JAX package; "
+            "point janus_path at the HF checkout, or pass model=")
 
 
 class Trainer:
@@ -71,14 +75,8 @@ class Trainer:
             device = "cuda"
         self.device = torch.device(device)
 
-        # without janus_path the tokenizer loader falls back to the
-        # byte-level tokenizer
-        self.tokenizer = load_tokenizer(
-            cfg.janus_path,
-            vocab_size=cfg.model.llama.vocab_size,
-            use_special_tokens=cfg.use_special_tokens,
-            use_numhw=cfg.use_numhw_tokens,
-        )
+        # without a tokenizer in janus_path, the byte-level fallback
+        self.tokenizer = load_tokenizer_for(cfg)
         self.processor = PlanGenProcessor(
             self.tokenizer,
             image_tokens=cfg.model.image_seq_len,
@@ -88,9 +86,10 @@ class Trainer:
 
         if model is None:
             model = PlanGenModel(cfg.model, dtype=torch.float32, device=self.device)
-            g = torch.Generator(device=self.device).manual_seed(tcfg.seed)
-            with torch.no_grad():
-                init_params(model, g)
+            if load_params(cfg, model=model) is None:
+                g = torch.Generator(device=self.device).manual_seed(tcfg.seed)
+                with torch.no_grad():
+                    init_params(model, g)
         self.model = model.to(device=self.device, dtype=torch.float32)
 
         opt, self.mask = make_optimizer(tcfg.optim, self.model, tcfg.tuning_mode)

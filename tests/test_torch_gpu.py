@@ -1023,3 +1023,151 @@ def test_host_read_in_a_text_step_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
     tokens = greedy_decode_text(model, cfg, embeds, mask, TEXT_EOS, max_new_tokens=n)
     assert tokens.shape == (3, n)
+
+
+# ------------------------------------------------------------- serving
+
+
+def _serving_cfg(**gen):
+    """The tiny head_dim-64 model as a full config for `build_pipeline`."""
+    from plangen_tpu_torch.config import GenerationConfig, PlanGenConfig
+
+    model = _tiny_d64()
+    model = dataclasses.replace(model, aligner=dataclasses.replace(model.aligner, n_embed=128))
+    return PlanGenConfig(model=model, generation=GenerationConfig(
+        max_new_text_tokens=8, output_uint8=True, **gen))
+
+
+def _post(base, path, payload):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, json.loads(r.read())
+
+
+class _Server:
+    """The port's batcher and HTTP server in-process on 127.0.0.1:0."""
+
+    def __init__(self, pipe, **kw):
+        import threading
+
+        from plangen_tpu_torch.serve import Batcher, make_server
+
+        pipe.defer_fetch = True
+        self.batcher = Batcher(pipe, **kw)
+        self.httpd = make_server(self.batcher, "127.0.0.1", 0)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.batcher.close()
+
+
+def test_build_pipeline_runs_on_the_card_by_default(cuda):
+    from plangen_tpu_torch.tasks.eval import build_pipeline
+
+    pipe = build_pipeline(_serving_cfg())
+    assert pipe.device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in pipe.model.parameters())
+    assert pipe.model.language_model.model.embed_tokens.weight.dtype == torch.bfloat16
+
+
+def test_server_answers_generate_and_plan_on_the_card(cuda):
+    import base64
+
+    from plangen_tpu_torch.tasks.eval import build_pipeline
+    from plangen_tpu_torch.utils.visualize import decode_png
+
+    pipe = build_pipeline(_serving_cfg())
+    server = _Server(pipe, max_batch=4, wait_ms=20.0)
+    try:
+        g = "<grounding><ref>a cat</ref><box>[100, 100, 600, 600]</box></grounding>"
+        code, out = _post(server.base, "/generate", {"caption": "a cat", "grounding": g,
+                                                     "seed": 3})
+        assert code == 200 and len(out["tokens"]) == pipe.cfg.image_seq_len
+        size = pipe.cfg.vision.image_size
+        assert decode_png(base64.b64decode(out["image_b64"])).shape == (size, size, 3)
+        code, plan = _post(server.base, "/plan", {"caption": "two dogs"})
+        assert code == 200 and plan["grounding"] == pipe.plan(["two dogs"])[0]
+    finally:
+        server.close()
+
+
+def test_concurrent_understand_and_generate_equal_one_by_one(cuda):
+    """Requests of two modes at once: the device-owner thread runs both
+    batches (each captures its graphs) while the other threads decode PNGs
+    and assemble; no capture fails, and the answers equal those of the same
+    requests served one at a time in the same bucket (min_batch 4)."""
+    import threading
+
+    from plangen_tpu_torch.serve import _png_b64
+    from plangen_tpu_torch.tasks.eval import build_pipeline
+
+    pipe = build_pipeline(_serving_cfg())
+    rs = np.random.RandomState(0)
+    size = pipe.cfg.vision.image_size
+    g = "<grounding><ref>a dog</ref><box>[50, 80, 700, 900]</box></grounding>"
+    requests = ([("/understand", {"image_b64": _png_b64(rs.randint(0, 256, (size, size, 3))
+                                                         .astype(np.uint8))}) for _ in range(3)]
+                + [("/generate", {"caption": f"scene {i}", "grounding": g, "seed": i})
+                   for i in range(3)])
+
+    def answer(out):
+        return out.get("grounding") if "tokens" not in out else out["tokens"]
+
+    server = _Server(pipe, max_batch=4, min_batch=4, wait_ms=50.0)
+    try:
+        together = [None] * len(requests)
+
+        def call(i):
+            together[i] = _post(server.base, *requests[i])
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads)
+        alone = [_post(server.base, *r) for r in requests]
+    finally:
+        server.close()
+    for (c1, o1), (c2, o2) in zip(together, alone):
+        assert c1 == c2 == 200, (o1, o2)
+        assert answer(o1) == answer(o2)
+
+
+def test_auto_routes_launch_k2_only_up_to_64_rows(cuda):
+    from plangen_tpu_torch.tasks.eval import build_pipeline
+
+    pipe = build_pipeline(_serving_cfg(quantize="auto"))
+    g = "<grounding><ref>cat</ref><box>[100, 100, 500, 500]</box></grounding>"
+    dense_calls = []
+    hooks = [m.register_forward_pre_hook(lambda *a: dense_calls.append(1))
+             for m in pipe.model.language_model.modules() if isinstance(m, torch.nn.Linear)]
+    try:
+        for n, int4 in ((32, True), (33, False)):
+            dense_calls.clear()
+            k2 = (im.int4_matmul_w16.launches, da.prefix_decode_attention_q8.launches,
+                  da.prefix_decode_attention.launches)
+            out = pipe.layout_to_image([f"cat {i}" for i in range(n)], [g] * n,
+                                       seeds=list(range(n)))
+            torch.cuda.synchronize()
+            launched = (im.int4_matmul_w16.launches - k2[0],
+                        da.prefix_decode_attention_q8.launches - k2[1],
+                        da.prefix_decode_attention.launches - k2[2])
+            assert out.image_tokens.shape == (n, pipe.cfg.image_seq_len)
+            steps, L = pipe.cfg.image_seq_len, pipe.cfg.llama.num_layers
+            assert launched[1] == steps * L and launched[2] == 0  # int8 cache on both
+            if int4:
+                assert launched[0] == steps * (4 * L + 1) and not dense_calls
+            else:
+                assert launched[0] == 0 and dense_calls
+    finally:
+        for h in hooks:
+            h.remove()

@@ -348,9 +348,12 @@ def test_prequantized_model_engages_its_form():
 
 
 @pytest.mark.parametrize("option", [
-    dict(quantize="auto"), dict(kv_a8=True, quantize="int4"),
+    dict(quantize="auto", fast_edit=True), dict(kv_a8=True, quantize="int4"),
 ], ids=["auto", "kv_a8"])
 def test_unported_quantized_options_raise(option):
+    """An unported option raises before the model is quantized (or, under
+    'auto', before its int4 view is built); 'auto' itself is ported
+    (tests/test_torch_auto_route.py)."""
     _, proc = _procs(GenerationConfig())
     model = _dense_model()
     with pytest.raises(NotImplementedError):
