@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run plangen_tpu_torch's layout-to-image, text, editing and training
-paths once on one NVIDIA card.
+"""Run plangen_tpu_torch's layout-to-image, text, editing, training,
+serving and evaluation paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -131,6 +131,27 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      rows) K2 and K1-q8 as `expected_launches` says and no dense LM matmul,
      at 33 (66 rows) no K2; the peak with both trees; and both routes
      timed at B = 4, 32, 48 (a warm call, then a timed one).
+
+  11. the evaluation path at Janus-Pro-1B width on the phase-4 model (run
+     after 4c): `tasks/eval.py::run_validation` over small datasets written
+     in the real formats (COCO val2017: the two annotation JSONs and 4 JPEGs
+     of unequal sizes; the COCO-200 removal and edit sets, 2 samples each;
+     NSR-1K, 4 records) for `uni` on COCO (batch 4, FID / KID over SigLIP
+     features), `uni_2stage` (1) and `mmu` (2) on COCO, `plan` on NSR-1K
+     (4), `rm` and `edit` on COCO-200 (2 each, `fast_edit` and teacher
+     forcing as scripts/run_infer.sh sets them): each call's file tree is
+     the JAX harness's, its layout JSONs parse, its metrics JSON has the
+     JAX keys, its K1 launches are 24 x the decode steps its tokens imply
+     (16 a mixed chunk under `fast_edit`), no plain call; then the `rm` and
+     `edit` batch through `edit_image` with and without `fast_edit`: bf16
+     (forced tokens equal the VQ codes; s/call of each, frozen chunks,
+     tokens that differ; one frozen chunk's forward timed on the host and,
+     profiled, on the device) and an fp32 copy of the model (bitwise
+     equal); the
+     SigLIP featurizer's s on 4 images; peak memory. Run it alone from the
+     checkout's root with `python3 -c "import torch, chip_smoke as cs;
+     cs.phase_build(); p, c = cs.build_pipeline(torch, torch.device('cuda:0'),
+     False); cs.phase_eval(torch, p, c)"`.
 
 The last two lines are a JSON object describing the kernels (each with its
 launches on the main path, error, time, plain time, the one-call
@@ -2277,6 +2298,378 @@ def phase_serving(torch, dev) -> dict:
     return add_launches(launches, auto_launches)
 
 
+# ------------------------------------------------------------ phase 11
+
+# COCO val2017 fixture: (image id, width, height, caption, [(category, x, y, w, h)])
+COCO_FIXTURE = (
+    (139, 640, 426, "a living room with a couch and a television",
+     [("couch", 30.0, 180.0, 320.0, 160.0), ("tv", 400.0, 120.0, 150.0, 110.0)]),
+    (285, 586, 640, "a brown bear standing in the grass",
+     [("bear", 60.0, 90.0, 460.0, 520.0)]),
+    (632, 640, 483, "a bedroom with a bed and a window",
+     [("bed", 20.0, 200.0, 560.0, 270.0), ("potted plant", 500.0, 60.0, 90.0, 160.0),
+      ("book", 300.0, 20.0, 40.0, 30.0)]),
+    (724, 375, 500, "a stop sign on a street corner",
+     [("stop sign", 100.0, 80.0, 180.0, 190.0)]),
+)
+# COCO-200 removal and edit fixture: (old box, new box, class), normalized xyxy
+COCO200_FIXTURE = (([0.25, 0.30, 0.70, 0.62], [0.40, 0.35, 0.90, 0.70], "dog"),
+                   ([0.10, 0.33, 0.55, 0.66], [0.20, 0.40, 0.60, 0.80], "chair"))
+# NSR-1K counting records: (prompt, [(name, [x, y, w, h])]), normalized
+NSR1K_FIXTURE = (
+    ("two apples on a table", [("apple", [0.1, 0.5, 0.2, 0.2]), ("apple", [0.6, 0.5, 0.2, 0.2])]),
+    ("a cat and a dog", [("cat", [0.05, 0.3, 0.4, 0.5]), ("dog", [0.5, 0.25, 0.45, 0.6])]),
+    ("three birds in the sky", [("bird", [0.1, 0.1, 0.1, 0.1]), ("bird", [0.4, 0.2, 0.1, 0.1]),
+                                ("bird", [0.7, 0.1, 0.1, 0.1])]),
+    ("a car", [("car", [0.2, 0.4, 0.6, 0.4])]),
+)
+
+
+def fixture_image(np, h: int, w: int, seed: int):
+    """Seeded uint8 [h, w, 3]: a smooth gradient with blocks of noise."""
+    rs = np.random.RandomState(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([255 * x / w, 255 * y / h, 128 + 0 * x], axis=-1)
+    img = img + rs.randint(-40, 40, size=(h // 8 + 1, w // 8 + 1, 3)).repeat(8, 0).repeat(8, 1)[:h, :w]
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_eval_fixtures(root) -> dict:
+    """Small datasets in the real formats under `root`, readable without HF
+    `datasets`: COCO val2017 (the two annotation JSONs and 4 JPEGs of unequal
+    sizes), the COCO-200 removal and edit sets (`image/`, `box/`,
+    `box_new/`, `mask/`, 2 samples) and NSR-1K counting (4 records).
+    Returns the config fields that point at them."""
+    import numpy as np
+    from PIL import Image
+
+    root = pathlib.Path(root)
+    (root / "coco" / "annotations").mkdir(parents=True, exist_ok=True)
+    (root / "coco" / "val2017").mkdir(exist_ok=True)
+    names = sorted({c for *_, objs in COCO_FIXTURE for c, *_ in objs})
+    cats = [{"id": i + 1, "name": n, "supercategory": "thing"} for i, n in enumerate(names)]
+    images, anns, caps = [], [], []
+    for k, (img_id, w, h, caption, objs) in enumerate(COCO_FIXTURE):
+        name = f"{img_id:012d}.jpg"
+        images.append({"id": img_id, "width": w, "height": h, "file_name": name})
+        Image.fromarray(fixture_image(np, h, w, k)).save(root / "coco" / "val2017" / name,
+                                                         quality=90)
+        caps.append({"id": 1000 + k, "image_id": img_id, "caption": caption})
+        for c, x, y, bw, bh in objs:
+            anns.append({"id": len(anns) + 1, "image_id": img_id, "bbox": [x, y, bw, bh],
+                         "category_id": names.index(c) + 1, "iscrowd": 0,
+                         "area": bw * bh})
+    with open(root / "coco" / "annotations" / "instances_val2017.json", "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+    with open(root / "coco" / "annotations" / "captions_val2017.json", "w") as f:
+        json.dump({"images": images, "annotations": caps}, f)
+
+    c200 = root / "coco200"
+    for sub in ("image", "box", "box_new", "mask"):
+        (c200 / sub).mkdir(parents=True, exist_ok=True)
+    for i, (old, new, cls) in enumerate(COCO200_FIXTURE):
+        Image.fromarray(fixture_image(np, 384, 384, 10 + i)).save(c200 / "image" / f"{i}.png")
+        mask = np.zeros((384, 384), dtype=np.uint8)
+        x1, y1, x2, y2 = (int(v * 384) for v in old)
+        mask[y1:y2, x1:x2] = 255
+        Image.fromarray(mask).save(c200 / "mask" / f"{i}.png")
+        with open(c200 / "box" / f"{i}.json", "w") as f:
+            json.dump({"obj_bbox": old, "obj_class": cls}, f)
+        with open(c200 / "box_new" / f"{i}.json", "w") as f:
+            json.dump({"obj_bbox": new, "obj_class": cls}, f)
+
+    (root / "nsr1k" / "counting").mkdir(parents=True, exist_ok=True)
+    with open(root / "nsr1k" / "counting" / "counting.val.json", "w") as f:
+        json.dump([{"prompt": p, "object_list": [[n, b] for n, b in objs]}
+                   for p, objs in NSR1K_FIXTURE], f)
+    return {"coco_root": str(root / "coco"), "coco_200_path": str(c200),
+            "nsr1k_path": str(root / "nsr1k")}
+
+
+# (task, data, batch size, batches, FID / KID over SigLIP features)
+EVAL_CALLS = (("uni", "coco", 4, 1, True), ("uni_2stage", "coco", 1, 1, False),
+              ("mmu", "coco", 2, 1, False), ("plan", "layout", 4, 1, False),
+              ("rm", "rm_coco", 2, 1, False), ("edit", "edit_coco", 2, 1, False))
+LAYOUT_METRIC_KEYS = ["count_match", "miou", "n_gt", "n_pred", "precision", "recall"]
+IMAGE_METRIC_KEYS = ["fid_siglip", "kid_siglip", "kid_siglip_std", "n_gt", "n_pr"]
+
+
+class RecordedTextDecodes:
+    """Records the token rows of every text decode any pipeline runs, by
+    wrapping `PlanGenPipeline._text_decode` while the `with` block lasts
+    (the harness builds its own pipeline, on its worker thread)."""
+
+    def __enter__(self):
+        from plangen_tpu_torch.tasks.pipeline import PlanGenPipeline
+
+        self.cls, self.inner, self.runs = PlanGenPipeline, PlanGenPipeline._text_decode, []
+
+        def record(pipe, *args, **kw):
+            tokens = self.inner(pipe, *args, **kw)
+            self.runs.append(tokens)
+            return tokens
+
+        PlanGenPipeline._text_decode = record
+        return self.runs
+
+    def __exit__(self, *exc):
+        self.cls._text_decode = self.inner
+
+
+def expected_eval_tree(ds, task: str, bs: int, n_batches: int, metrics: bool) -> set:
+    """The files the JAX harness (`plangen_tpu/tasks/eval.py`) writes for
+    these batches, relative to `<data>_<task>_<n>/`, at step 0."""
+    files = {"0_metrics.json"} if metrics else set()
+    for b in range(n_batches):
+        files.add(f"0_batch/{b}_layout.json")
+        if task in ("plan", "mmu"):
+            continue
+        files.add(f"0_batch/{b}.png")
+        for i in range(bs):
+            s = ds[b * bs + i]
+            files.add(f"0/pr_image/{b * bs + i}.png")
+            if s.image is not None:
+                files.add(f"0/gt_image/{b * bs + i}.png")
+            if s.image_id:
+                files.add(f"0/image_ids/{s.image_id}.jpg")
+                if s.image is not None:
+                    files.add(f"0/gt_image_ids/{s.image_id}.jpg")
+    return files
+
+
+def mixed_steps(regions) -> int:
+    """Decode steps `fast_edit` runs for a batch's regen mask: 16 for each
+    chunk not forced in every row."""
+    from plangen_tpu_torch.runtime.fast_edit import CHUNK, frozen_chunk_schedule
+
+    return CHUNK * sum(not frozen for frozen in frozen_chunk_schedule(regions))
+
+
+def edit_batch(ds, task: str, bs: int):
+    """The arguments `tasks/eval.py::_run_batch` gives `edit_image` for the
+    first batch of an rm / edit dataset."""
+    import numpy as np
+
+    samples = [ds[i] for i in range(bs)]
+    kw = {}
+    if task == "rm":
+        kw = dict(neg_captions=[s.neg_base_caption for s in samples],
+                  neg_groundings=[s.neg_gt_grounding for s in samples])
+    return ([s.base_caption for s in samples], [s.gt_grounding for s in samples],
+            np.stack([s.image for s in samples]), np.stack([s.edit_region for s in samples]),
+            kw)
+
+
+def phase_eval(torch, pipe, cfg) -> dict:
+    """[11] The evaluation path at Janus-Pro-1B width on the phase-4 model:
+    `tasks/eval.py::run_validation` over small datasets in the real formats
+    (`write_eval_fixtures`) for `uni` on COCO (4, FID / KID on SigLIP
+    features), `uni_2stage` (1), `mmu` (2) on COCO, `plan` on NSR-1K (4),
+    `rm` on COCO-200 removal and `edit` on COCO-200 editing (2 each, with
+    `fast_edit` and teacher forcing, as scripts/run_infer.sh sets them).
+    Each call writes the JAX harness's file tree, its layout JSONs parse,
+    its metrics JSON has the JAX keys, and its K1 launches are 24 x the
+    decode steps its tokens imply (16 per mixed chunk under `fast_edit`),
+    with no plain call. For `rm` and `edit` the same batch then runs
+    through the pipeline with and without `fast_edit`: in bf16 the forced
+    tokens equal the VQ codes and both are timed; on an fp32 copy of the
+    model the two are bitwise equal (bf16 rounds the 16-row forwards apart
+    from the loop's single rows, runtime/fast_edit.py). Returns the
+    launches."""
+    import tempfile
+
+    import numpy as np
+
+    from plangen_tpu_torch.config import PlanGenConfig, apply_overrides
+    from plangen_tpu_torch.data.registry import get_dataset
+    from plangen_tpu_torch.runtime.generate import text_decode_steps
+    from plangen_tpu_torch.tasks import eval as teval
+    from plangen_tpu_torch.tasks.image_metrics import SigLIPFeaturizer
+
+    dev, model, L = pipe.device, pipe.model, cfg.llama.num_layers
+    total = dict.fromkeys(kernel_counters(), 0)
+    numbers = {}
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="plangen_eval_") as tmp:
+        fields = write_eval_fixtures(pathlib.Path(tmp) / "data")
+        for task, data, bs, n_batches, image_metrics in EVAL_CALLS:
+            over = {**fields, "train.val_image_metrics": image_metrics}
+            if task in ("rm", "edit"):
+                over.update({"generation.use_teacher_forcing": True, "generation.fast_edit": True,
+                             "generation.use_neg_box": task == "rm",
+                             "generation.pad_edit_box": 0.1 if task == "edit" else 0.0})
+            ecfg = apply_overrides(PlanGenConfig(model=cfg), over)
+            ds = get_dataset(ecfg, data, is_test=True)
+            with RecordedTextDecodes() as runs:
+                results, seconds, launches, plain_calls, tc = counted(
+                    torch, dev, lambda: teval.run_validation(
+                        ecfg, task, data, n_batches, f"{tmp}/out", bs, model=model,
+                        device=dev))
+            eos = pipe.proc.tok.special.eos_id
+            text_steps = sum(text_decode_steps(t.cpu(), eos) for t in runs)
+            if task in ("rm", "edit"):
+                image_steps = mixed_steps(np.stack([ds[i].edit_region for i in range(bs)]))
+            else:
+                image_steps = 0 if task in ("plan", "mmu") else cfg.image_seq_len * n_batches
+            want = dict.fromkeys(launches, 0)
+            want["prefix_decode_attention"] = L * (text_steps + image_steps)
+            what = f"eval {task} on {data} ({n_batches} x {bs})"
+            check_launches("11", what, launches, want, plain_calls, tc)
+
+            base = pathlib.Path(tmp) / "out" / f"{data}_{task}_{n_batches}"
+            tree = {str(f.relative_to(base)) for f in base.rglob("*") if f.is_file()}
+            metrics = task in ("plan", "mmu") or image_metrics
+            check(tree == expected_eval_tree(ds, task, bs, n_batches, metrics),
+                  f"{what}: files {sorted(tree)}")
+            for b in range(n_batches):
+                layout = json.loads((base / "0_batch" / f"{b}_layout.json").read_text())
+                check(sorted(layout) == ["base_caption", "gt_grounding", "pr_grounding"]
+                      and all(len(v) == bs for v in layout.values()),
+                      f"{what}: layout JSON {layout}")
+            if metrics:
+                got = json.loads((base / "0_metrics.json").read_text())
+                keys = IMAGE_METRIC_KEYS if image_metrics else LAYOUT_METRIC_KEYS
+                check(sorted(got) == keys and all(np.isfinite(v) for v in got.values()),
+                      f"{what}: metrics {got}")
+                log(f"[11] {what}: metrics {json.dumps(got)}")
+            check(len(results) == n_batches, f"{what}: {len(results)} batches")
+            for out in results:
+                if task not in ("plan", "mmu"):
+                    imgs = out["pr_image"]
+                    size = cfg.vision.image_size
+                    check(imgs.shape == (bs, size, size, 3) and bool(np.isfinite(imgs).all()),
+                          f"{what}: images {imgs.shape}")
+            log(f"[11] {what}: {seconds:.3f} s for {n_batches} batch(es), {text_steps} text "
+                f"and {image_steps} image decode steps, {len(tree)} files")
+            numbers[task] = dict(seconds=seconds, text_steps=text_steps,
+                                 image_steps=image_steps, files=len(tree))
+            add_launches(total, launches)
+
+            if task in ("rm", "edit"):
+                numbers[task].update(fast_against_standard(torch, ecfg, model, ds, task, bs))
+
+        # the featurizer alone: SigLIP features of the 4 COCO images, twice
+        coco = get_dataset(apply_overrides(PlanGenConfig(model=cfg), fields), "coco", True)
+        images = np.stack([coco[i].image for i in range(len(coco))])
+        featurizer = SigLIPFeaturizer(model, cfg, batch_size=4)
+        for turn in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = featurizer(images)
+            torch.cuda.synchronize()
+            feat_s = time.perf_counter() - t0
+        check(feats.shape == (len(images), cfg.vision.width) and bool(np.isfinite(feats).all()),
+              f"featurizer: {feats.shape}")
+        log(f"[11] SigLIP featurizer on {len(images)} images: {feat_s:.3f} s (second call)")
+        numbers["featurizer_s"] = feat_s
+    numbers["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[11] peak device memory {numbers['peak_gib']:.2f} GiB")
+    log("[11] " + json.dumps(numbers))
+    return total
+
+
+def time_frozen_chunk(torch, pipe, batch) -> dict:
+    """One frozen chunk's Q = 16 forward over the batch's prefilled cache,
+    run eagerly as `fast_edit` runs it: host ms a forward (10 forwards,
+    synchronized), and from a profiled window of 5 the device kernel time
+    and kernels a forward (the window set apart from 2 padding forwards by
+    a 0.5 s idle gap, as the profiler loses records at a trace's end)."""
+    from plangen_tpu_torch.runtime.generate import start_image_loop
+
+    captions, groundings, images, regions, kw = batch
+    prep = pipe.prepare_layout_to_image(captions, groundings, gt_images=images,
+                                        edit_region=regions, teacher_forcing=True, **kw)
+    model, cfg = pipe._model_for(int(prep.embeds.shape[0])), pipe.cfg
+    with torch.inference_mode():
+        _, _, mask, cache, _ = start_image_loop(
+            model, cfg, prep.embeds, prep.cfg_mask, prep.generator, pipe.gen.cfg_weight,
+            pipe.gen.temperature, prep.gt_tokens, prep.regen, cfg.image_seq_len,
+            pipe._quantized_cache)
+        L = prep.embeds.shape[1]
+        embeds = model.gen_img_embeds(prep.gt_tokens[:, :16].repeat_interleave(2, 0))
+        embeds = embeds.to(prep.embeds.dtype)
+        positions = torch.arange(L, L + 16, dtype=torch.int32, device=embeds.device)
+
+        def forward():
+            model.language_model(embeds, mask, positions, cache)
+
+        for _ in range(3):
+            forward()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            forward()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                forward()
+            torch.cuda.synchronize()
+            time.sleep(0.5)
+            for _ in range(2):
+                forward()
+            torch.cuda.synchronize()
+    window = split_at_gaps(device_kernels(prof), 100e3)[0]
+    device_ms = sum(end - start for start, end, _ in window) / 5 / 1e3
+    log(f"[11] frozen-chunk forward ({prep.embeds.shape[0]} rows x 16 positions, eager): "
+        f"{host_ms:.2f} ms a forward on the host clock; device kernels "
+        f"{device_ms:.3f} ms and {len(window) / 5:.0f} kernels a forward (profiled)")
+    return {"frozen_chunk_host_ms": host_ms, "frozen_chunk_device_ms": device_ms,
+            "frozen_chunk_kernels": len(window) / 5}
+
+
+def fast_against_standard(torch, ecfg, model, ds, task: str, bs: int) -> dict:
+    """The first batch of `ds` through `edit_image` with `fast_edit` and
+    without, in bf16 (forced tokens equal the VQ codes; s/call of each) and
+    on an fp32 copy of the model (bitwise equal tokens)."""
+    import dataclasses
+
+    from plangen_tpu_torch.runtime.fast_edit import frozen_chunk_schedule
+    from plangen_tpu_torch.tasks import eval as teval
+
+    captions, groundings, images, regions, kw = edit_batch(ds, task, bs)
+    sched = frozen_chunk_schedule(regions)
+    std_cfg = dataclasses.replace(
+        ecfg, generation=dataclasses.replace(ecfg.generation, fast_edit=False))
+    keep = regions == 0
+    out = {"frozen_chunks": int(sum(sched)), "chunks": len(sched),
+           "regenerated": int((~keep).sum())}
+    fp32 = copy.deepcopy(model).float()
+    for label, m in (("bf16", model), ("fp32", fp32)):
+        tokens = {}
+        for name, c in (("fast", ecfg), ("standard", std_cfg), ("fast", ecfg)):
+            p = teval.build_pipeline(c, model=m, device=next(m.parameters()).device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = p.edit_image(captions, groundings, images, regions, **kw)
+            torch.cuda.synchronize()
+            out[f"{label}_{name}_s"] = time.perf_counter() - t0
+            tokens[name] = got.image_tokens
+        with torch.inference_mode():
+            vq = m.gen_vision_model
+            codes = vq.encode_to_indices(torch.from_numpy(images).to(
+                device=next(vq.parameters()).device,
+                dtype=next(vq.parameters()).dtype)).cpu().numpy()
+        for name, toks in tokens.items():
+            check(bool((toks[keep] == codes[keep]).all()),
+                  f"{task} {label} {name}: forced tokens differ from the VQ codes")
+        differ = tokens["fast"] != tokens["standard"]
+        out[f"{label}_differing_tokens"] = int(differ.sum())
+        if label == "bf16":
+            out.update(time_frozen_chunk(torch, p, (captions, groundings, images, regions, kw)))
+        log(f"[11] {task} {label}, {bs} images, {int(sum(sched))} of {len(sched)} chunks "
+            f"frozen: fast_edit {out[f'{label}_fast_s']:.3f} s/call (second call) against "
+            f"standard {out[f'{label}_standard_s']:.3f} ({out[f'{label}_standard_s'] / out[f'{label}_fast_s']:.2f}x); "
+            f"forced tokens all the VQ codes; {int(differ.sum())} of {int((~keep).sum())} "
+            "regenerated tokens differ between the two")
+    check(out["fp32_differing_tokens"] == 0,
+          f"{task} fp32: fast_edit and the standard loop differ in "
+          f"{out['fp32_differing_tokens']} tokens")
+    del fp32
+    torch.cuda.empty_cache()
+    return out
+
+
 def device_line(torch) -> dict:
     """The last line: the run drives cuda:0 only, so it used one card,
     whatever `torch.cuda.device_count()` says the machine shows."""
@@ -2345,6 +2738,7 @@ def main() -> int:
     phase_text_graphs(torch, pipe, cfg, "4d", CAPTIONS, more=True)
     for n in (4, 1):
         phase_graph_vs_eager(torch, pipe, cfg, "4c", n, GRAPH_TURNS)
+    add_launches(launches, phase_eval(torch, pipe, cfg))
 
     int4 = phase_int4_vs_plain(torch, dev)
     k1q8 = phase_k1_q8_vs_plain(torch, prompt_len, dev)

@@ -1,4 +1,5 @@
-"""Command line: serve, train and doctor, with dotted-key config overrides.
+"""Command line: serve, train, eval, metrics and doctor, with dotted-key
+config overrides.
 
 Port of `plangen_tpu/cli.py`. Configs are Python modules exporting
 `CONFIG: PlanGenConfig` (or a dict `OVERRIDES` applied to the default
@@ -11,11 +12,16 @@ A config module may build its `CONFIG` from the JAX package's
 `plangen_tpu.config` (the repo's `configs/*.py` do): `load_config` turns
 those dataclasses into the port's copies, which have the same fields.
 
-`serve` and `train` run on the card unless `--device` names another (`cpu`);
-without a card they exit non-zero. `doctor` reports torch, CUDA, the card,
-nvcc and the kernel builds. `eval`, `metrics`, `convert` and `export` are
-not ported and raise `NotImplementedError` naming what is missing; the JAX package's
-TPU probe and compile cache have no counterpart.
+`serve`, `train`, `eval` and `metrics` run on the card unless `--device`
+names another (`cpu`); without a card they exit non-zero. `eval` runs
+`tasks/eval.py::run_validation` (a task mode over a dataset, the artifact
+tree and its metrics); `metrics` computes FID / KID between two image
+directories. `train` validates on `train.test_data` every
+`train.validation_steps` steps (0 turns it off), as the JAX CLI does.
+`doctor` reports torch, CUDA, the card, nvcc and the kernel builds.
+`convert` and `export` are not ported and raise `NotImplementedError`
+naming what is missing; the JAX package's TPU probe and compile cache have
+no counterpart.
 """
 
 from __future__ import annotations
@@ -90,8 +96,48 @@ def cmd_train(args) -> None:
 
     device = _device(args)
     cfg = load_config(args.cfg, args.opt)
-    metrics = Trainer(cfg, device=device).fit(max_steps=args.max_steps)
+    trainer = Trainer(cfg, device=device)
+    # in-training validation at train.validation_steps (0 turns it off)
+    validate_fn = trainer.validate if cfg.train.validation_steps > 0 else None
+    metrics = trainer.fit(max_steps=args.max_steps, validate_fn=validate_fn)
     print(json.dumps({"final": metrics}))
+
+
+def cmd_eval(args) -> None:
+    from plangen_tpu_torch.tasks.eval import run_validation
+
+    device = _device(args)
+    cfg = load_config(args.cfg, args.opt)
+    run_validation(cfg, task_type=args.task, data_name=args.data, max_len=args.max_len,
+                   output_dir=args.output, device=device)
+
+
+def cmd_metrics(args) -> None:
+    """FID / KID between two image directories (the gt_image/ and pr_image/
+    trees an eval run writes), one JSON line keyed by the feature model:
+    the model's own SigLIP tower by default (relative comparison only), or
+    `--features torch:<path>`, a TorchScript feature module."""
+    from plangen_tpu_torch.tasks.image_metrics import (
+        fid_kid_from_features, load_image_dir, make_featurizer,
+    )
+
+    device = _device(args)
+    cfg = load_config(args.cfg, args.opt)
+    model = None
+    if args.features == "siglip":
+        # the featurizer reads only the vision tower: the weights, without
+        # the tokenizer or a serving form
+        from plangen_tpu_torch.tasks.eval import load_model
+
+        model = load_model(cfg, device).eval()
+    try:
+        feat, tag = make_featurizer(args.features, model, cfg.model, batch_size=args.batch,
+                                    size=args.feature_size, device=device)
+    except (ValueError, RuntimeError, OSError) as e:
+        sys.exit(f"metrics: {e}")
+    gt = feat(load_image_dir(args.gt_dir, limit=args.limit))
+    pr = feat(load_image_dir(args.pr_dir, limit=args.limit))
+    print(json.dumps(fid_kid_from_features(gt, pr, tag=tag)))
 
 
 def cmd_serve(args) -> None:
@@ -227,9 +273,36 @@ def main(argv=None) -> None:
     pd.add_argument("--no-build", action="store_true", help="skip building the kernels")
     pd.set_defaults(fn=cmd_doctor)
 
+    pe = sub.add_parser("eval", help="run a task-mode evaluation")
+    pe.add_argument("--cfg", default=None)
+    pe.add_argument("--opt", nargs="*", default=[])
+    pe.add_argument("--task", default="uni",
+                    choices=["uni", "uni_2stage", "mmu", "plan", "edit", "rm", "t2i"])
+    pe.add_argument("--data", default="toy")
+    pe.add_argument("--max-len", "--max_len", dest="max_len", type=int, default=20)
+    pe.add_argument("--output", default="out/eval")
+    pe.add_argument("--device", default=None, help="cuda (default) or cpu")
+    pe.set_defaults(fn=cmd_eval)
+
+    pm = sub.add_parser("metrics", help="FID/KID (SigLIP features) between two image dirs")
+    pm.add_argument("gt_dir", help="reference images (eval gt_image/ tree)")
+    pm.add_argument("pr_dir", help="generated images (eval pr_image/ tree)")
+    pm.add_argument("--cfg", default=None)
+    pm.add_argument("--opt", nargs="*", default=[])
+    pm.add_argument("--batch", type=int, default=16)
+    pm.add_argument("--limit", type=int, default=None,
+                    help="cap images per side (sorted filename order)")
+    pm.add_argument("--features", default="siglip",
+                    help="'siglip' (default, relative-only) or 'torch:<path>', an "
+                         "external TorchScript feature module (e.g. scripted "
+                         "pytorch-fid InceptionV3) for literature-comparable FID")
+    pm.add_argument("--feature-size", type=int, default=299,
+                    help="input resolution the torch: feature module expects "
+                         "(Inception pool3: 299)")
+    pm.add_argument("--device", default=None, help="cuda (default) or cpu")
+    pm.set_defaults(fn=cmd_metrics)
+
     for name, what in (
-        ("eval", "tasks/eval.py::run_validation"),
-        ("metrics", "tasks/image_metrics.py"),
         ("convert", "orbax artifacts need jax; the port loads HF checkouts directly"),
         ("export", "the export command; convert/export.py has the state-dict exporter"),
     ):

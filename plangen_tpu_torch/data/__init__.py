@@ -1,2 +1,4 @@
-"""Host-side training data: copies of the JAX package's jax-free data modules
-(`schema`, `toy`, `collate`, `loader`) and a registry that knows `toy`."""
+"""Host-side data: copies of the JAX package's jax-free data modules
+(`schema`, `toy`, `collate`, `loader`, `transforms` and the dataset loaders
+`coco`, `grit`, `layoutgpt`, `layoutsam`, `oim`), the port's own
+`preprocess`, and the registry with every name of the JAX one."""

@@ -65,6 +65,31 @@ def draw(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return (probs / noise).argmax(dim=-1)
 
 
+def skip_categorical(
+    n_rows: int,
+    vocab: int,
+    temperature: float,
+    generator: Generators,
+    device,
+) -> None:
+    """Advance `generator` as `sample_categorical` over [n_rows, vocab]
+    logits would, drawing nothing that is kept: the same `exponential_`
+    calls over tensors of the same shapes (a position whose token is forced
+    and whose logits are never computed still moves the stream, so the next
+    sampled position draws what it draws in the full loop). Temperature 0
+    draws nothing."""
+    if temperature == 0:
+        return
+    if isinstance(generator, torch.Generator):
+        shapes = [((n_rows, vocab), generator)]
+    else:
+        if len(generator) != n_rows:
+            raise ValueError(f"{len(generator)} generators for {n_rows} rows")
+        shapes = [((1, vocab), g) for g in generator]
+    for shape, g in shapes:
+        torch.empty(shape, dtype=torch.float32, device=device).exponential_(1, generator=g)
+
+
 def apply_teacher_forcing(
     sampled: torch.Tensor,  # [B]
     gt_tokens: torch.Tensor,  # [B] ground-truth VQ ids at this step

@@ -44,7 +44,7 @@ compare the two; the pipeline never sets it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -124,25 +124,22 @@ def image_decode_step(
     b.step.add_(1)
 
 
-@torch.inference_mode()
-def generate_image_tokens(
+def start_image_loop(
     model: PlanGenModel,
     cfg: PlanGenModelConfig,
-    cfg_embeds: torch.Tensor,  # [2B, L, H] interleaved cond/uncond prompt
-    attn_mask: torch.Tensor,  # [2B, L + num_tokens] pad mask (image region 1)
-    generator: Optional[Generators],  # one for the batch, or one per row
+    cfg_embeds: torch.Tensor,
+    attn_mask: torch.Tensor,
+    generator: Optional[Generators],
     cfg_weight: float,
     temperature: float,
-    gt_tokens: Optional[torch.Tensor] = None,  # [B, num_tokens] forced ids
-    regen_mask: Optional[torch.Tensor] = None,  # [B, num_tokens] 1 = sample
-    num_tokens: int = 576,
-    quantized_cache: bool = False,  # int8 KV cache with fp32 scales
-    eager: bool = False,  # on the card, the eager loop instead of the graph
-) -> torch.Tensor:
-    """Prefill + `num_tokens` KV-cached CFG decode steps; [B, N] int64 ids.
-
-    On CUDA tensors steps 1 .. N-1 replay a CUDA graph of one step, unless
-    `eager`; a step that cannot be captured raises."""
+    gt_tokens: Optional[torch.Tensor],
+    regen_mask: Optional[torch.Tensor],
+    num_tokens: int,
+    quantized_cache: bool,
+) -> Tuple[StepBuffers, Callable[[], None], torch.Tensor, KVCache, List[torch.Generator]]:
+    """The arguments checked, the cache allocated and prefilled, the step's
+    buffers: (buffers, the step as a closure, the zero-tailed mask, the
+    cache, every generator the step draws from)."""
     B2, L, _ = cfg_embeds.shape
     device = cfg_embeds.device
     if attn_mask.shape != (B2, L + num_tokens):
@@ -175,10 +172,35 @@ def generate_image_tokens(
         image_decode_step(model, buffers, mask, cache, cfg_weight, temperature, generator,
                           cfg_embeds.dtype, gt_tokens, regen_mask)
 
-    if device.type == "cuda" and not eager and num_tokens > 1:
+    generators = [] if temperature == 0 else (
+        [generator] if isinstance(generator, torch.Generator) else list(generator))
+    return buffers, step, mask, cache, generators
+
+
+@torch.inference_mode()
+def generate_image_tokens(
+    model: PlanGenModel,
+    cfg: PlanGenModelConfig,
+    cfg_embeds: torch.Tensor,  # [2B, L, H] interleaved cond/uncond prompt
+    attn_mask: torch.Tensor,  # [2B, L + num_tokens] pad mask (image region 1)
+    generator: Optional[Generators],  # one for the batch, or one per row
+    cfg_weight: float,
+    temperature: float,
+    gt_tokens: Optional[torch.Tensor] = None,  # [B, num_tokens] forced ids
+    regen_mask: Optional[torch.Tensor] = None,  # [B, num_tokens] 1 = sample
+    num_tokens: int = 576,
+    quantized_cache: bool = False,  # int8 KV cache with fp32 scales
+    eager: bool = False,  # on the card, the eager loop instead of the graph
+) -> torch.Tensor:
+    """Prefill + `num_tokens` KV-cached CFG decode steps; [B, N] int64 ids.
+
+    On CUDA tensors steps 1 .. N-1 replay a CUDA graph of one step, unless
+    `eager`; a step that cannot be captured raises."""
+    buffers, step, _, _, generators = start_image_loop(
+        model, cfg, cfg_embeds, attn_mask, generator, cfg_weight, temperature,
+        gt_tokens, regen_mask, num_tokens, quantized_cache)
+    if cfg_embeds.device.type == "cuda" and not eager and num_tokens > 1:
         # every generator the step draws from, so each replay draws afresh
-        generators = [] if temperature == 0 else (
-            [generator] if isinstance(generator, torch.Generator) else list(generator))
         eager_step(step)
         graph = StepGraph(step, generators)
         for _ in range(num_tokens - 1):

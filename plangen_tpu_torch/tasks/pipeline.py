@@ -35,8 +35,14 @@ and records a CUDA event, and the images come back as `DeferredPixels`,
 which a consumer on another thread turns into an array by waiting on that
 event (`np.asarray`), without any other CUDA call.
 
+With `fast_edit` and teacher forcing, `execute_image_gen` runs
+`runtime/fast_edit.py` (the 16-token chunks forced in every row as one
+forward each) on the route `_model_for` picks, with the raw schedule of the
+regen mask: the JAX pipeline canonicalizes it to bound its TPU compiles,
+which the port does not have; both schedules give the same tokens.
+
 Options the port does not have yet raise `NotImplementedError` instead of
-being ignored: `kv_a8`, `speculative`, `fast_edit` and `jacobi`. As in the
+being ignored: `kv_a8`, `speculative` and `jacobi`. As in the
 JAX pipeline, `gt_images` and `edit_region` take effect only with teacher
 forcing (the `teacher_forcing` argument, or
 `GenerationConfig.use_teacher_forcing` when it is None): the images are
@@ -59,6 +65,9 @@ from plangen_tpu_torch.config import GenerationConfig, PlanGenModelConfig
 from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.ops.quant import MODES, int4_view, quant_form, quantize_model_
 from plangen_tpu_torch.ops.sampling import Generators
+from plangen_tpu_torch.runtime.fast_edit import (
+    frozen_chunk_schedule, generate_image_tokens_fast_edit,
+)
 from plangen_tpu_torch.runtime.generate import generate_image_tokens, greedy_decode_text
 from plangen_tpu_torch.tasks.processor import PlanGenProcessor
 from plangen_tpu_torch.text.grounding import truncate_grounding
@@ -68,7 +77,7 @@ def _unsupported_options(gen: GenerationConfig) -> List[str]:
     names = []
     if gen.quantize not in (None, "auto") + MODES:
         names.append(f"quantize={gen.quantize!r}")
-    for flag in ("kv_a8", "speculative", "fast_edit", "jacobi"):
+    for flag in ("kv_a8", "speculative", "jacobi"):
         if getattr(gen, flag):
             names.append(f"{flag}=True")
     return names
@@ -455,17 +464,18 @@ class PlanGenPipeline:
         """Device half of `layout_to_image`: the decode loop, then the VQ
         decode to pixels."""
         # routed by the decode's matmul rows: the CFG dual of every image
-        tokens = generate_image_tokens(
-            self._model_for(int(prep.embeds.shape[0])), self.cfg, prep.embeds,
-            prep.cfg_mask,
-            generator=prep.generator,
-            cfg_weight=self.gen.cfg_weight,
-            temperature=self.gen.temperature,
-            gt_tokens=prep.gt_tokens,
-            regen_mask=prep.regen,
-            num_tokens=self.cfg.image_seq_len,
-            quantized_cache=self._quantized_cache,
-        )
+        model = self._model_for(int(prep.embeds.shape[0]))
+        kwargs = dict(generator=prep.generator, cfg_weight=self.gen.cfg_weight,
+                      temperature=self.gen.temperature, gt_tokens=prep.gt_tokens,
+                      regen_mask=prep.regen, num_tokens=self.cfg.image_seq_len,
+                      quantized_cache=self._quantized_cache)
+        if self.gen.fast_edit and prep.gt_tokens is not None:
+            tokens = generate_image_tokens_fast_edit(
+                model, self.cfg, prep.embeds, prep.cfg_mask,
+                schedule=frozen_chunk_schedule(prep.edit_mask_out), **kwargs)
+        else:
+            tokens = generate_image_tokens(model, self.cfg, prep.embeds, prep.cfg_mask,
+                                           **kwargs)
         image_tokens = tokens.cpu().numpy().astype(np.int32)
         return GenerationOutput(
             images=self._detokenize(tokens),

@@ -14,13 +14,20 @@ Without `model=`, the weights come from `cfg.janus_path` (and the
 `cfg.finetune_path` overlay) through `convert/loading.py::load_params`, in
 fp32 masters, or are seeded random when it names none.
 
+`fit(validate_fn=...)` calls `validate_fn(step, model)` every
+`train.validation_steps` steps, as the JAX loop calls it with the params;
+`validate` runs `tasks/eval.py::run_validation` on `train.test_data` for
+`train.val_max_len` batches on the trainer's own model (no reload), its
+metrics logged under `val/` keys.
+
 Not ported, and raising `NotImplementedError`: gradient checkpointing,
-FSDP, a mesh of more than one device, LoRA, bf16 masters, weights from an
-orbax `params_path`, and a `validate_fn`.
+FSDP, a mesh of more than one device, LoRA, bf16 masters, and weights from
+an orbax `params_path`.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
@@ -150,9 +157,11 @@ class Trainer:
         print(f"resumed from step {restored.step}")
         return restored.step
 
-    def fit(self, max_steps: Optional[int] = None, validate_fn=None) -> Dict[str, float]:
-        if validate_fn is not None:
-            raise NotImplementedError("in-training validation is not ported")
+    def fit(
+        self,
+        max_steps: Optional[int] = None,
+        validate_fn=None,  # callable(step, model) for the validation cadence
+    ) -> Dict[str, float]:
         tcfg = self.cfg.train
         max_steps = max_steps or tcfg.max_train_steps
         start = self.maybe_resume()
@@ -180,6 +189,40 @@ class Trainer:
                         f" (metrics: {metrics}); state checkpointed for post-mortem")
             if (step + 1) % tcfg.checkpointing_steps == 0:
                 self.ckpt.save(step + 1, self.state)
+            if validate_fn is not None and (step + 1) % tcfg.validation_steps == 0:
+                validate_fn(step + 1, self.model)
         if self.ckpt.latest_step() != max_steps:
             self.ckpt.save(max_steps, self.state)
         return last_metrics
+
+    def validate(self, step: int, model: Optional[PlanGenModel] = None,
+                 max_len: Optional[int] = None) -> None:
+        """Run the evaluation harness on `train.test_data` for `max_len`
+        (default `train.val_max_len`) batches with the trainer's model;
+        layout and image metrics go to the training log under `val/` keys.
+        The model is left in training mode; a `generation.quantize` form
+        that rewrites weights in place (int8, int4, int4_a8) runs on a copy."""
+        from plangen_tpu_torch.ops.quant import MODES
+        from plangen_tpu_torch.tasks.eval import run_validation
+
+        td = self.cfg.train.test_data
+        model = self.model if model is None else model
+        if self.cfg.generation.quantize in MODES and self.cfg.generation.quantize != "int8_kv":
+            model = copy.deepcopy(model)
+        was_training = model.training
+        try:
+            run_validation(
+                self.cfg,
+                task_type=td.task_type,
+                data_name=td.data_name,
+                max_len=self.cfg.train.val_max_len if max_len is None else max_len,
+                output_dir=os.path.join(self.cfg.train.output_dir, "val"),
+                batch_size=td.batch_size,
+                model=model,
+                global_step=step,
+                metrics_cb=lambda agg: self.logger.log(
+                    step, {f"val/{k}": v for k, v in agg.items()}),
+                device=self.device,
+            )
+        finally:
+            model.train(was_training)

@@ -1,13 +1,17 @@
-"""Pixels out: the uint8 contract and a PNG codec on zlib and numpy.
+"""Pixels out: the uint8 contract, a PNG codec on zlib and numpy, and the
+evaluation artifacts.
 
-Port of `plangen_tpu/utils/visualize.py::to_uint8` and `save_image`, and
-of the server's PNG encode and decode (`plangen_tpu/serve.py`), without
-Pillow. `encode_png` writes 8-bit gray or RGB, each row with the Sub
-filter. `decode_png` reads non-interlaced 8-bit gray, gray + alpha, RGB and
-RGBA with all five row filters, and returns RGB (gray replicated, alpha
-dropped, as Pillow's `convert("RGB")` does); any other PNG (palette,
-16-bit, interlaced) raises `ValueError` naming the limit. The layout
-drawing and image grids of the JAX module are not ported.
+Port of `plangen_tpu/utils/visualize.py` (`to_uint8`, `save_image`,
+`draw_layout`, `save_image_grid`) and of the server's PNG encode and decode
+(`plangen_tpu/serve.py`). `encode_png` writes 8-bit gray or RGB, each row
+with the Sub filter. `decode_png` reads non-interlaced 8-bit gray, gray +
+alpha, RGB and RGBA with all five row filters, and returns RGB (gray
+replicated, alpha dropped, as Pillow's `convert("RGB")` does); any other
+PNG (palette, 16-bit, interlaced) raises `ValueError` naming the limit.
+The server needs no Pillow. `save_image` writes `.png` files with
+`encode_png` and any other format (the evaluation's `.jpg` names) with
+Pillow, as the JAX module does; `draw_layout` and `save_image_grid` draw
+and tile with Pillow like the JAX ones.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -136,9 +141,67 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def save_image(image: np.ndarray, path: str) -> None:
-    """Write one image as a PNG file (the only format the port writes)."""
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"save_image writes PNG files only, got {path!r}")
+    """Write one image: a `.png` name through `encode_png`, any other
+    format Pillow knows by its extension."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(encode_png(image))
+    if path.lower().endswith(".png"):
+        with open(path, "wb") as f:
+            f.write(encode_png(image))
+        return
+    from PIL import Image
+
+    Image.fromarray(to_uint8(np.asarray(image))).save(path)
+
+
+_COLORS = [
+    (230, 60, 60),
+    (60, 140, 230),
+    (70, 190, 80),
+    (240, 170, 40),
+    (170, 80, 220),
+    (30, 200, 200),
+    (240, 110, 180),
+    (150, 150, 60),
+    (100, 100, 240),
+    (200, 120, 80),
+]
+
+
+def draw_layout(
+    image: np.ndarray,  # [H, W, 3] uint8 or float [-1, 1]
+    boxes: Sequence[Sequence[float]],  # normalized xyxy
+    labels: Optional[Sequence[str]] = None,
+) -> np.ndarray:
+    """Return a copy with box overlays + labels (uint8)."""
+    from PIL import Image, ImageDraw
+
+    image = to_uint8(np.asarray(image))
+    pil = Image.fromarray(image)
+    draw = ImageDraw.Draw(pil)
+    h, w = image.shape[:2]
+    for i, box in enumerate(boxes):
+        x1, y1, x2, y2 = box[0] * w, box[1] * h, box[2] * w, box[3] * h
+        color = _COLORS[i % len(_COLORS)]
+        draw.rectangle([x1, y1, x2, y2], outline=color, width=2)
+        if labels is not None and i < len(labels) and labels[i]:
+            text = labels[i][:40]
+            ty = max(0, y1 - 12)
+            draw.rectangle([x1, ty, x1 + 6 * len(text), ty + 12], fill=color)
+            draw.text((x1 + 1, ty), text, fill=(255, 255, 255))
+    return np.asarray(pil)
+
+
+def save_image_grid(
+    images: Sequence[np.ndarray], path: str, cols: Optional[int] = None
+) -> None:
+    """Tile images row-major (one row of all of them by default) and save."""
+    imgs = [to_uint8(np.asarray(im)) for im in images]
+    n = len(imgs)
+    cols = cols or n
+    rows = -(-n // cols)
+    h, w = imgs[0].shape[:2]
+    grid = np.full((rows * h, cols * w, 3), 255, dtype=np.uint8)
+    for i, im in enumerate(imgs):
+        r, c = divmod(i, cols)
+        grid[r * h : (r + 1) * h, c * w : (c + 1) * w] = im
+    save_image(grid, path)

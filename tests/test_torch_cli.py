@@ -2,15 +2,18 @@
 
   * `load_config` equals the JAX package's on the same arguments (config
     files of the repo, `--opt` overrides, dict flows);
-  * `serve` and `train` without a card exit non-zero; `serve --device cpu`
-    parses, builds the pipeline on the CPU in the serving form and hands
-    it to the server; `train --device cpu` takes a step;
+  * `serve`, `train`, `eval` and `metrics` without a card exit non-zero;
+    `serve --device cpu` parses, builds the pipeline on the CPU in the
+    serving form and hands it to the server; `train --device cpu` takes a
+    step; `eval --device cpu` writes the evaluation's artifact tree;
+    `metrics --device cpu` prints FID / KID between two image directories;
   * `--version`, `doctor`, and the commands not ported.
 """
 
 import dataclasses
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -98,7 +101,45 @@ def test_doctor_without_a_card_fails(monkeypatch, capsys):
     assert report["checks"]["config"]["ok"] is True
 
 
-@pytest.mark.parametrize("cmd", ["eval", "metrics", "convert", "export"])
+@pytest.mark.parametrize("cmd", ["convert", "export"])
 def test_commands_not_ported_raise(cmd):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main([cmd])
+
+
+@pytest.mark.parametrize("argv", [["eval"], ["metrics", "gt", "pr"]], ids=["eval", "metrics"])
+def test_eval_and_metrics_without_a_card_exit_non_zero(argv, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert e.value.code not in (0, None) and "--device cpu" in str(e.value.code)
+
+
+@pytest.mark.parametrize("task", ["plan", "uni"])
+def test_eval_on_the_cpu_writes_the_artifact_tree(task, tmp_path):
+    cli.main(["eval", "--device", "cpu", "--cfg", "configs/toy_smoke.py", "--task", task,
+              "--data", "toy", "--max_len", "1", "--output", str(tmp_path),
+              "--opt", "generation.max_new_text_tokens=4"])
+    base = tmp_path / f"toy_{task}_1"
+    layout = json.loads((base / "0_batch" / "0_layout.json").read_text())
+    assert len(layout["pr_grounding"]) == 2
+    assert (base / "0" / "pr_image" / "1.png").exists() == (task == "uni")
+    assert (base / "0_metrics.json").exists() == (task == "plan")
+
+
+def test_metrics_on_the_cpu_prints_fid_and_kid(tmp_path, capsys):
+    from plangen_tpu_torch.utils.visualize import save_image
+
+    rs = np.random.RandomState(0)
+    for side in ("gt", "pr"):
+        for i in range(3):
+            save_image(rs.randint(0, 256, (40, 40, 3)).astype(np.uint8),
+                       str(tmp_path / side / f"{i}.png"))
+    cli.main(["metrics", str(tmp_path / "gt"), str(tmp_path / "pr"), "--device", "cpu",
+              "--cfg", "configs/toy_smoke.py", "--batch", "2"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(out) == ["fid_siglip", "kid_siglip", "kid_siglip_std", "n_gt", "n_pr"]
+    assert out["n_gt"] == out["n_pr"] == 3.0 and np.isfinite(out["fid_siglip"])
+    with pytest.raises(SystemExit, match="unknown --features"):
+        cli.main(["metrics", str(tmp_path / "gt"), str(tmp_path / "pr"), "--device", "cpu",
+                  "--features", "inception"])

@@ -88,6 +88,10 @@ def test_registry_knows_toy_only():
     assert both[len(ds) + 1].image_id == "1"
     with pytest.raises(IndexError):
         both[2 * len(ds)]
-    for name in ("layoutsam", "hico_full", ["toy", "oim"]):
-        with pytest.raises(NotImplementedError):
+    # the real datasets are ported (tests/test_torch_datasets.py): an unknown
+    # name raises KeyError, a known one without its files FileNotFoundError
+    for name in ("layoutsam", ["toy", "nowhere"]):
+        with pytest.raises(KeyError):
             get_dataset(cfg, name)
+    with pytest.raises(FileNotFoundError):
+        get_dataset(cfg, "hico_full")

@@ -1171,3 +1171,100 @@ def test_auto_routes_launch_k2_only_up_to_64_rows(cuda):
     finally:
         for h in hooks:
             h.remove()
+
+
+# ------------------------------------------------------------- fast_edit
+
+
+# case: (model dtype, quantize)
+FAST_EDIT_CASES = {"bf16": (torch.bfloat16, None), "int4": (torch.bfloat16, "int4"),
+                   "fp32": (torch.float32, None)}
+
+
+@pytest.mark.parametrize("case", sorted(FAST_EDIT_CASES))
+def test_fast_edit_graph_equals_eager_and_the_full_loop(cuda, case):
+    """`generate_image_tokens_fast_edit` on the card (the mixed steps on the
+    graph, the frozen chunks eager between replays) against its eager run:
+    the same tokens bit for bit, the same launches, 24 x the mixed steps
+    of K1 or K1-q8; the forced tokens are the codes. Against the full graph
+    loop: in fp32 every token is equal; in bf16 and int4 the chunk before
+    the first frozen one is (the 16-row forward of a frozen chunk rounds
+    apart from the loop's single rows, runtime/fast_edit.py)."""
+    from plangen_tpu_torch.runtime.fast_edit import (
+        frozen_chunk_schedule, generate_image_tokens_fast_edit,
+    )
+
+    dtype, quantize = FAST_EDIT_CASES[case]
+    cfg = _tiny_d64()
+    model = init_params(PlanGenModel(cfg, dtype=dtype, device=cuda),
+                        torch.Generator(device=cuda).manual_seed(0)).eval()
+    if quantize is not None:
+        quantize_model_(model, quantize)
+    n = 64
+    embeds, mask = _graph_prompt(cuda, cfg, n)
+    embeds = embeds.to(dtype)
+    rs = np.random.RandomState(3)
+    gt = torch.from_numpy(rs.randint(0, cfg.image_token_size, (2, n))).to(cuda)
+    regen_np = np.zeros((2, n), np.int32)
+    regen_np[0, 3:9] = 1  # chunk 0 mixed, 1 frozen, 2 mixed, 3 frozen
+    regen_np[1, 36:40] = 1
+    regen = torch.from_numpy(regen_np).to(cuda)
+    schedule = frozen_chunk_schedule(regen_np)
+    assert schedule == (False, True, False, True)
+    q8 = quantize is not None
+
+    def run(fast, eager):
+        generator = [torch.Generator(device=cuda).manual_seed(s) for s in (5, 6)]
+        before = _loop_counts()
+        kw = dict(generator=generator, cfg_weight=5.0, temperature=1.0, gt_tokens=gt,
+                  regen_mask=regen, num_tokens=n, quantized_cache=q8, eager=eager)
+        if fast:
+            tokens = generate_image_tokens_fast_edit(model, cfg, embeds, mask,
+                                                     schedule=schedule, **kw)
+        else:
+            tokens = generate_image_tokens(model, cfg, embeds, mask, **kw)
+        torch.cuda.synchronize()
+        return tokens.cpu(), tuple(a - b for a, b in zip(_loop_counts(), before))
+
+    graph, graph_counts = run(fast=True, eager=False)
+    eager, eager_counts = run(fast=True, eager=True)
+    full, _ = run(fast=False, eager=False)
+    assert torch.equal(graph, eager) and graph_counts == eager_counts
+    assert graph_counts[1 if q8 else 0] == 32 * cfg.llama.num_layers
+    keep = regen_np == 0
+    assert torch.equal(graph[torch.from_numpy(keep)], gt.cpu()[torch.from_numpy(keep)])
+    if dtype == torch.float32:
+        assert torch.equal(graph, full)
+    else:
+        assert torch.equal(graph[:, :16], full[:, :16])
+
+
+def test_run_validation_on_one_coco_batch_on_the_card(cuda, tmp_path):
+    """`uni` over a COCO val2017 fixture on the card: the artifact tree,
+    FID / KID over SigLIP features, and K1 at every decode step."""
+    import importlib.util
+    import json
+    import pathlib
+
+    from plangen_tpu_torch.config import apply_overrides
+    from plangen_tpu_torch.tasks.eval import run_validation
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = _serving_cfg()
+    cfg = apply_overrides(cfg, {**smoke.write_eval_fixtures(tmp_path / "data"),
+                                "janus_hw": cfg.model.vision.image_size,
+                                "train.val_image_metrics": True})
+    before = da.prefix_decode_attention.launches
+    out = run_validation(cfg, "uni", "coco", 1, str(tmp_path / "out"), 4)
+    torch.cuda.synchronize()
+    assert da.prefix_decode_attention.launches - before == \
+        cfg.model.image_seq_len * cfg.model.llama.num_layers
+    base = tmp_path / "out" / "coco_uni_1"
+    assert len(list((base / "0" / "pr_image").iterdir())) == 4
+    assert len(list((base / "0" / "gt_image_ids").iterdir())) == 4
+    metrics = json.loads((base / "0_metrics.json").read_text())
+    assert sorted(metrics) == ["fid_siglip", "kid_siglip", "kid_siglip_std", "n_gt", "n_pr"]
+    assert out[0]["pr_image"].shape[0] == 4

@@ -135,8 +135,12 @@ def test_to_uint8_and_save_image_as_jax(tmp_path):
     save_image(x, str(tmp_path / "sub" / "a.png"))
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "sub" / "a.png")),
                                   jto_uint8(x))
-    with pytest.raises(ValueError, match="PNG"):
-        save_image(x, str(tmp_path / "a.jpg"))
+    # other formats through Pillow, byte for byte the JAX module's file
+    from plangen_tpu.utils.visualize import save_image as jsave_image
+
+    save_image(x, str(tmp_path / "a.jpg"))
+    jsave_image(x, str(tmp_path / "jax" / "a.jpg"))
+    assert (tmp_path / "a.jpg").read_bytes() == (tmp_path / "jax" / "a.jpg").read_bytes()
 
 
 # ---------------------------------------------------------------- preprocessing

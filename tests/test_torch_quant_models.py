@@ -348,7 +348,7 @@ def test_prequantized_model_engages_its_form():
 
 
 @pytest.mark.parametrize("option", [
-    dict(quantize="auto", fast_edit=True), dict(kv_a8=True, quantize="int4"),
+    dict(quantize="auto", speculative=True), dict(kv_a8=True, quantize="int4"),
 ], ids=["auto", "kv_a8"])
 def test_unported_quantized_options_raise(option):
     """An unported option raises before the model is quantized (or, under

@@ -452,7 +452,6 @@ def test_trainer_nonfinite_loss_checkpoints_and_raises(tmp_path):
     {"train.master_dtype": "bfloat16"},
     {"train.fused_lm_ce": True},
     {"params_path": "weights"},
-    {"train.train_data": (FlowConfig("uni", "layoutsam", 2),)},
 ], ids=lambda o: next(iter(o)))
 def test_trainer_unported_options_raise(tmp_path, override):
     from plangen_tpu_torch.train.trainer import Trainer
@@ -462,9 +461,12 @@ def test_trainer_unported_options_raise(tmp_path, override):
         Trainer(cfg, device="cpu").fit(max_steps=1)
 
 
-def test_trainer_validate_fn_raises(tmp_path):
+def test_trainer_unknown_dataset_raises(tmp_path):
+    """An unknown flow name raises KeyError, as the JAX registry does (the
+    real datasets are ported: tests/test_torch_datasets.py)."""
     from plangen_tpu_torch.train.trainer import Trainer
 
-    with pytest.raises(NotImplementedError):
-        Trainer(_toy_config(tmp_path), device="cpu").fit(max_steps=1,
-                                                         validate_fn=lambda *a: None)
+    cfg = apply_overrides(_toy_config(tmp_path),
+                          {"train.train_data": (FlowConfig("uni", "layoutsam", 2),)})
+    with pytest.raises(KeyError, match="unknown dataset"):
+        Trainer(cfg, device="cpu").fit(max_steps=1)
