@@ -153,6 +153,29 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      cs.phase_build(); p, c = cs.build_pipeline(torch, torch.device('cuda:0'),
      False); cs.phase_eval(torch, p, c)"`.
 
+  12. the training options (run after phase 9, its trainer freed), on the
+     recipe's flows over the `toy` data with K3 in every attention, each
+     run's kernel counts from 0: 12a step 0's forward + backward at
+     Janus-Pro-1B width without remat, with `full` and with `dots` (losses
+     and gradient norm within 2e-2 of none, K3's forward twice a call under
+     remat, backward once, peak memory of each); 12b LoRA (`lora_tokens`,
+     r 256, alpha 128, fp32 masters) 3 steps (every base weight
+     bit-for-bit unchanged, every adapter and embedding tensor moved; K3's
+     backward skips the frozen SigLIP), then `merge_lora` held in fp32
+     (step-0 logits within 1e-3) and a bf16 `plan` of the 4 captions
+     merged against adapters through the captured text step (equal tokens,
+     or the first differing step reported and its tokens checked for a
+     near-tie at the logit level); 12c Adafactor + bf16 masters +
+     accumulation 2 + fused CE + `dots`, 4 micro-steps (no parameter moves
+     between updates; the VQ frozen); 12d `janus_pro_7b()` width, stage3,
+     Adafactor + bf16 masters + `full` + fused CE, 3 steps (finite losses,
+     K3 counted, peak under the card's memory) beside a printed reckoning
+     of AdamW with fp32 masters at that width; s/step, positions/s, peak
+     and the model-FLOPs share of each. Run it alone from the checkout's
+     root with `python3 -c "import torch, chip_smoke as cs;
+     cs.phase_header(torch); cs.phase_build();
+     cs.phase_train_options(torch, torch.device('cuda:0'))"`.
+
 The last two lines are a JSON object describing the kernels (each with its
 launches on the main path, error, time, plain time, the one-call
 counterpart's time or null, and `bound_ms`: the least time the card could
@@ -1947,6 +1970,388 @@ def profile_step(torch, trainer, loader) -> None:
         f"{name[:70]} {t / 1e3:.2f} ms x{c}" for t, c, name in sorted(kernels, reverse=True)[:8]))
 
 
+# ------------------------------------------------ [12] the training options
+
+
+TRAIN_OPTION_FLOWS = (("uni", 3), ("mmu", 3), ("plan", 2))  # the recipe's flows
+LORA_STEPS = 3
+MERGE_TOL = 1e-3  # fp32 logits, merged weights against the adapters (phase 4's fp32 limit)
+ACCUM_MICRO_STEPS = 4  # = 2 updates at gradient_accumulation_steps 2
+STEPS_7B = 3
+
+
+def options_trainer(torch, dev, overrides: dict, model_cfg=None):
+    """A `Trainer` on the recipe's flows over the toy data, K3 on every
+    attention, stage3 unless `overrides` (train.* keys) says otherwise:
+    (trainer, its batch iterator, build seconds)."""
+    import tempfile
+
+    from plangen_tpu_torch.config import FlowConfig, PlanGenConfig, apply_overrides
+    from plangen_tpu_torch.data.loader import infinite
+    from plangen_tpu_torch.train.trainer import Trainer
+
+    base = PlanGenConfig() if model_cfg is None else PlanGenConfig(model=model_cfg)
+    cfg = apply_overrides(base, {
+        "train.tuning_mode": "stage3",
+        "train.train_data": tuple(FlowConfig(t, "toy", b) for t, b in TRAIN_OPTION_FLOWS),
+        "train.use_flash_attention": True,
+        "train.output_dir": tempfile.mkdtemp(prefix="plangen_options_"),
+        "train.num_workers": 0,
+        "train.prefetch_depth": 0,
+        **{f"train.{k}": v for k, v in overrides.items()},
+    })
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    trainer.logger.close()
+    return trainer, infinite(trainer.build_dataloader()), built
+
+
+def drop_trainer(torch, trainer) -> None:
+    import shutil
+
+    shutil.rmtree(trainer.cfg.train.output_dir, ignore_errors=True)
+    trainer.state = trainer.model = trainer.step_fn = None
+    torch.cuda.empty_cache()
+
+
+def k3_counts() -> tuple:
+    from plangen_tpu_torch.ops import flash_attention as fa
+
+    return (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
+            fa.flash_attention_fwd.routes["tensor_cores"],
+            fa.flash_attention_bwd.routes["tensor_cores"], fa.flash_attention_reference.calls)
+
+
+def check_k3(tag: str, what: str, before: tuple, calls: tuple, remat: bool) -> None:
+    """K3's calls since `before`, `calls` = (attentions, attentions that
+    need a gradient): the forward once per attention (twice under remat:
+    the recompute runs it again), the backward once per attention that
+    needs one, all on the tensor cores, no plain call."""
+    fwd, bwd, fwd_tc, bwd_tc, plain = (a - b for a, b in zip(k3_counts(), before))
+    want = (calls[0] * (2 if remat else 1), calls[1])
+    log(f"[{tag}] {what}: K3 forward/backward calls ({fwd}, {bwd}), on the tensor cores "
+        f"({fwd_tc}, {bwd_tc}), plain {plain}; expected {want}")
+    check((fwd, bwd) == want and (fwd_tc, bwd_tc) == want and plain == 0,
+          f"{what}: K3 calls ({fwd}, {bwd}) ({fwd_tc}, {bwd_tc} on the tensor cores, "
+          f"{plain} plain), expected {want} all on the tensor cores")
+
+
+def n_attention_calls(trainer) -> tuple:
+    """(K3 calls a step, those with a backward): SigLIP's 24 and each flow's
+    LLaMA layers; with the vision tower and the aligner frozen (the LoRA
+    modes) no gradient reaches SigLIP, and its attention has no backward."""
+    cfg = trainer.cfg.model
+    llama = len(trainer.flows) * cfg.llama.num_layers
+    into_siglip = any(trainer.mask[n] for n in trainer.mask
+                      if n.startswith(("vision_model", "aligner")))
+    return cfg.vision.layers + llama, llama + (cfg.vision.layers if into_siglip else 0)
+
+
+def timed_step(torch, tag: str, what: str, trainer, loader, remat: bool):
+    """One call of the trainer's step, its K3 calls checked: (metrics,
+    seconds, its batches)."""
+    import math
+
+    batches = trainer.device_batches(next(loader))
+    before = k3_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.state, metrics = trainer.step_fn(trainer.state, batches)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    metrics = {k: float(v) for k, v in metrics.items()}
+    log(f"[{tag}] {what}: {seconds:.3f} s, {json.dumps(metrics)}")
+    check(all(math.isfinite(v) for v in metrics.values()), f"{what}: non-finite loss")
+    check_k3(tag, what, before, n_attention_calls(trainer), remat)
+    return metrics, seconds, batches
+
+
+def report_rate(tag: str, trainer, batches, seconds: list, peak: int, label: str) -> None:
+    """s/step (the median after step 0), positions/s, the peak and the
+    model-FLOPs share, as phase 9 prints them."""
+    import statistics
+
+    s_step = statistics.median(seconds[1:]) if len(seconds) > 1 else seconds[0]
+    positions = sum(b["attn_mask"].numel() for b in batches.values())
+    flops, parts = train_flops(trainer.model, trainer.cfg.model, batches)
+    log(f"[{tag}] {label}: {s_step:.4f} s/step (median of steps 1-{len(seconds) - 1}; step 0 "
+        f"{seconds[0]:.3f} s), {positions / s_step:.1f} positions/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB; model FLOPs a step {flops / 1e12:.2f} T ({parts}), "
+        f"{flops / s_step / 1e12:.1f} TFLOP/s = {flops / s_step / PEAK_BF16_FLOPS:.3%} of "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16")
+
+
+def phase_remat(torch, dev) -> dict:
+    """[12a] Step 0's loss and gradient at Janus-Pro-1B width without remat,
+    with remat `full` and with `dots`, on the same weights and batch."""
+    import dataclasses
+    import math
+
+    from plangen_tpu_torch.train.step import make_loss_fn
+
+    trainer, loader, built = options_trainer(torch, dev, {})
+    model, mask, cfg = trainer.model, trainer.mask, trainer.cfg
+    batches = trainer.device_batches(next(loader))
+    n_calls = n_attention_calls(trainer)
+    reset_counters(kernel_counters())
+    pad_id = trainer.tokenizer.special.pad_id
+    ref = None
+    for policy in (None, "full", "dots"):
+        tcfg = dataclasses.replace(cfg.train, gradient_checkpointing=policy is not None,
+                                   remat_policy=policy or "full")
+        loss_fn = make_loss_fn(cfg.model, tcfg, pad_id, trainer.flows, trainable_mask=mask)
+        what = f"remat {policy or 'off'}"
+        seconds = []
+        for turn in range(2):  # the first turn warms up and gives the peak
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            if turn == 0:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                static = torch.cuda.memory_allocated()
+            before = k3_counts()
+            t0 = time.perf_counter()
+            loss, ld = loss_fn(model, batches)
+            loss.backward()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if turn == 0:
+                peak = torch.cuda.max_memory_allocated()
+            check_k3("12a", what, before, n_calls, policy is not None)
+        gnorm = math.sqrt(sum(float(torch.sum(p.grad.float() ** 2))
+                              for p in model.parameters() if p.grad is not None))
+        losses = {"loss": loss.item(), **{k: v.item() for k, v in ld.items()}}
+        log(f"[12a] {what}: forward + backward {seconds[1]:.3f} s (first turn "
+            f"{seconds[0]:.3f} s), peak device memory {peak / 2**30:.2f} GiB "
+            f"({(peak - static) / 2**30:.2f} GiB above the {static / 2**30:.2f} GiB of "
+            f"weights and optimizer state), gradient global norm {gnorm:.6e}, "
+            f"{json.dumps(losses)}")
+        if ref is None:
+            ref = (losses, gnorm)
+        else:
+            for k, v in losses.items():
+                check(abs(v - ref[0][k]) <= TRAIN_REL_TOL * abs(ref[0][k]),
+                      f"{what} {k}: {v} vs {ref[0][k]} without remat")
+            check(abs(gnorm - ref[1]) <= TRAIN_REL_TOL * ref[1],
+                  f"{what}: gradient norm {gnorm} vs {ref[1]} without remat")
+        del loss, ld
+        model.zero_grad(set_to_none=True)
+    log(f"[12a] Trainer built in {built:.2f} s; remat full and dots within "
+        f"{TRAIN_REL_TOL} of no remat; K3's forward twice a call under remat")
+    drop_trainer(torch, trainer)
+    return launch_counts()
+
+
+def prompt_logits(torch, model, ids, mask):
+    """The LM logits (fp32) at the last position of an uncached forward."""
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        embeds = model.embed_text(torch.from_numpy(ids.astype("int64")).to(dev))
+        hidden = model.language_model(embeds, torch.from_numpy(mask).to(dev))
+        return model.language_model.logits(hidden[:, -1]).float()
+
+
+def logit_divergence(torch, pipes, captions, a, b) -> None:
+    """The first step where the two pipelines' greedy tokens differ: each
+    model's fp32 logits at that step (the prompt and the common prefix,
+    uncached, in bf16 as the pipelines run) for the rows that differ,
+    reported, and the two tokens near-tied: a swap of the argmax needs the
+    gap between them within twice the models' largest logit difference
+    (plus bf16 noise: the uncached forward rounds apart from the decode)."""
+    import numpy as np
+
+    diff = np.argwhere(a != b)
+    col = int(diff[:, 1].min())
+    rows = sorted({int(r) for r, c in diff if c == col})
+    proc, dev = pipes[0].proc, pipes[0].device
+    ids, mask = proc.stage1_batch(captions, pipes[0].gen.max_new_text_tokens)
+    seq = np.concatenate([ids, a[:, :col]], axis=1).astype(np.int64)
+    seq_mask = np.concatenate([mask[:, :ids.shape[1]], np.ones((len(ids), col), np.int32)],
+                              axis=1)
+    la, lb = (prompt_logits(torch, pipe.model, seq, seq_mask).cpu().numpy() for pipe in pipes)
+    for r in rows:
+        ta, tb = int(a[r, col]), int(b[r, col])
+        d = float(np.abs(la[r] - lb[r]).max())
+        scale = float(np.abs(la[r]).max())
+        rel = float(np.linalg.norm(la[r] - lb[r]) / np.linalg.norm(la[r]))
+        gaps = (float(la[r, ta] - la[r, tb]), float(lb[r, tb] - lb[r, ta]))
+        log(f"[12b] row {r} first differs at step {col} of {a.shape[1]}: adapters {ta}, merged "
+            f"{tb}; their logit gaps {gaps[0]:.4f} (adapters) and {gaps[1]:.4f} (merged); the "
+            f"bf16 models' logits there: rel err {rel:.3e}, largest difference {d:.4f} of "
+            f"{scale:.2f}")
+        check(max(abs(g) for g in gaps) <= 2 * d + TRAIN_REL_TOL * scale,
+              f"row {r}: the tokens {ta} and {tb} are not near-tied ({gaps}, {d})")
+
+
+def phase_lora(torch, dev) -> dict:
+    """[12b] LoRA (`lora_tokens`, r 256, alpha 128, fp32 masters), 3 steps;
+    then `merge_lora` and a bf16 greedy `plan` of the 4 captions on the
+    merged model against the adapters, through the captured text step.
+    Returns the plan calls' launches."""
+    import numpy as np
+
+    from plangen_tpu_torch.train.lora import merge_lora
+
+    trainer, loader, built = options_trainer(
+        torch, dev, {"tuning_mode": "lora", "lora_rank": 256, "lora_alpha": 128})
+    model, mask = trainer.model, trainer.mask
+    check(trainer.tuning_mode == "lora_tokens", f"effective mode {trainer.tuning_mode}")
+    trainable = [n for n in mask if mask[n]]
+    check(all(".lora." in n or n.endswith("embed_tokens.weight") for n in trainable),
+          "trainable outside the adapters and the token embeddings")
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not mask[n]}
+    start = {n: p.detach().clone() for n, p in model.named_parameters() if mask[n]}
+    n_adapter = sum(p.numel() for n, p in model.named_parameters() if ".lora." in n)
+    log(f"[12b] Trainer built in {built:.2f} s: {len(trainable)} trainable tensors, "
+        f"{n_adapter / 1e6:.1f} M adapter parameters + the token embeddings")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(kernel_counters())
+    seconds = []
+    for step in range(LORA_STEPS):
+        _, s, batches = timed_step(torch, "12b", f"LoRA step {step}", trainer, loader, False)
+        seconds.append(s)
+    peak = torch.cuda.max_memory_allocated()
+    total = launch_counts()
+    moved = [n for n, p in model.named_parameters()
+             if not mask[n] and not torch.equal(p, frozen[n])]
+    check(not moved, f"base weights changed: {moved[:5]}")
+    still = [n for n in trainable if torch.equal(model.get_parameter(n), start[n])]
+    check(not still, f"trainable tensors unchanged: {still[:5]}")
+    log(f"[12b] after {LORA_STEPS} steps all {len(frozen)} base weights bit-for-bit unchanged, "
+        f"all {len(trainable)} adapter and embedding tensors changed")
+    report_rate("12b", trainer, batches, seconds, peak, "LoRA")
+    del frozen, start
+
+    cfg = trainer.cfg.model
+    trainer.state = None
+    lora_pipe, _ = build_pipeline(torch, dev, False, model=copy.deepcopy(model).to(
+        torch.bfloat16).eval(), cfg=cfg)
+    # merge_lora in fp32 at the logit level: the step-0 logits of the plan
+    # prompts, adapters against merged weights (fp32 rounding apart)
+    ids, mask = lora_pipe.proc.stage1_batch(CAPTIONS, lora_pipe.gen.max_new_text_tokens)
+    prompt = (ids, np.ascontiguousarray(mask[:, :ids.shape[1]]))
+    model.eval()
+    adapters = prompt_logits(torch, model, *prompt)
+    merge_lora(model)
+    check(not any(".lora." in n for n, _ in model.named_parameters()), "adapters left")
+    merged = prompt_logits(torch, model, *prompt)
+    rel = ((merged - adapters).norm() / adapters.norm()).item()
+    log(f"[12b] merge_lora in fp32: step-0 logits of the 4 plan prompts, merged against the "
+        f"adapters: rel err {rel:.3e} (limit {MERGE_TOL}), argmax agreement "
+        f"{(merged.argmax(-1) == adapters.argmax(-1)).float().mean().item():.3f}")
+    check(rel <= MERGE_TOL, f"merged against adapters: rel err {rel}")
+    merged_pipe, _ = build_pipeline(torch, dev, False, model=model.to(torch.bfloat16).eval(),
+                                    cfg=cfg)
+    drop_trainer(torch, trainer)
+    plan_len = lora_pipe.proc.stage1_batch(CAPTIONS, lora_pipe.gen.max_new_text_tokens)[0].shape[1]
+    tokens = []
+    for label, pipe in (("adapters", lora_pipe), ("merged", merged_pipe)):
+        _, toks, launches, _ = text_call(torch, pipe, cfg, "12b", f"bf16 plan, {label}",
+                                         lambda p=pipe: p.plan(CAPTIONS), len(CAPTIONS),
+                                         plan_len)
+        add_launches(total, launches)
+        tokens.append(toks)
+    if (tokens[0] == tokens[1]).all():
+        log("[12b] the merged model's plan tokens equal the adapters' on all 4 captions")
+    else:
+        logit_divergence(torch, (lora_pipe, merged_pipe), CAPTIONS, *tokens)
+    del lora_pipe, merged_pipe, model
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_adafactor(torch, dev) -> dict:
+    """[12c] Adafactor + bf16 masters + accumulation 2 + fused CE + remat
+    `dots` at Janus-Pro-1B width, stage3: 4 micro-steps = 2 updates."""
+    overrides = {"master_dtype": "bfloat16", "optim.optimizer": "adafactor",
+                 "optim.gradient_accumulation_steps": 2, "fused_lm_ce": True,
+                 "gradient_checkpointing": True, "remat_policy": "dots"}
+    trainer, loader, built = options_trainer(torch, dev, overrides)
+    model, mask = trainer.model, trainer.mask
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()), "masters not bf16")
+    log(f"[12c] Trainer built in {built:.2f} s: bf16 masters, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(kernel_counters())
+    seconds = []
+    for step in range(ACCUM_MICRO_STEPS):
+        snap = {n: p.detach().clone() for n, p in model.named_parameters()}
+        _, s, batches = timed_step(torch, "12c", f"micro-step {step}", trainer, loader, True)
+        seconds.append(s)
+        changed = [n for n, p in model.named_parameters() if not torch.equal(p, snap[n])]
+        elements = sum(int((p != snap[n]).sum()) for n, p in model.named_parameters())
+        update = (step + 1) % 2 == 0
+        log(f"[12c] micro-step {step} ({'an update' if update else 'accumulation only'}): "
+            f"{len(changed)} tensors changed, {elements} elements "
+            f"({elements / sum(p.numel() for p in model.parameters()):.2%})")
+        check(bool(changed) == update, f"micro-step {step}: {len(changed)} tensors changed")
+        check(not [n for n in changed if not mask[n]], "a frozen tensor changed")
+        del snap
+    check(trainer.state.opt.count == ACCUM_MICRO_STEPS // 2, "updates")
+    peak = torch.cuda.max_memory_allocated()
+    log("[12c] gen_vision_model bit-for-bit unchanged (frozen, checked every micro-step)")
+    report_rate("12c", trainer, batches, seconds, peak, "Adafactor + bf16 + accumulation")
+    launches = launch_counts()
+    drop_trainer(torch, trainer)
+    return launches
+
+
+def phase_7b(torch, dev) -> dict:
+    """[12d] Janus-Pro-7B width, stage3: Adafactor + bf16 masters + remat
+    `full` + fused CE, `STEPS_7B` steps."""
+    from plangen_tpu_torch.config import PlanGenModelConfig
+
+    overrides = {"master_dtype": "bfloat16", "optim.optimizer": "adafactor",
+                 "fused_lm_ce": True, "gradient_checkpointing": True, "remat_policy": "full"}
+    torch.cuda.reset_peak_memory_stats()
+    trainer, loader, built = options_trainer(torch, dev, overrides,
+                                             PlanGenModelConfig.janus_pro_7b())
+    model, mask = trainer.model, trainer.mask
+    total = sum(p.numel() for p in model.parameters())
+    trained = sum(p.numel() for n, p in model.named_parameters() if mask[n])
+    lm = trainer.cfg.model.llama
+    log(f"[12d] Janus-Pro-7B width ({lm.num_layers} x {lm.hidden_size}, MLP "
+        f"{lm.intermediate_size}): Trainer built in {built:.2f} s, {total / 1e9:.3f} B bf16 "
+        f"parameters, {trained / 1e9:.3f} B trainable (stage3), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    adamw = 4 * total + 4 * trained + 8 * trained + 2 * total
+    log(f"[12d] AdamW with fp32 masters at this width (not run): masters 4 B x {total / 1e9:.3f} B"
+        f" + gradients 4 B x {trained / 1e9:.3f} B + moments 8 B x {trained / 1e9:.3f} B + the "
+        f"bf16 compute copy 2 B x {total / 1e9:.3f} B = {adamw / 1e9:.1f} GB before activations, "
+        f"over the card's {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(kernel_counters())
+    seconds = []
+    for step in range(STEPS_7B):
+        _, s, batches = timed_step(torch, "12d", f"7B step {step}", trainer, loader, True)
+        seconds.append(s)
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < torch.cuda.get_device_properties(0).total_memory, "peak above the card")
+    report_rate("12d", trainer, batches, seconds, peak, "7B stage3")
+    launches = launch_counts()
+    drop_trainer(torch, trainer)
+    return launches
+
+
+def launch_counts() -> dict:
+    return {k: w.launches for k, (w, _) in kernel_counters().items()}
+
+
+def phase_train_options(torch, dev) -> dict:
+    """[12] The training options on the card (module docstring); returns
+    the launches of their runs, each counted from 0."""
+    launches = dict.fromkeys(kernel_counters(), 0)
+    log(f"[12] {nvidia_smi_line()}")
+    for run in (phase_remat, phase_lora, phase_adafactor, phase_7b):
+        add_launches(launches, run(torch, dev))
+        torch.cuda.empty_cache()
+    log(f"[12] {nvidia_smi_line()}")
+    return launches
+
+
 # ------------------------------------------------------------ [10] serving
 
 
@@ -2771,6 +3176,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     add_launches(launches, phase_training(torch, dev))
     torch.cuda.empty_cache()
+    add_launches(launches, phase_train_options(torch, dev))
     add_launches(launches, phase_serving(torch, dev))
 
     kernels = [

@@ -5,9 +5,9 @@ A copy of `export_state_dict` and the helpers it needs from
 package): linear [in, out] -> [out, in], conv HWIO -> OIHW, the
 layer-stacked [L, ...] LM / SigLIP arrays unstacked into per-layer keys, the
 HF `MultiModalityCausalLM` submodule names. Quantized trees are refused; a
-tree with LoRA adapters raises (the JAX package merges them first; the port
-has no LoRA). tests/test_torch_copies.py holds it key for key and array for
-array against the original.
+tree with LoRA adapters is merged first (`train/lora.py::merge_lora`, on the
+tree), as the original merges it. tests/test_torch_copies.py holds it key
+for key and array for array against the original.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ class _Emitter:
 
 
 def _check_dense(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Refuse quantized trees and trees with LoRA adapters."""
+    """Refuse quantized trees; merge LoRA adapters into the base weights."""
 
     def find_quant(node, path=""):
         if isinstance(node, dict):
@@ -80,9 +80,10 @@ def _check_dense(params: Dict[str, Any]) -> Dict[str, Any]:
             "generation.quantize unset, or `cli convert` WITHOUT --quantize)"
         )
     if "lora" in params.get("language_model", {}):
-        raise NotImplementedError(
-            "LoRA adapters are not ported: merge them into the base weights "
-            "before the export")
+        # the reference has no adapter concept: export the merged projections
+        from plangen_tpu_torch.train.lora import merge_lora
+
+        params = merge_lora(params)
     return params
 
 

@@ -14,6 +14,10 @@ keys) produced: the quantized leaves go into the quantized modules of
 `ops/quant.py` as they are, unstacked per layer, and the dense rest goes
 through `load_jax_params`' exporter.
 
+Either carries a `language_model/lora` subtree across as it is: the
+adapters go into the model's LoRA modules (`train/lora.py`; added when the
+model has none), unmerged, so that both sides compute the same thing.
+
 `init_params` fills a model with seeded random weights at the JAX `init`
 scales, for runs at full width without a checkpoint.
 """
@@ -38,6 +42,30 @@ from plangen_tpu_torch.ops.quant import (
 SKIPPED_PREFIXES: tuple = ()
 
 
+def _split_lora(model: nn.Module, params_np: Dict[str, Any]):
+    """(the tree without `language_model/lora`, the adapters' state-dict
+    entries); the model gets adapters of the tree's rank if it has none."""
+    lm = params_np["language_model"]
+    if "lora" not in lm:
+        return params_np, {}
+    from plangen_tpu_torch.train.lora import TARGETS, add_lora, has_lora
+
+    lm = dict(lm)
+    lora = lm.pop("lora")
+    scaling = float(np.asarray(lora["scaling"]))
+    rank = np.shape(lora[TARGETS[0]]["a"])[-1]
+    if not has_lora(model):
+        add_lora(model, rank, scaling * rank)
+    entries = {"language_model.model.lora_scaling": torch.tensor(scaling)}
+    for t in TARGETS:
+        for ab in ("a", "b"):
+            stacked = np.asarray(lora[t][ab], dtype=np.float32)
+            for i in range(stacked.shape[0]):
+                key = f"language_model.model.layers.{i}.self_attn.lora.{t}.{ab}"
+                entries[key] = torch.from_numpy(stacked[i].copy())
+    return {**params_np, "language_model": lm}, entries
+
+
 def load_jax_params(
     model: nn.Module, params_np: Dict[str, Any], cfg: PlanGenModelConfig
 ) -> List[str]:
@@ -48,13 +76,14 @@ def load_jax_params(
     cast to each parameter's dtype on copy."""
     from plangen_tpu_torch.convert.export import export_state_dict
 
+    params_np, lora = _split_lora(model, params_np)
     sd = export_state_dict(params_np, cfg)
     skipped = sorted(k for k in sd if k.startswith(SKIPPED_PREFIXES))
     kept = {
         k: torch.from_numpy(np.array(v, dtype=np.float32))
         for k, v in sd.items() if not k.startswith(SKIPPED_PREFIXES)
     }
-    model.load_state_dict(kept, strict=True)
+    model.load_state_dict({**kept, **lora}, strict=True)
     return skipped
 
 
@@ -93,6 +122,7 @@ def load_jax_quantized_params(
     from plangen_tpu_torch.convert.export import export_state_dict
 
     form = jax_quant_form(params_np)
+    params_np, lora = _split_lora(model, params_np)
     have = quant_form(model)
     if have is None:
         quantized_structure_(model, form)
@@ -150,7 +180,7 @@ def load_jax_quantized_params(
             if name == "a8":
                 continue  # the form, checked above
             kept[f"{path}.{name}"] = _tensor(arr)
-    model.load_state_dict(kept, strict=True)
+    model.load_state_dict({**kept, **lora}, strict=True)
     return skipped
 
 

@@ -29,6 +29,15 @@ step reads through the int8-cache kernel K1-q8.
 `ops/quant.py::quantize_model_` may replace the projections by quantized
 modules, with same-input projections fused (`qkv_proj`, `k_v_proj`,
 `gate_up_proj`); the layer slices the fused outputs as the JAX layer does.
+
+LoRA (`train/lora.py::add_lora`): each attention may hold adapters
+`self_attn.lora.<q|k|v|o>_proj.{a [in, r], b [r, out]}` and the model one
+`lora_scaling` (alpha / r); the delta `((x @ a) @ b) * scaling` is added to
+the projection's output, dense or quantized, with or without a cache, as
+the JAX layer adds `_lora_delta`.
+
+`remat` (training, no cache) runs each layer under `ops/remat.py`, as the
+JAX package wraps its layer-scan body in `jax.checkpoint`.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from plangen_tpu_torch.ops.decode_attention import (
     prefix_decode_attention, prefix_decode_attention_q8,
 )
 from plangen_tpu_torch.ops.flash_attention import flash_attention
+from plangen_tpu_torch.ops.remat import Remat, remat_call
 
 KVCache = Dict[str, torch.Tensor]
 
@@ -112,6 +122,18 @@ class LlamaMLP(nn.Module):
         return self.down_proj(gate * up)
 
 
+class LoRAPair(nn.Module):
+    """One projection's adapters, in the JAX layout: a [in, r], b [r, out]."""
+
+    def __init__(self, in_dim: int, out_dim: int, rank: int, dtype=None, device=None):
+        super().__init__()
+        self.a = nn.Parameter(torch.zeros((in_dim, rank), dtype=dtype, device=device))
+        self.b = nn.Parameter(torch.zeros((rank, out_dim), dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor, scaling: torch.Tensor) -> torch.Tensor:
+        return ((x @ self.a) @ self.b) * scaling
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=None, device=None):
         super().__init__()
@@ -120,19 +142,33 @@ class LlamaAttention(nn.Module):
         self.k_proj = _linear(h, cfg.kv_dim, dtype, device)
         self.v_proj = _linear(h, cfg.kv_dim, dtype, device)
         self.o_proj = _linear(cfg.q_dim, h, dtype, device)
+        self.lora: Optional[nn.ModuleDict] = None  # {target: LoRAPair}, add_lora
 
-    def qkv(self, x: torch.Tensor, cfg: LlamaConfig):
-        """Flat q, k, v projections of x, from the split or fused modules."""
+    def qkv(self, x: torch.Tensor, cfg: LlamaConfig, scaling=None):
+        """Flat q, k, v projections of x, from the split or fused modules,
+        each with its LoRA delta when the layer has adapters."""
         if hasattr(self, "qkv_proj"):  # fused int4 triple (MHA)
             qkv = self.qkv_proj(x)
             qd, kd = cfg.q_dim, cfg.kv_dim
-            return qkv[..., :qd], qkv[..., qd:qd + kd], qkv[..., qd + kd:]
-        q = self.q_proj(x)
-        if hasattr(self, "k_v_proj"):  # GQA: only k|v fuse
+            q, k, v = qkv[..., :qd], qkv[..., qd:qd + kd], qkv[..., qd + kd:]
+        elif hasattr(self, "k_v_proj"):  # GQA: only k|v fuse
+            q = self.q_proj(x)
             kv = self.k_v_proj(x)
             kd = kv.shape[-1] // 2
-            return q, kv[..., :kd], kv[..., kd:]
-        return q, self.k_proj(x), self.v_proj(x)
+            k, v = kv[..., :kd], kv[..., kd:]
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        if self.lora is None:
+            return q, k, v
+        lora = self.lora
+        return (q + lora["q_proj"](x, scaling), k + lora["k_proj"](x, scaling),
+                v + lora["v_proj"](x, scaling))
+
+    def out(self, x: torch.Tensor, attn: torch.Tensor, scaling=None) -> torch.Tensor:
+        """The residual x plus o_proj of the attention output (and its LoRA
+        delta)."""
+        x = x + self.o_proj(attn)
+        return x if self.lora is None else x + self.lora["o_proj"](attn, scaling)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -157,12 +193,13 @@ class LlamaDecoderLayer(nn.Module):
         cache: Optional[KVCache] = None,
         layer_idx: int = 0,
         flash_mask: Optional[torch.Tensor] = None,  # [B, Q]: no cache, flash kernel
+        lora_scaling: Optional[torch.Tensor] = None,  # alpha / r, with adapters
     ) -> torch.Tensor:
         cfg = self.cfg
         B, Q, _ = x.shape
         attn_in = self.input_layernorm(x)
         sa = self.self_attn
-        q, k, v = sa.qkv(attn_in, cfg)
+        q, k, v = sa.qkv(attn_in, cfg, lora_scaling)
         q = q.reshape(B, Q, cfg.num_heads, cfg.head_dim)
         k = k.reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
         v = v.reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
@@ -187,7 +224,7 @@ class LlamaDecoderLayer(nn.Module):
                 )
             else:
                 attn = dot_product_attention(q, k_layer, v_layer, bias=bias)
-        x = x + sa.o_proj(attn.reshape(B, Q, cfg.q_dim))
+        x = sa.out(x, attn.reshape(B, Q, cfg.q_dim), lora_scaling)
         return x + self.mlp(self.post_attention_layernorm(x))
 
     @staticmethod
@@ -219,6 +256,7 @@ class LlamaModel(nn.Module):
             LlamaDecoderLayer(cfg, dtype, device) for _ in range(cfg.num_layers)
         )
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype, device)
+        self.lora_scaling: Optional[nn.Parameter] = None  # 0-d alpha / r, add_lora
 
     def forward(
         self,
@@ -227,6 +265,7 @@ class LlamaModel(nn.Module):
         positions: Optional[torch.Tensor] = None,  # [Q] absolute positions
         kv_cache: Optional[KVCache] = None,  # written in place
         use_flash: bool = False,  # the flash kernel on the no-cache path
+        remat: Remat = False,  # no cache: each layer under ops/remat.py
     ) -> torch.Tensor:
         """Run the decoder stack (final RMSNorm applied, no head).
 
@@ -255,8 +294,10 @@ class LlamaModel(nn.Module):
             bias = make_causal_bias(attn_mask, positions, kv_positions)
         cos, sin = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
         x = inputs_embeds
+        remat = remat if kv_cache is None else False
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, bias, positions, attn_mask, kv_cache, i, flash_mask)
+            x = remat_call(layer, remat, x, cos, sin, bias, positions, attn_mask, kv_cache,
+                           i, flash_mask, self.lora_scaling)
         return self.norm(x)
 
 
@@ -274,5 +315,5 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(hidden).float()
 
     def forward(self, inputs_embeds, attn_mask, positions=None, kv_cache=None,
-                use_flash=False):
-        return self.model(inputs_embeds, attn_mask, positions, kv_cache, use_flash)
+                use_flash=False, remat: Remat = False):
+        return self.model(inputs_embeds, attn_mask, positions, kv_cache, use_flash, remat)

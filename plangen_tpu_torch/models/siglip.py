@@ -11,7 +11,8 @@ Images come in NHWC (the JAX package's layout) and are made channels-first
 inside. `use_flash` sends each block's non-causal attention to the flash
 kernel (`ops/flash_attention.py`) with an all-ones key mask; the kernel takes
 576 patches as they are (the JAX package pads them to 640 for its 128-row
-tiles).
+tiles). `remat` runs each block under `ops/remat.py`, as the JAX package
+wraps its block-scan body in `jax.checkpoint`.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from torch import nn
 from plangen_tpu_torch.config import SigLIPConfig
 from plangen_tpu_torch.ops.attention import dot_product_attention
 from plangen_tpu_torch.ops.flash_attention import flash_attention
+from plangen_tpu_torch.ops.remat import Remat, remat_call
 
 
 class LayerNorm(nn.LayerNorm):
@@ -98,12 +100,13 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, dtype, device) for _ in range(cfg.layers))
         self.norm = LayerNorm(cfg.width, eps=cfg.layer_norm_eps, dtype=dtype, device=device)
 
-    def forward(self, images: torch.Tensor, use_flash: bool = False) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, use_flash: bool = False,
+                remat: Remat = False) -> torch.Tensor:
         """images [B, H, W, 3] (NHWC, CLIP-normalized) -> features [B, N, width]."""
         x = self.patch_embed(images)
         x = x + self.pos_embed.to(x.dtype)
         for block in self.blocks:
-            x = block(x, use_flash)
+            x = remat_call(block, remat, x, use_flash)
         return self.norm(x)
 
 
@@ -114,5 +117,6 @@ class SigLIPVisionModel(nn.Module):
         super().__init__()
         self.vision_tower = VisionTransformer(cfg, dtype, device)
 
-    def forward(self, images: torch.Tensor, use_flash: bool = False) -> torch.Tensor:
-        return self.vision_tower(images, use_flash)
+    def forward(self, images: torch.Tensor, use_flash: bool = False,
+                remat: Remat = False) -> torch.Tensor:
+        return self.vision_tower(images, use_flash, remat)

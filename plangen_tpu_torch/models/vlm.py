@@ -62,11 +62,11 @@ class PlanGenModel(nn.Module):
         return self.gen_head(hidden)
 
     def encode_images_for_understanding(
-        self, images: torch.Tensor, use_flash: bool = False
+        self, images: torch.Tensor, use_flash: bool = False, remat=False,
     ) -> torch.Tensor:
         """SigLIP features -> aligner -> LLM-dim embeddings [B, N, H].
-        images: [B, H, W, 3] NHWC, CLIP-normalized."""
-        return self.aligner(self.vision_model(images, use_flash))
+        images: [B, H, W, 3] NHWC, CLIP-normalized; `remat` as ops/remat.py."""
+        return self.aligner(self.vision_model(images, use_flash, remat))
 
     def prepare_inputs_embeds(
         self,
@@ -74,9 +74,10 @@ class PlanGenModel(nn.Module):
         pixel_values: torch.Tensor,  # [B, H, W, 3]
         images_seq_mask: torch.Tensor,  # [B, L] bool
         use_flash: bool = False,
+        remat=False,
     ) -> torch.Tensor:
         """Text embeddings with SigLIP image features spliced in (one image
         per row)."""
-        image_embeds = self.encode_images_for_understanding(pixel_values, use_flash)
+        image_embeds = self.encode_images_for_understanding(pixel_values, use_flash, remat)
         return splice_image_embeddings(self.embed_text(input_ids), image_embeds,
                                        images_seq_mask)

@@ -1,9 +1,12 @@
 """Checkpointing with FIFO rotation and latest-resume.
 
 Port of `plangen_tpu/train/checkpoint.py` (orbax there, `torch.save` here):
-`save` writes the full train state (model state dict, optimizer moments and
-count, step) under `<directory>/<step>/state.pt`, keeps the newest
-`total_limit` steps and deletes older ones; `restore` loads the newest step
+`save` writes the full train state (model state dict with any LoRA
+adapters, in the master dtype; the optimizer's state: AdamW's moments or
+Adafactor's statistics, its count, and under gradient accumulation the
+running mean and the micro-step; the step) under
+`<directory>/<step>/state.pt`, keeps the newest `total_limit` steps and
+deletes older ones; `restore` loads the newest step
 (or a given one) into a train state, or returns None when there is none.
 """
 

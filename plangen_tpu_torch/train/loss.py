@@ -13,8 +13,11 @@ whose parameters are the compute copy (the train step calls them through
   * 'plan' — lm_head CE over the text-only uni prompt.
 
 All forwards are cache-free and full-sequence. `use_flash` sends the
-attention of the LLaMA stack and of SigLIP to the flash kernel; the chunked
-`fused_ce` form and the JAX package's diagnostic ablations are not ported.
+attention of the LLaMA stack and of SigLIP to the flash kernel; `remat`
+rematerializes each of their layers (`ops/remat.py`); `fused_ce` takes the
+lm_head CE in 256-position chunks (`shift_cross_entropy_fused`) when
+`lm_head` is a plain `nn.Linear`. The JAX package's diagnostic ablations
+are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from plangen_tpu_torch.models.vlm import PlanGenModel
 
@@ -43,7 +49,43 @@ def shift_cross_entropy(
     return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1.0)
 
 
-def _lm_shift_ce(model: PlanGenModel, hidden, labels, pad_id: int) -> torch.Tensor:
+def _chunk_nll_sum(h, w_head, targets, valid) -> torch.Tensor:
+    logits = F.linear(h, w_head).float()  # the matmul dtype, then fp32, as logits()
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt = targets.clamp(0, logits.shape[-1] - 1).long()
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    return torch.sum(nll * valid)
+
+
+def shift_cross_entropy_fused(
+    hidden: torch.Tensor,  # [B, S, H]
+    w_head: torch.Tensor,  # [V, H], the lm_head nn.Linear weight
+    labels: torch.Tensor,  # [B, S] int
+    ignore_id: int,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """`shift_cross_entropy` of the lm_head logits without the [B, S, V]
+    logits: the positions go in `chunk`-position blocks, each block's
+    logits live only inside its checkpointed forward and are recomputed in
+    the backward (the JAX package's rematerialized `lax.scan`)."""
+    h = hidden[:, :-1]
+    targets = labels[:, 1:]
+    valid = (targets != ignore_id).float()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for start in range(0, h.shape[1], chunk):
+        part = slice(start, start + chunk)
+        total = total + checkpoint(_chunk_nll_sum, h[:, part], w_head, targets[:, part],
+                                   valid[:, part], use_reentrant=False)
+    return total / torch.clamp(torch.sum(valid), min=1.0)
+
+
+def _lm_shift_ce(model: PlanGenModel, hidden, labels, pad_id: int,
+                 fused: bool = False) -> torch.Tensor:
+    """lm_head CE; `fused` takes the chunked form when lm_head is a plain
+    Linear (a quantized head takes the materialized one, as in JAX)."""
+    head = model.language_model.lm_head
+    if fused and type(head) is nn.Linear:
+        return shift_cross_entropy_fused(hidden, head.weight, labels, pad_id)
     return shift_cross_entropy(model.language_model.logits(hidden), labels, pad_id)
 
 
@@ -56,6 +98,8 @@ def t2i_loss(
     is_uni: bool = True,
     local_edit_region: Optional[torch.Tensor] = None,  # [B, N] optional loss mask
     use_flash: bool = False,
+    remat=False,
+    fused_ce: bool = False,
 ) -> Losses:
     """Image-generation loss (reference forward_t2i)."""
     B, L = input_ids.shape
@@ -66,7 +110,7 @@ def t2i_loss(
     text_embeds = model.embed_text(input_ids)
     img_embeds = model.gen_img_embeds(vq_ids).to(text_embeds.dtype)
     embeds = torch.cat([text_embeds, img_embeds], dim=1)  # [B, L + N]
-    hidden = model.language_model(embeds, attn_mask, use_flash=use_flash)
+    hidden = model.language_model(embeds, attn_mask, use_flash=use_flash, remat=remat)
 
     img_logits = model.image_gen_logits(hidden[:, -(n_img + 1):])  # fp32
     img_labels = vq_ids
@@ -76,13 +120,14 @@ def t2i_loss(
     loss_img = shift_cross_entropy(img_logits, img_labels, pad_id)
     if not is_uni:
         return {"loss_t2i": loss_img}
-    loss_lm = _lm_shift_ce(model, hidden[:, :-n_img], input_ids, pad_id)
+    loss_lm = _lm_shift_ce(model, hidden[:, :-n_img], input_ids, pad_id, fused_ce)
     return {"loss_uni_t2i": loss_img, "loss_uni_lm": loss_lm}
 
 
-def uni_loss(model, input_ids, attn_mask, images, pad_id, use_flash=False) -> Losses:
+def uni_loss(model, input_ids, attn_mask, images, pad_id, use_flash=False, remat=False,
+             fused_ce=False) -> Losses:
     return t2i_loss(model, input_ids, attn_mask, images, pad_id, is_uni=True,
-                    use_flash=use_flash)
+                    use_flash=use_flash, remat=remat, fused_ce=fused_ce)
 
 
 def mmu_loss(
@@ -93,13 +138,16 @@ def mmu_loss(
     images_seq_mask: torch.Tensor,  # [B, L] bool
     pad_id: int,
     use_flash: bool = False,
+    remat=False,
+    fused_ce: bool = False,
 ) -> Losses:
     """Understanding loss (reference forward_mmu): LM CE over the spliced
     sequence; image-placeholder ids -> pad (ignored)."""
-    embeds = model.prepare_inputs_embeds(input_ids, images, images_seq_mask, use_flash)
-    hidden = model.language_model(embeds, attn_mask, use_flash=use_flash)
+    embeds = model.prepare_inputs_embeds(input_ids, images, images_seq_mask, use_flash,
+                                         remat)
+    hidden = model.language_model(embeds, attn_mask, use_flash=use_flash, remat=remat)
     labels = torch.where(images_seq_mask.bool(), pad_id, input_ids)
-    return {"loss_mmu": _lm_shift_ce(model, hidden, labels, pad_id)}
+    return {"loss_mmu": _lm_shift_ce(model, hidden, labels, pad_id, fused_ce)}
 
 
 def plan_loss(
@@ -108,8 +156,10 @@ def plan_loss(
     attn_mask: torch.Tensor,  # [B, L]
     pad_id: int,
     use_flash: bool = False,
+    remat=False,
+    fused_ce: bool = False,
 ) -> Losses:
     """Planning loss (reference forward_plan -> forward_mmu(is_plan=True))."""
     embeds = model.embed_text(input_ids)
-    hidden = model.language_model(embeds, attn_mask, use_flash=use_flash)
-    return {"loss_plan_lm": _lm_shift_ce(model, hidden, input_ids, pad_id)}
+    hidden = model.language_model(embeds, attn_mask, use_flash=use_flash, remat=remat)
+    return {"loss_plan_lm": _lm_shift_ce(model, hidden, input_ids, pad_id, fused_ce)}

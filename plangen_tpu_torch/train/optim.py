@@ -1,48 +1,60 @@
-"""Optimizer construction: AdamW + clip + trainable-subset masking.
+"""Optimizer construction: AdamW or Adafactor + clip + trainable-subset
+masking, with gradient accumulation.
 
 Port of `plangen_tpu/train/optim.py`. The recipe (cfg/base.py:53-60): AdamW
 lr 5e-5, betas (0.9, 0.999), eps 1e-8, weight decay 0.01, gradient clip 1.0,
-constant schedule with optional warmup. Tuning modes freeze top-level
-modules by name, as the JAX package's path predicates do:
+constant schedule with optional warmup. Tuning modes freeze parameters by
+name, as the JAX package's path predicates do:
 
-  all    — everything trainable
-  lm     — language_model only
-  stage1 — aligner + gen_aligner + gen_head
-  stage2 — all but vision_model and gen_vision_model
-  stage3 — all but gen_vision_model        (the released recipe)
+  all         — everything trainable
+  lm          — language_model only
+  stage1      — aligner + gen_aligner + gen_head
+  stage2      — all but vision_model and gen_vision_model
+  stage3      — all but gen_vision_model        (the released recipe)
+  lora        — the LoRA adapters only (`train/lora.py`; `lora_scaling`
+                stays frozen)
+  lora_tokens — the adapters and the token embeddings
 
-`AdamW.step` computes what the JAX package's
-`masked(chain(clip_by_global_norm, adamw))` + `masked(set_to_zero)` computes
+Each optimizer computes what the JAX package's
+`masked(chain(clip_by_global_norm, inner))` + `masked(set_to_zero)` computes
 in optax: the global norm covers the trainable set only, frozen parameters
-get no update and no decay, and the moments exist for trainable parameters
-only. Adafactor, gradient accumulation and the LoRA modes are not ported and
-raise `NotImplementedError`.
+get no update and no decay, and the state exists for trainable parameters
+only. `AdamW` is `optax.adamw`; `Adafactor` is `optax.adafactor(lr,
+multiply_by_parameter_scale=False, momentum=None,
+weight_decay_rate=adam_weight_decay * learning_rate)`; `Accumulate` is
+`optax.MultiSteps` around either. The state lives in the parameters' dtype
+(the master dtype), and every Python scalar meets a tensor rounded to that
+dtype, as a weakly typed scalar meets an array in JAX.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterator, Optional
+import re
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from plangen_tpu_torch.config import OptimConfig
 
+_LORA = ".lora."  # the adapters' names: ...self_attn.lora.<target>.{a, b}
 TUNING_MODES: Dict[str, Callable[[str], bool]] = {
     "all": lambda p: True,
     "lm": lambda p: p.startswith("language_model"),
     "stage1": lambda p: p.startswith(("aligner", "gen_aligner", "gen_head")),
     "stage2": lambda p: not p.startswith(("vision_model", "gen_vision_model")),
     "stage3": lambda p: not p.startswith("gen_vision_model"),
+    "lora": lambda p: _LORA in p,
+    "lora_tokens": lambda p: _LORA in p or p == "language_model.model.embed_tokens.weight",
 }
-_NOT_PORTED_MODES = ("lora", "lora_tokens")
+
+Grads = Dict[str, Optional[torch.Tensor]]
 
 
 def trainable_mask(model: nn.Module, tuning_mode: str) -> Dict[str, bool]:
     """{parameter name: trainable} under the given tuning mode."""
-    if tuning_mode in _NOT_PORTED_MODES:
-        raise NotImplementedError(f"tuning_mode {tuning_mode!r} (LoRA) is not ported")
     if tuning_mode not in TUNING_MODES:
         raise ValueError(
             f"unknown tuning_mode {tuning_mode!r}; options: {sorted(TUNING_MODES)}")
@@ -81,50 +93,74 @@ def make_lr_schedule(cfg: OptimConfig) -> Callable[[int], float]:
     raise ValueError(f"unknown lr_scheduler {cfg.lr_scheduler}")
 
 
-class AdamW:
-    """optax's clip_by_global_norm + adamw over the trainable parameters of
-    a model whose fp32 masters it updates in place."""
+def _in(x: float, dtype: torch.dtype) -> float:
+    """The Python scalar x as a value of `dtype`."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
+def _f32(x: float) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+class _Masked:
+    """The trainable parameters of a model whose masters it updates in
+    place, after optax's clip_by_global_norm. Subclasses yield the updates."""
 
     def __init__(self, cfg: OptimConfig, model: nn.Module, mask: Dict[str, bool]):
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
         self.params = {n: p for n, p in model.named_parameters() if mask[n]}
-        self.count = 0
+        self.count = 0  # updates so far
+
+    @torch.no_grad()
+    def step(self, grads: Grads) -> None:
+        """One update from {name: gradient} (None = zero gradient). The
+        gradients are clipped (and may be overwritten) in place."""
+        for _, p, u in self.updates(grads):
+            p.add_(u)  # apply_updates
+
+    def updates(self, grads: Grads) -> Iterator[Tuple[str, torch.Tensor, torch.Tensor]]:
+        raise NotImplementedError
+
+    def _clipped(self, grads: Grads) -> Dict[str, torch.Tensor]:
+        """clip_by_global_norm: t / norm * max_norm unless norm < max_norm."""
+        g = {n: grads.get(n) if grads.get(n) is not None else torch.zeros_like(p)
+             for n, p in self.params.items()}
+        norm = torch.sqrt(sum(torch.sum(t * t) for t in g.values()))
+        if not bool(norm < self.cfg.max_grad_norm):
+            for t in g.values():
+                t.div_(norm.to(t.dtype)).mul_(_in(self.cfg.max_grad_norm, t.dtype))
+        return g
+
+
+class AdamW(_Masked):
+    """optax's clip_by_global_norm + adamw."""
+
+    def __init__(self, cfg: OptimConfig, model: nn.Module, mask: Dict[str, bool]):
+        super().__init__(cfg, model, mask)
         self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
 
     @torch.no_grad()
-    def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> None:
-        """One update from {name: gradient} (None = zero gradient). The
-        gradients are clipped in place."""
-        for _, p, u in self.updates(grads):
-            p.add_(u)  # apply_updates
-
-    @torch.no_grad()
-    def updates(self, grads: Dict[str, Optional[torch.Tensor]]) -> Iterator:
+    def updates(self, grads: Grads) -> Iterator:
         """Advance the moments and yield (name, parameter, update) for each
         trainable parameter; `step` adds each update to its parameter."""
         cfg = self.cfg
-        g = {n: grads.get(n) if grads.get(n) is not None else torch.zeros_like(p)
-             for n, p in self.params.items()}
-        # clip_by_global_norm: t / norm * max_norm unless norm < max_norm
-        norm = torch.sqrt(sum(torch.sum(t * t) for t in g.values()))
-        if not bool(norm < cfg.max_grad_norm):
-            for t in g.values():
-                t.div_(norm).mul_(cfg.max_grad_norm)
+        g = self._clipped(grads)
         # scale_by_adam, with the bias corrections in fp32 as optax computes them
         t = self.count + 1
-        one = torch.ones((), dtype=torch.float32)
-        bc1 = float(one - torch.tensor(cfg.adam_beta1, dtype=torch.float32) ** t)
-        bc2 = float(one - torch.tensor(cfg.adam_beta2, dtype=torch.float32) ** t)
+        b1, b2 = cfg.adam_beta1, cfg.adam_beta2
+        bc1 = float(1 - _f32(b1) ** t)
+        bc2 = float(1 - _f32(b2) ** t)
         lr = self.schedule(self.count)
         for n, p in self.params.items():
+            d = p.dtype
             mu, nu = self.mu[n], self.nu[n]
-            mu.mul_(cfg.adam_beta1).add_((1 - cfg.adam_beta1) * g[n])
-            nu.mul_(cfg.adam_beta2).add_((1 - cfg.adam_beta2) * (g[n] * g[n]))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_epsilon)
-            u = u + cfg.adam_weight_decay * p  # add_decayed_weights
-            yield n, p, u * -lr  # scale_by_learning_rate
+            mu.mul_(_in(b1, d)).add_(_in(1 - b1, d) * g[n])
+            nu.mul_(_in(b2, d)).add_(_in(1 - b2, d) * (g[n] * g[n]))
+            u = (mu / _in(bc1, d)) / (torch.sqrt(nu / _in(bc2, d)) + _in(cfg.adam_epsilon, d))
+            u = u + _in(cfg.adam_weight_decay, d) * p  # add_decayed_weights
+            yield n, p, u * _in(-lr, d)  # scale_by_learning_rate
         self.count = t
 
     def state_dict(self) -> dict:
@@ -137,13 +173,208 @@ class AdamW:
             self.nu[n].copy_(sd["nu"][n])
 
 
+# ---------------------------------------------------------------- Adafactor
+
+# one JAX leaf holds a layer-stacked [L, ...] array where the port holds one
+# tensor per layer: these prefixes, by layer index
+_STACKED = re.compile(r"^(language_model\.model\.layers|vision_model\.vision_tower\.blocks)"
+                      r"\.(\d+)\.(.+)$")
+
+
+def _jax_axes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """{parameter name: the permutation of its axes into the JAX layout}:
+    linear weights [out, in] -> [in, out], conv weights OIHW -> HWIO; the
+    rest (the LoRA adapters included) as they are."""
+    axes = {}
+    for mod_name, mod in model.named_modules():
+        prefix = mod_name + "." if mod_name else ""
+        if isinstance(mod, nn.Linear):
+            axes[prefix + "weight"] = (1, 0)
+        elif isinstance(mod, nn.Conv2d):
+            axes[prefix + "weight"] = (2, 3, 1, 0)
+    return axes
+
+
+def _jax_leaves(model: nn.Module, names) -> Dict[str, Tuple[bool, List[Tuple[str, tuple]]]]:
+    """Group parameter names by the JAX leaf that holds them: {leaf key:
+    (stacked, [(name, axes into the JAX layout)])}, a stacked leaf's names
+    in layer order under `<prefix>.*.<rest>`."""
+    axes = _jax_axes(model)
+    groups: Dict[str, list] = {}
+    for name in names:
+        m = _STACKED.match(name)
+        key, index = (f"{m[1]}.*.{m[3]}", int(m[2])) if m else (name, -1)
+        groups.setdefault(key, []).append((index, name))
+    return {key: (members[0][0] >= 0, [(name, axes.get(name, ())) for _, name in sorted(members)])
+            for key, members in groups.items()}
+
+
+def factored_dims(shape, min_dim_size_to_factor: int = 128) -> Optional[Tuple[int, int]]:
+    """optax's `_factored_dims`: the two largest axes (second largest, then
+    largest), or None when the second largest is under the threshold."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _inverse(axes: Tuple[int, ...]) -> Tuple[int, ...]:
+    return tuple(int(i) for i in np.argsort(axes))
+
+
+class Adafactor(_Masked):
+    """optax's clip_by_global_norm + adafactor(lr, multiply_by_parameter_scale
+    =False, momentum=None, weight_decay_rate=wd * lr): the factored second
+    moment (decay 1 - t^-0.8, epsilon 1e-30), clip_by_block_rms(1.0), the
+    learning rate, then the decay.
+
+    Every statistic is taken over the JAX package's leaf: a layer-stacked
+    leaf's per-layer tensors are stacked in the JAX layout before the
+    factored means and the block RMS (`_jax_leaves`), and the state is kept
+    in that layout."""
+
+    DECAY_RATE = 0.8
+    EPSILON = 1e-30
+    CLIPPING_THRESHOLD = 1.0
+
+    def __init__(self, cfg: OptimConfig, model: nn.Module, mask: Dict[str, bool]):
+        super().__init__(cfg, model, mask)
+        self.weight_decay = cfg.adam_weight_decay * cfg.learning_rate
+        self.leaves = _jax_leaves(model, self.params)
+        self.v_row: Dict[str, torch.Tensor] = {}
+        self.v_col: Dict[str, torch.Tensor] = {}
+        self.v: Dict[str, torch.Tensor] = {}
+        for key, (stacked, members) in self.leaves.items():
+            name, axes = members[0]
+            like = self.params[name]
+            shape = tuple(like.permute(axes).shape if axes else like.shape)
+            shape = (len(members),) + shape if stacked else shape
+            dims = factored_dims(shape)
+            if dims is None:
+                self.v[key] = torch.zeros(shape, dtype=like.dtype, device=like.device)
+            else:
+                d1, d0 = dims
+                self.v_row[key] = torch.zeros(np.delete(shape, d0).tolist(), dtype=like.dtype,
+                                              device=like.device)
+                self.v_col[key] = torch.zeros(np.delete(shape, d1).tolist(), dtype=like.dtype,
+                                              device=like.device)
+
+    @staticmethod
+    def _to_jax(stacked: bool, members, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+        views = [tensors[n].permute(axes) if axes else tensors[n] for n, axes in members]
+        return torch.stack(views) if stacked else views[0]
+
+    @torch.no_grad()
+    def updates(self, grads: Grads) -> Iterator:
+        g = self._clipped(grads)
+        step = _f32(self.count + 1)
+        decay = 1.0 - step ** -self.DECAY_RATE  # fp32, as optax's _decay_rate_pow
+        lr = self.schedule(self.count)
+        for key, (stacked, members) in self.leaves.items():
+            u = self._leaf_update(key, self._to_jax(stacked, members, g), decay)
+            # clip_by_block_rms over the whole leaf, then the learning rate
+            d = u.dtype
+            rms = torch.sqrt(torch.mean(u * u)) / _in(self.CLIPPING_THRESHOLD, d)
+            u = u / torch.clamp(rms, min=_in(1.0, d))
+            u = u * _in(lr, d)
+            for i, (name, axes) in enumerate(members):
+                p = self.params[name]
+                ui = u[i] if stacked else u
+                ui = ui.permute(_inverse(axes)) if axes else ui
+                if self.weight_decay:
+                    ui = ui + _in(self.weight_decay, d) * p  # add_decayed_weights
+                yield name, p, -ui
+        self.count += 1
+
+    def _leaf_update(self, key: str, grad: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
+        """scale_by_factored_rms on one leaf (JAX layout); advances its state."""
+        dtype = grad.dtype
+        grad_sqr = grad * grad + _in(self.EPSILON, dtype)
+        dims = factored_dims(grad.shape)
+        if dims is None:
+            v = self.v[key]
+            v.copy_((decay * v.float() + (1.0 - decay) * grad_sqr.float()).to(dtype))
+            return grad * v ** -0.5
+        d1, d0 = dims
+        v_row, v_col = self.v_row[key], self.v_col[key]
+        v_row.copy_((decay * v_row.float()
+                     + (1.0 - decay) * grad_sqr.mean(dim=d0).float()).to(dtype))
+        v_col.copy_((decay * v_col.float()
+                     + (1.0 - decay) * grad_sqr.mean(dim=d1).float()).to(dtype))
+        del grad_sqr
+        reduced_d1 = d1 - 1 if d1 > d0 else d1
+        row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+        col_factor = v_col ** -0.5
+        return grad * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "v_row": self.v_row, "v_col": self.v_col, "v": self.v}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.count = int(sd["count"])
+        for name in ("v_row", "v_col", "v"):
+            for key, t in getattr(self, name).items():
+                t.copy_(sd[name][key])
+
+
+# ----------------------------------------------------- gradient accumulation
+
+
+class Accumulate:
+    """optax.MultiSteps(inner, k): the running mean of the micro-step
+    gradients, `acc + (g - acc) / (n + 1)`, in the parameters' dtype; every
+    k-th call hands it to the inner optimizer (which counts one update, for
+    its bias correction and its schedule) and starts again from zero. The
+    other calls leave the parameters as they are."""
+
+    def __init__(self, inner: _Masked, every_k: int):
+        self.inner = inner
+        self.every_k = every_k
+        self.params = inner.params
+        self.mini_step = 0
+        self.acc = {n: torch.zeros_like(p) for n, p in self.params.items()}
+
+    @property
+    def count(self) -> int:
+        """Updates applied so far (optax's gradient_step)."""
+        return self.inner.count
+
+    @torch.no_grad()
+    def step(self, grads: Grads) -> None:
+        n = self.mini_step
+        for name, acc in self.acc.items():
+            g = grads.get(name)
+            acc.add_(((g if g is not None else torch.zeros_like(acc)) - acc) / (n + 1))
+        if n + 1 < self.every_k:
+            self.mini_step = n + 1
+            return
+        self.inner.step(self.acc)
+        for acc in self.acc.values():
+            acc.zero_()
+        self.mini_step = 0
+
+    def state_dict(self) -> dict:
+        return {"mini_step": self.mini_step, "acc": self.acc,
+                "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.mini_step = int(sd["mini_step"])
+        for n, acc in self.acc.items():
+            acc.copy_(sd["acc"][n])
+        self.inner.load_state_dict(sd["inner"])
+
+
+OPTIMIZERS = {"adamw": AdamW, "adafactor": Adafactor}
+
+
 def make_optimizer(cfg: OptimConfig, model: nn.Module, tuning_mode: str = "stage3"):
     """Returns (optimizer, trainable mask {name: bool})."""
     mask = trainable_mask(model, tuning_mode)
-    if cfg.optimizer == "adafactor":
-        raise NotImplementedError("optimizer 'adafactor' is not ported")
-    if cfg.optimizer != "adamw":
+    if cfg.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}; options: adamw, adafactor")
+    opt = OPTIMIZERS[cfg.optimizer](cfg, model, mask)
     if cfg.gradient_accumulation_steps > 1:
-        raise NotImplementedError("gradient_accumulation_steps > 1 is not ported")
-    return AdamW(cfg, model, mask), mask
+        opt = Accumulate(opt, cfg.gradient_accumulation_steps)
+    return opt, mask

@@ -1,16 +1,22 @@
 """The multi-task train step.
 
 Port of `plangen_tpu/train/step.py`: one optimizer step is one forward per
-task flow, the weighted loss sum, one backward, and AdamW after a global-norm
-clip (`train/optim.py`).
+task flow, the weighted loss sum, one backward, and the optimizer after a
+global-norm clip (`train/optim.py`: AdamW or Adafactor, with gradient
+accumulation the update lands on every k-th step).
 
-Mixed precision follows the JAX package: the parameters live in fp32 (the
-optimizer's masters) and the loss runs on a copy cast to `compute_dtype`
-(bf16). The copy is made inside the step by `torch.func.functional_call`
-with {name: p.to(compute_dtype)}: trainable parameters are cast
-differentiably, frozen ones detached first (the JAX package's `_cast` after
-`stop_gradient`), so the gradient lands on the fp32 masters in fp32 and no
-frozen module does weight-gradient work.
+Mixed precision follows the JAX package: the parameters live in the master
+dtype (fp32, or bf16 with `master_dtype="bfloat16"`) and the loss runs on a
+copy cast to `compute_dtype` (bf16; the identity for bf16 masters). The copy
+is made inside the step by `torch.func.functional_call` with
+{name: p.to(compute_dtype)}: trainable parameters are cast differentiably,
+frozen ones detached first (the JAX package's `_cast` after
+`stop_gradient`), so the gradient lands on the masters in their dtype and
+no frozen module does weight-gradient work.
+
+`gradient_checkpointing` rematerializes every LLaMA layer and SigLIP block
+by `remat_policy` (`ops/remat.py`), `fused_lm_ce` takes the lm_head CE in
+chunks (`train/loss.py`).
 """
 
 from __future__ import annotations
@@ -23,16 +29,16 @@ from torch import nn
 
 from plangen_tpu_torch.config import PlanGenModelConfig, TrainConfig
 from plangen_tpu_torch.models.vlm import PlanGenModel
+from plangen_tpu_torch.ops.remat import policy_name
 from plangen_tpu_torch.train.loss import mmu_loss, plan_loss, t2i_loss
-from plangen_tpu_torch.train.optim import AdamW
 
 Batches = Dict[int, Dict[str, torch.Tensor]]
 
 
 @dataclass
 class TrainState:
-    model: PlanGenModel  # the fp32 masters
-    opt: AdamW
+    model: PlanGenModel  # the masters
+    opt: object  # train/optim.py: AdamW, Adafactor or Accumulate
     step: int = 0
 
 
@@ -46,14 +52,6 @@ class _FlowLosses(nn.Module):
 
     def forward(self, batches: Batches):
         return self._run(self.model, batches)
-
-
-def _check_train_config(train_cfg: TrainConfig) -> None:
-    """Options of the JAX package's train step that the port does not have."""
-    if train_cfg.gradient_checkpointing:
-        raise NotImplementedError("gradient_checkpointing (remat) is not ported")
-    if train_cfg.fused_lm_ce:
-        raise NotImplementedError("fused_lm_ce (the chunked lm_head CE) is not ported")
 
 
 def make_loss_fn(
@@ -75,12 +73,13 @@ def make_loss_fn(
     Loss weighting: per-key `loss_scales[f"{key}_{flow_id}"]`, then
     `plan_lr_scale` on every '*lm*' key. Without `trainable_mask` every
     parameter takes a gradient."""
-    _check_train_config(train_cfg)
     flows = tuple(flows)
     scales = dict(train_cfg.loss_scales)
     plan_lr_scale = train_cfg.plan_lr_scale
     use_flash = train_cfg.use_flash_attention
     use_local_edit_loss = train_cfg.use_local_edit_loss
+    remat = policy_name(train_cfg.remat_policy) if train_cfg.gradient_checkpointing else False
+    kw = dict(use_flash=use_flash, remat=remat, fused_ce=train_cfg.fused_lm_ce)
 
     def run(model: PlanGenModel, batches: Batches):
         loss_dict: Dict[str, torch.Tensor] = {}
@@ -92,16 +91,15 @@ def make_loss_fn(
                     pad_id, is_uni=(task == "uni"),
                     local_edit_region=(b["edit_region"] if use_local_edit_loss
                                        and "edit_region" in b else None),
-                    use_flash=use_flash,
+                    **kw,
                 )
             elif task == "mmu":
                 ld = mmu_loss(
                     model, b["input_ids"], b["attn_mask"], b["images"].to(compute_dtype),
-                    b["images_seq_mask"], pad_id, use_flash=use_flash,
+                    b["images_seq_mask"], pad_id, **kw,
                 )
             elif task == "plan":
-                ld = plan_loss(model, b["input_ids"], b["attn_mask"], pad_id,
-                               use_flash=use_flash)
+                ld = plan_loss(model, b["input_ids"], b["attn_mask"], pad_id, **kw)
             else:
                 raise ValueError(f"unknown task type {task!r}")
             loss_dict.update({f"{k}_{flow_id}": v for k, v in ld.items()})
@@ -153,10 +151,13 @@ def make_train_step(
     return train_step
 
 
-def init_train_state(model: PlanGenModel, opt: AdamW) -> TrainState:
-    """The train state over fp32 masters (the model must already be fp32:
-    the optimizer holds its parameters)."""
+def init_train_state(model: PlanGenModel, opt,
+                     master_dtype: torch.dtype = torch.float32) -> TrainState:
+    """The train state over masters in `master_dtype`. The JAX package casts
+    its parameters here; in the port the model must already be in that dtype,
+    since the optimizer holds its parameters and made its state in their
+    dtype (the Trainer builds the model in it)."""
     for name, p in model.named_parameters():
-        if p.is_floating_point() and p.dtype != torch.float32:
-            raise ValueError(f"fp32 masters required, {name} is {p.dtype}")
+        if p.is_floating_point() and p.dtype != master_dtype:
+            raise ValueError(f"{master_dtype} masters required, {name} is {p.dtype}")
     return TrainState(model=model, opt=opt, step=0)

@@ -5,14 +5,23 @@ The device is the card (`cuda`) unless the caller names another:
 when there is no card.
 
 Port of `plangen_tpu/train/trainer.py`: build the tokenizer, processor,
-model (fp32 masters) and AdamW; iterate the flows' data; run the multi-task
+model (the masters, in `train.master_dtype`), the LoRA adapters in the
+'lora' mode, and the optimizer; iterate the flows' data; run the multi-task
 step; log JSONL metrics; check the loss for non-finite values at the logging
 cadence (save and raise); save every `checkpointing_steps` with FIFO
-rotation; resume from the latest checkpoint; save at the end.
+rotation; resume from the latest checkpoint; save at the end. Steps count
+calls of the step, micro-steps under gradient accumulation, as in JAX.
 
 Without `model=`, the weights come from `cfg.janus_path` (and the
-`cfg.finetune_path` overlay) through `convert/loading.py::load_params`, in
-fp32 masters, or are seeded random when it names none.
+`cfg.finetune_path` overlay) through `convert/loading.py::load_params`, or
+are seeded random when it names none; either way the model is built in the
+master dtype (a random tensor is drawn in fp32 and cast, as a cast of the
+fp32 draw would give). A given model is cast to it.
+
+`tuning_mode="lora"` adds adapters of `lora_rank` / `lora_alpha`
+(`train/lora.py`, drawn from `seed + 1`) and trains them, and the token
+embeddings too (`lora_tokens`) when `tune_token_when_lora` and special or
+numhw tokens are on; the effective mode is printed.
 
 `fit(validate_fn=...)` calls `validate_fn(step, model)` every
 `train.validation_steps` steps, as the JAX loop calls it with the params;
@@ -20,9 +29,8 @@ fp32 masters, or are seeded random when it names none.
 `train.val_max_len` batches on the trainer's own model (no reload), its
 metrics logged under `val/` keys.
 
-Not ported, and raising `NotImplementedError`: gradient checkpointing,
-FSDP, a mesh of more than one device, LoRA, bf16 masters, and weights from
-an orbax `params_path`.
+Not ported, and raising `NotImplementedError`: FSDP, a mesh of more than
+one device, and weights from an orbax `params_path`.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from plangen_tpu_torch.data.registry import get_dataset
 from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.tasks.processor import PlanGenProcessor
 from plangen_tpu_torch.train.checkpoint import PlanGenCheckpointer
+from plangen_tpu_torch.train.lora import add_lora, init_lora
 from plangen_tpu_torch.train.metrics import MetricsLogger
 from plangen_tpu_torch.train.optim import count_params, make_optimizer
 from plangen_tpu_torch.train.step import init_train_state, make_train_step
@@ -57,14 +66,17 @@ def _check_supported(cfg: PlanGenConfig, model_given: bool) -> None:
     if any(size > 1 for size in tcfg.mesh_shape.values()):
         raise NotImplementedError(
             f"mesh_shape {tcfg.mesh_shape}: the port trains on one device")
-    if tcfg.tuning_mode in ("lora", "lora_tokens"):
-        raise NotImplementedError("tuning_mode 'lora' is not ported")
-    if tcfg.master_dtype != "float32":
-        raise NotImplementedError(f"master_dtype {tcfg.master_dtype!r}: fp32 masters only")
     if not model_given and cfg.params_path:
         raise NotImplementedError(
             f"params_path={cfg.params_path!r} is an orbax artifact of the JAX package; "
             "point janus_path at the HF checkout, or pass model=")
+
+
+def master_dtype(tcfg) -> torch.dtype:
+    dtype = getattr(torch, tcfg.master_dtype, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"master_dtype {tcfg.master_dtype!r} is not a floating dtype")
+    return dtype
 
 
 class Trainer:
@@ -91,24 +103,32 @@ class Trainer:
             gen=cfg.generation,
         )
 
+        dtype = master_dtype(tcfg)
         if model is None:
-            model = PlanGenModel(cfg.model, dtype=torch.float32, device=self.device)
+            model = PlanGenModel(cfg.model, dtype=dtype, device=self.device)
             if load_params(cfg, model=model) is None:
                 g = torch.Generator(device=self.device).manual_seed(tcfg.seed)
                 with torch.no_grad():
                     init_params(model, g)
-        self.model = model.to(device=self.device, dtype=torch.float32)
+        self.model = model.to(device=self.device, dtype=dtype)
+        tuning_mode = tcfg.tuning_mode
+        if tuning_mode == "lora":
+            add_lora(self.model, tcfg.lora_rank, tcfg.lora_alpha)
+            init_lora(self.model, torch.Generator(device=self.device).manual_seed(tcfg.seed + 1))
+            if tcfg.tune_token_when_lora and (cfg.use_special_tokens or cfg.use_numhw_tokens):
+                tuning_mode = "lora_tokens"
+        self.tuning_mode = tuning_mode
 
-        opt, self.mask = make_optimizer(tcfg.optim, self.model, tcfg.tuning_mode)
+        opt, self.mask = make_optimizer(tcfg.optim, self.model, tuning_mode)
         counts = count_params(self.model, self.mask)
         print(f"params: total={counts['total'] / 1e6:.1f}M "
               f"trainable={counts['trainable'] / 1e6:.1f}M "
-              f"(tuning_mode={tcfg.tuning_mode})")
+              f"(tuning_mode={tuning_mode})")
         self._dump_trainable_names()
 
         self.flows = tuple((i, f.task_type) for i, f in enumerate(tcfg.train_data))
         self.flow_tasks = dict(self.flows)
-        self.state = init_train_state(self.model, opt)
+        self.state = init_train_state(self.model, opt, dtype)
         self.step_fn = make_train_step(
             cfg.model, tcfg, pad_id=self.tokenizer.special.pad_id, flows=self.flows,
             trainable_mask=self.mask,

@@ -269,8 +269,31 @@ def test_exporter_copy_exports_the_same(name):
 
 
 def test_exporter_copy_refuses_quantized_and_lora_trees():
+    """A quantized tree is refused as the original refuses it; a tree with
+    LoRA adapters is merged (the port's `merge_lora`) exactly as
+    `jax_to_torch.export_state_dict` merges it: adapters in eighths and a
+    scaling of 1/2, whose products and sums fp32 holds exactly in any order,
+    give every array bitwise equal."""
+    from plangen_tpu.train import lora as jlora
+
     cfg = tcfg.PlanGenModelConfig.tiny()
     with pytest.raises(ValueError, match="quantized"):
         texport({"language_model": {"layers": {"q_proj": {"w_q8": 0, "scale": 0}}}}, cfg)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        texport({"language_model": {"lora": {}}}, cfg)
+    jc = jcfg.PlanGenModelConfig.tiny()
+    params = jvlm.init(jax.random.PRNGKey(0), jc, dtype=jnp.float32)
+    tree = jlora.init_lora(jax.random.PRNGKey(1), jc.llama, rank=4, alpha=2)
+    rs = np.random.RandomState(0)
+    for t in jlora.TARGETS:
+        for ab in ("a", "b"):
+            tree[t][ab] = jnp.asarray(rs.randint(-8, 9, size=tree[t][ab].shape) / 8.0,
+                                      jnp.float32)
+    params = jlora.add_lora(params, tree)
+    want = jexport(params, jc)
+    got = texport(jax.tree_util.tree_map(np.asarray, params), cfg)
+    assert list(got) == list(want) and not any("lora" in k for k in got)
+    for key, arr in want.items():
+        assert got[key].dtype == arr.dtype, key
+        np.testing.assert_array_equal(got[key], arr, err_msg=key)
+    merged = texport(jax.tree_util.tree_map(np.asarray, jlora.merge_lora(params)), cfg)
+    np.testing.assert_array_equal(got["language_model.model.layers.1.self_attn.o_proj.weight"],
+                                  merged["language_model.model.layers.1.self_attn.o_proj.weight"])

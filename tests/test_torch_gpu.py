@@ -1268,3 +1268,94 @@ def test_run_validation_on_one_coco_batch_on_the_card(cuda, tmp_path):
     metrics = json.loads((base / "0_metrics.json").read_text())
     assert sorted(metrics) == ["fid_siglip", "kid_siglip", "kid_siglip_std", "n_gt", "n_pr"]
     assert out[0]["pr_image"].shape[0] == 4
+
+
+# ---------------------------------------- training options on the card
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_no_batch"])
+def test_k3_under_remat_matches_no_remat(cuda, policy):
+    """A LLaMA layer whose attention runs on K3 (bf16, head_dim 128, left
+    pads) called under `ops/remat.py` with each policy against a plain call:
+    the output and every gradient (input and weights) within K3's bf16
+    tolerance (2e-2); K3's forward launched twice under remat (the
+    recompute runs it again), its backward once, all on the tensor cores."""
+    from plangen_tpu_torch.models.llama import LlamaDecoderLayer, rope_cos_sin
+    from plangen_tpu_torch.ops import flash_attention as fa
+    from plangen_tpu_torch.ops.remat import remat_call
+
+    cfg = LlamaConfig(vocab_size=64, hidden_size=256, intermediate_size=512, num_layers=1,
+                      num_heads=2, num_kv_heads=2, head_dim=128)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    layer = LlamaDecoderLayer(cfg, dtype=torch.bfloat16, device=cuda)
+    with torch.no_grad():
+        for p in layer.parameters():
+            if p.dim() == 2:
+                p.copy_(torch.randn(p.shape, generator=g, device=cuda) * p.shape[1] ** -0.5)
+    B, S = 3, 200
+    x = torch.randn((B, S, cfg.hidden_size), generator=g, device=cuda).to(torch.bfloat16)
+    dout = torch.randn((B, S, cfg.hidden_size), generator=g, device=cuda).to(torch.bfloat16)
+    mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    mask[1, :17] = 0
+    mask[2, :90] = 0
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)
+    cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+
+    def run(remat):
+        leaf = x.clone().requires_grad_()
+        before = (fa.flash_attention_fwd.routes["tensor_cores"],
+                  fa.flash_attention_bwd.routes["tensor_cores"], fa.flash_attention_reference.calls)
+        out = remat_call(layer, remat, leaf, cos, sin, None, pos, mask, None, 0, mask)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        after = (fa.flash_attention_fwd.routes["tensor_cores"],
+                 fa.flash_attention_bwd.routes["tensor_cores"], fa.flash_attention_reference.calls)
+        grads = [leaf.grad] + [p.grad.clone() for p in layer.parameters()]
+        layer.zero_grad(set_to_none=True)
+        return [out.detach()] + grads, tuple(a - b for a, b in zip(after, before))
+
+    want, plain_counts = run(False)
+    got, remat_counts = run(policy)
+    assert plain_counts == (1, 1, 0) and remat_counts == (2, 1, 0)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(a).all()), i
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("loop", ["image", "text"])
+def test_lora_captured_steps_equal_eager_loops(cuda, loop, monkeypatch):
+    """A bf16 model with non-zero LoRA adapters (`train/lora.py`): the image
+    loop's and the text loop's captured steps give the tokens of their eager
+    loops (`eager=True`), bit for bit; the adapters' delta is in the
+    captured step, as the JAX layer applies it in decode."""
+    from plangen_tpu_torch.train.lora import add_lora, init_lora
+
+    cfg, model = _graph_model(cuda)
+    add_lora(model, 8, 16)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    init_lora(model, g)
+    with torch.no_grad():
+        for layer in model.language_model.model.layers:
+            for pair in layer.self_attn.lora.values():
+                pair.b.copy_(torch.randn(pair.b.shape, generator=g, device=cuda) * 0.5)
+    graphs = _graphs_made(monkeypatch)
+    if loop == "image":
+        n = 16
+        embeds, mask = _graph_prompt(cuda, cfg, n)
+
+        def run(eager):
+            return generate_image_tokens(model, cfg, embeds, mask, None, 5.0, 0.0,
+                                         num_tokens=n, eager=eager)
+    else:
+        n = 40
+        embeds, mask = _text_prompt(cuda, cfg, n)
+
+        def run(eager):
+            return greedy_decode_text(model, cfg, embeds, mask, TEXT_EOS, max_new_tokens=n,
+                                      eager=eager)
+    eager_tokens = run(True).cpu()
+    assert not graphs
+    graph_tokens = run(False).cpu()
+    torch.cuda.synchronize()
+    assert len(graphs) == 1
+    assert torch.equal(graph_tokens, eager_tokens)

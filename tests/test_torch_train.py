@@ -162,33 +162,49 @@ def test_each_loss_matches_jax(case, use_flash):
 
 
 def _hf_mask(params, cfg, mode):
-    """JAX's trainable mask, by HF name."""
+    """JAX's trainable mask, by the port's names: HF names from the exporter,
+    and the LoRA adapters (exported merged, so named here) by layer."""
     mask = joptim.trainable_mask(params, mode)
+    lm, lm_mask = dict(params["language_model"]), dict(mask["language_model"])
+    lora, lora_mask = lm.pop("lora", None), lm_mask.pop("lora", None)
     as_arrays = jax.tree_util.tree_map(
-        lambda p, m: np.full(p.shape, 1.0 if m else 0.0, np.float32), params, mask)
+        lambda p, m: np.full(p.shape, 1.0 if m else 0.0, np.float32),
+        {**params, "language_model": lm}, {**mask, "language_model": lm_mask})
     sd = export_state_dict(as_arrays, cfg)
     flags = {}
     for k, v in sd.items():
         assert v.min() == v.max(), k
         flags[k] = bool(v.max() > 0)
+    if lora is not None:
+        flags["language_model.model.lora_scaling"] = bool(lora_mask["scaling"])
+        for t in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            for ab in ("a", "b"):
+                for i in range(cfg.llama.num_layers):
+                    flags[f"language_model.model.layers.{i}.self_attn.lora.{t}.{ab}"] = \
+                        bool(lora_mask[t][ab])
     return flags
 
 
-@pytest.mark.parametrize("mode", ["all", "lm", "stage1", "stage2", "stage3"])
+@pytest.mark.parametrize("mode", ["all", "lm", "stage1", "stage2", "stage3", "lora",
+                                  "lora_tokens"])
 def test_trainable_set_per_mode_matches_jax(mode):
-    params, model = _params("tiny"), _port_model("tiny")
+    """The trainable set and the counts of each mode against JAX's; the LoRA
+    modes on trees with rank-4 adapters (JAX's `add_lora`, carried across by
+    `load_jax_params`), whose `scaling` stays frozen."""
+    params = _params("tiny")
+    if mode.startswith("lora"):
+        from plangen_tpu.train import lora as jlora
+
+        params = jlora.add_lora(params, jlora.init_lora(jax.random.PRNGKey(1), TINY.llama,
+                                                        rank=4, alpha=8))
+    model = PlanGenModel(TINY, dtype=torch.float32)
+    load_jax_params(model, jax.tree_util.tree_map(np.asarray, params), TINY)
     want = _hf_mask(params, TINY, mode)
     got = toptim.trainable_mask(model, mode)
     assert got == want
     counts = toptim.count_params(model, got)
     jcounts = joptim.count_params(params, joptim.trainable_mask(params, mode))
     assert counts == jcounts
-
-
-@pytest.mark.parametrize("mode", ["lora", "lora_tokens"])
-def test_lora_modes_raise(mode):
-    with pytest.raises(NotImplementedError):
-        toptim.trainable_mask(_port_model("tiny"), mode)
 
 
 @pytest.mark.parametrize("optim", [
@@ -250,10 +266,6 @@ def test_adamw_with_clip_matches_optax(optim, grad_scale):
 
 def test_unported_optimizer_options_raise():
     model = _port_model("tiny")
-    with pytest.raises(NotImplementedError):
-        toptim.make_optimizer(OptimConfig(optimizer="adafactor"), model)
-    with pytest.raises(NotImplementedError):
-        toptim.make_optimizer(OptimConfig(gradient_accumulation_steps=2), model)
     with pytest.raises(ValueError):
         toptim.make_optimizer(OptimConfig(optimizer="sgd"), model)
 
@@ -363,12 +375,6 @@ def test_bf16_compute_casts_trainable_differentiably_and_frozen_detached():
     np.testing.assert_allclose(float(loss16), float(loss32), rtol=2e-2)
 
 
-@pytest.mark.parametrize("option", ["gradient_checkpointing", "fused_lm_ce"])
-def test_unported_step_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        tstep.make_loss_fn(TINY, TrainConfig(**{option: True}), PAD, FLOWS)
-
-
 # ------------------------------------------------------------------ Trainer
 
 
@@ -445,12 +451,8 @@ def test_trainer_nonfinite_loss_checkpoints_and_raises(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"train.gradient_checkpointing": True},
     {"train.fsdp": True},
     {"train.mesh_shape": {"data": 2, "model": 1}},
-    {"train.tuning_mode": "lora"},
-    {"train.master_dtype": "bfloat16"},
-    {"train.fused_lm_ce": True},
     {"params_path": "weights"},
 ], ids=lambda o: next(iter(o)))
 def test_trainer_unported_options_raise(tmp_path, override):
