@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run plangen_tpu_torch's layout-to-image, text, editing, training,
-serving and evaluation paths once on one NVIDIA card.
+serving and evaluation paths, the opt-in decoders and the weight artifacts
+once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -175,6 +176,35 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      root with `python3 -c "import torch, chip_smoke as cs;
      cs.phase_header(torch); cs.phase_build();
      cs.phase_train_options(torch, torch.device('cuda:0'))"`.
+
+  13. the opt-in decoders at Janus-Pro-1B width on the phase-4 model (run
+     after phase 11): `layout_to_image` x1 with `speculative` (bf16, draft
+     8 layers, 4 tokens a round) against the graph base loop: s/call,
+     rounds, tokens a round, a round's device ms (CUDA events) and host ms
+     (the n read included), capture ms; K1 launches 4 x 8 a round and no
+     plain call; the graph's rounds bitwise equal to the eager round loop's
+     over the first 64 tokens; on an fp32 copy a full-depth draft bitwise
+     equal to the graph base loop at temperature 1 in ceil(575 / 5) rounds,
+     and greedy with the 8-layer draft equal to base greedy; then `plan` x4
+     with `jacobi` (bf16, budget 512) against the graph text loop: s/call,
+     passes, a pass's device and host ms, no kernel of the table launched,
+     the column where each row first parts from the graph loop (reported:
+     the two round differently); at budget 64 in fp32 equal to it.
+
+  14. the weight artifacts (run after phase 10, from its `.bin` checkout):
+     `cli convert` plain and `--quantize int4` (`--dtype bfloat16`, the
+     checkout's), `build_pipeline` from each `params_path` (every tensor
+     bitwise equal to the `janus_path` model's, or to its in-place int4
+     form's), load s and size on disk; the int4 artifact's `plan` x4 and
+     the in-place int4 pipeline's launch K2 and K1-q8 alike, with equal
+     tokens; `cli export` (fp32 safetensors) read back through
+     `load_params`, bitwise equal to the model's fp32 state dict. Run 13
+     and 14 alone from the root with `python3 -c "import pathlib, tempfile,
+     torch, chip_smoke as cs; cs.phase_header(torch); cs.phase_build();
+     dev = torch.device('cuda:0'); p, c = cs.build_pipeline(torch, dev,
+     False); cs.phase_decoders(torch, p, c); d =
+     pathlib.Path(tempfile.mkdtemp()); cs.write_checkpoint(torch, p.model,
+     d); del p; cs.phase_artifacts(torch, dev, d)"`.
 
 The last two lines are a JSON object describing the kernels (each with its
 launches on the main path, error, time, plain time, the one-call
@@ -2489,14 +2519,16 @@ def report_mode(tag: str, mode: str, results, wall: float, batches: int, peak: f
     return row
 
 
-def phase_serving(torch, dev) -> dict:
+def phase_serving(torch, dev, checkout=None) -> dict:
     """[10] Serving at Janus-Pro-1B width from a checkpoint on disk: the
     seeded model written as an HF checkout, `tasks/eval.py::build_pipeline`
     from it (weights bitwise equal to the seeded model's), `serve.Batcher`
     and the HTTP server in-process; every endpoint from client threads,
     checked; then `quantize="auto"`: K2 and K1-q8 at 64 rows as
     `expected_launches` says and no dense LM matmul, no K2 at 66 rows; and
-    both routes timed at B = 4, 32, 48. Returns the launches by kernel."""
+    both routes timed at B = 4, 32, 48. Returns the launches by kernel.
+    With `checkout` (a directory), the checkout is written there and kept
+    for phase 14."""
     import dataclasses
     import tempfile
 
@@ -2516,7 +2548,7 @@ def phase_serving(torch, dev) -> dict:
     gen = GenerationConfig(cfg_weight=5.0, temperature=1.0, output_uint8=True)
     numbers = {}
     with tempfile.TemporaryDirectory(prefix="plangen_ckpt_") as tmp:
-        path = pathlib.Path(tmp)
+        path = pathlib.Path(checkout or tmp)
         write_checkpoint(torch, seeded, path)
         cfg = PlanGenConfig(model=mcfg, janus_path=str(path), generation=gen)
         torch.cuda.synchronize()
@@ -3075,6 +3107,382 @@ def fast_against_standard(torch, ecfg, model, ds, task: str, bs: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phases 13, 14
+
+SPEC_DRAFT_LAYERS, SPEC_DRAFT_LEN = 8, 4
+SPEC_EAGER_TOKENS = 64  # graph against eager rounds: the first 64 tokens
+JACOBI_FP32_BUDGET = 64
+TIMED_REPLAYS = 32  # replays timed by CUDA events
+
+
+class ReplayTimer:
+    """While the `with` block lasts, every `StepGraph.replay` leaves its
+    host clock at its start in `starts` and, for the first TIMED_REPLAYS,
+    CUDA events around it in `pairs`; the first graph's capture +
+    instantiate ms goes to `capture_ms`."""
+
+    def __init__(self, torch):
+        self.torch, self.starts, self.pairs, self.capture_ms = torch, [], [], None
+
+    def __enter__(self):
+        from plangen_tpu_torch.runtime import cuda_graph
+
+        self.cls, replay = cuda_graph.StepGraph, cuda_graph.StepGraph.replay
+        self.replay = replay
+
+        def timed(graph):
+            if self.capture_ms is None:
+                self.capture_ms = graph.capture_ms
+            pair = None
+            if len(self.pairs) < TIMED_REPLAYS:
+                pair = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                pair[0].record()
+            self.starts.append(time.perf_counter())
+            replay(graph)
+            if pair is not None:
+                pair[1].record()
+                self.pairs.append(pair)
+
+        self.cls.replay = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.replay = self.replay
+
+    def device_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        if not self.pairs:
+            return float("nan")
+        return sum(a.elapsed_time(b) for a, b in self.pairs) / len(self.pairs)
+
+    def host_ms(self) -> float:
+        """Host ms from one replay's start to the next's: the host's read of
+        n between rounds included."""
+        if len(self.starts) < 2:
+            return float("nan")
+        return (self.starts[-1] - self.starts[0]) * 1e3 / (len(self.starts) - 1)
+
+
+class SpecRounds:
+    """The rounds of every speculative call the pipeline makes while the
+    `with` block lasts."""
+
+    def __enter__(self):
+        from plangen_tpu_torch.tasks import pipeline
+
+        self.mod, inner, self.rounds = pipeline, pipeline.generate_image_tokens_spec, []
+        self.inner = inner
+
+        def record(*args, **kw):
+            out = inner(*args, **kw)
+            self.rounds.append(out.rounds)
+            return out
+
+        pipeline.generate_image_tokens_spec = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.generate_image_tokens_spec = self.inner
+
+
+class PassTimer:
+    """An event and the host clock at the end of every Jacobi pass (its
+    `sticky_eos`) while the `with` block lasts."""
+
+    def __init__(self, torch):
+        self.torch, self.events, self.stamps = torch, [], []
+
+    def __enter__(self):
+        from plangen_tpu_torch.runtime import jacobi
+
+        self.mod, inner = jacobi, jacobi.sticky_eos
+        self.inner = inner
+
+        def timed(*args, **kw):
+            out = inner(*args, **kw)
+            event = self.torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.events.append(event)
+            self.stamps.append(time.perf_counter())
+            return out
+
+        jacobi.sticky_eos = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sticky_eos = self.inner
+
+    def passes(self) -> int:
+        return len(self.events)
+
+    def device_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        ev = self.events
+        return sum(a.elapsed_time(b) for a, b in zip(ev, ev[1:])) / (len(ev) - 1)
+
+    def host_ms(self) -> float:
+        return (self.stamps[-1] - self.stamps[0]) * 1e3 / (len(self.stamps) - 1)
+
+
+def first_difference(a, b) -> str:
+    """Where two token rows first part, or "equal"."""
+    import numpy as np
+
+    diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
+    return "equal" if not len(diff) else f"column {diff[0]} ({a[diff[0]]} vs {b[diff[0]]})"
+
+
+def phase_decoders(torch, pipe, cfg) -> dict:
+    """[13] The opt-in decoders at Janus-Pro-1B width on the phase-4 model:
+    speculative `layout_to_image` x1 in bf16 (K 8, d 4) against the graph
+    base loop (K1 launches d x K a round, no plain call; graph rounds
+    against the eager round loop, bitwise, over the first 64 tokens); on an
+    fp32 copy, a full-depth draft bitwise equal to the graph base loop at
+    temperature 1 in ceil(575 / 5) rounds and K 8 greedy equal to base
+    greedy; Jacobi `plan` x4 at budget 512 in bf16 against the graph text
+    loop (passes, ms a pass, where each row first parts), and at budget 64
+    in fp32 equal to it. Returns the launches by kernel of the speculative
+    pipeline call."""
+    import dataclasses
+
+    from plangen_tpu_torch.runtime.generate import generate_image_tokens
+    from plangen_tpu_torch.runtime.speculative import generate_image_tokens_spec
+    from plangen_tpu_torch.tasks.pipeline import PlanGenPipeline
+
+    card = nvidia_smi_line()
+    dev = pipe.device
+    K, d, L, N = SPEC_DRAFT_LAYERS, SPEC_DRAFT_LEN, cfg.llama.num_layers, cfg.image_seq_len
+    one = (CAPTIONS[:1], GROUNDINGS[:1])
+
+    def variant(p, **kw):
+        return PlanGenPipeline(p.model, cfg, p.proc, gen_cfg=dataclasses.replace(p.gen, **kw))
+
+    # speculative through the pipeline, against the graph base loop
+    spipe = variant(pipe, speculative=True, spec_draft_layers=K, spec_draft_len=d)
+    base, base_s, base_launches, _, _ = counted(
+        torch, dev, lambda: pipe.layout_to_image(*one, seeds=SEEDS[:1]))
+    with SpecRounds() as sr, ReplayTimer(torch) as rt:
+        out, spec_s, launches, plain, tc = counted(
+            torch, dev, lambda: spipe.layout_to_image(*one, seeds=SEEDS[:1]))
+    rounds = sr.rounds[0]
+    want = dict.fromkeys(kernel_counters(), 0)
+    want["prefix_decode_attention"] = rounds * d * K
+    check_launches("13", f"speculative x1 (K {K}, d {d}, {rounds} rounds)", launches, want,
+                   plain, tc)
+    check(base_launches["prefix_decode_attention"] == N * L, f"base: {base_launches}")
+    check_image_output(cfg, out, 1)
+    log(f"[13] speculative layout_to_image x1, bf16, K {K}, d {d}: {spec_s:.3f} s/call "
+        f"against the graph base loop's {base_s:.3f} ({card}); {rounds} rounds, "
+        f"{(N - 1) / rounds:.3f} tokens a round after token 0; a round: device "
+        f"{rt.device_ms():.3f} ms (events over {len(rt.pairs)} replays), host "
+        f"{rt.host_ms():.3f} ms (start to start, n read); capture + instantiate "
+        f"{rt.capture_ms or float('nan'):.1f} ms; tokens parting from the base loop's at "
+        f"{first_difference(out.image_tokens[0], base.image_tokens[0])}")
+
+    def spec_call(model, embeds, mask, temperature, layers, eager, n_tok):
+        g = (None if temperature == 0
+             else torch.Generator(device=dev).manual_seed(SEEDS[0]))
+        res = generate_image_tokens_spec(model, cfg, embeds, mask, g, pipe.gen.cfg_weight,
+                                         temperature, num_tokens=n_tok, draft_layers=layers,
+                                         draft_len=d, eager=eager)
+        return res.tokens.cpu(), res.rounds
+
+    prep = spipe.prepare_layout_to_image(*one, seeds=SEEDS[:1])
+    n = min(SPEC_EAGER_TOKENS, N)
+    mask_n = prep.cfg_mask[:, :prep.embeds.shape[1] + n]
+    times = {}
+    for eager in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        times[eager] = spec_call(spipe.model, prep.embeds, mask_n, 1.0, K, eager, n)
+        torch.cuda.synchronize()
+        times[eager] += (time.perf_counter() - t0,)
+    (e_tok, e_rounds, e_s), (g_tok, g_rounds, g_s) = times[True], times[False]
+    check(torch.equal(g_tok, e_tok) and g_rounds == e_rounds,
+          f"speculative graph against eager rounds: {first_difference(g_tok[0], e_tok[0])}, "
+          f"rounds {g_rounds} vs {e_rounds}")
+    log(f"[13] speculative, first {n} tokens: graph rounds bitwise equal to the eager round "
+        f"loop's ({g_rounds} rounds; graph {g_s:.3f} s, eager {e_s:.3f} s)")
+
+    # the identities, on an fp32 copy
+    model32 = copy.deepcopy(pipe.model).float()
+    e32 = prep.embeds.float()
+    base32 = generate_image_tokens(model32, cfg, e32, prep.cfg_mask,
+                                   torch.Generator(device=dev).manual_seed(SEEDS[0]),
+                                   pipe.gen.cfg_weight, 1.0, num_tokens=N).cpu()
+    full, full_rounds = spec_call(model32, e32, prep.cfg_mask, 1.0, L, False, N)
+    check(torch.equal(full, base32), "fp32 full-depth draft against the base loop: "
+          + first_difference(full[0], base32[0]))
+    check(full_rounds == -(-(N - 1) // (d + 1)), f"full-depth rounds {full_rounds}")
+    greedy32 = generate_image_tokens(model32, cfg, e32, prep.cfg_mask, None,
+                                     pipe.gen.cfg_weight, 0.0, num_tokens=N).cpu()
+    spec_greedy, greedy_rounds = spec_call(model32, e32, prep.cfg_mask, 0.0, K, False, N)
+    check(torch.equal(spec_greedy, greedy32), "fp32 greedy K 8 against base greedy: "
+          + first_difference(spec_greedy[0], greedy32[0]))
+    log(f"[13] fp32: full-depth draft (K {L}) bitwise equal to the graph base loop at "
+        f"temperature 1 in {full_rounds} rounds; K {K} greedy equal to base greedy in "
+        f"{greedy_rounds} rounds")
+
+    # Jacobi against the graph text loop
+    jpipe = variant(pipe, jacobi=True)
+    with TextTokens(pipe) as runs:
+        _, graph_s, _, _, _ = counted(torch, dev, lambda: pipe.plan(CAPTIONS))
+    graph_tokens = runs[0].cpu().numpy()
+    with TextTokens(jpipe) as runs, PassTimer(torch) as pt:
+        plans, jac_s, jac_launches, plain, _ = counted(torch, dev, lambda: jpipe.plan(CAPTIONS))
+    jac_tokens = runs[0].cpu().numpy()
+    check(jac_tokens.shape == graph_tokens.shape and str(jac_tokens.dtype) == "int32",
+          f"Jacobi tokens {jac_tokens.dtype} {jac_tokens.shape}")
+    check(int(jac_tokens.min()) >= 0 and int(jac_tokens.max()) < cfg.llama.vocab_size,
+          "Jacobi tokens out of the vocabulary")
+    check(sum(jac_launches.values()) == 0 and plain == 0,
+          f"Jacobi launched {jac_launches}, plain {plain}: it attends densely")
+    check(len(plans) == len(CAPTIONS), f"Jacobi plans: {plans}")
+    parts = [first_difference(j, g) for j, g in zip(jac_tokens, graph_tokens)]
+    log(f"[13] Jacobi plan x4, bf16, budget {graph_tokens.shape[1]}: {jac_s:.3f} s/call "
+        f"against the graph text loop's {graph_s:.3f} ({card}); {pt.passes()} passes; a "
+        f"pass: device {pt.device_ms():.3f} ms (events between pass ends), host "
+        f"{pt.host_ms():.3f} ms; rows part from the graph loop at: {parts}")
+
+    gen64 = dict(max_new_text_tokens=JACOBI_FP32_BUDGET)
+    p32 = PlanGenPipeline(model32, cfg, pipe.proc,
+                          gen_cfg=dataclasses.replace(pipe.gen, **gen64))
+    j32 = variant(p32, jacobi=True)
+    with TextTokens(p32) as seq_runs:
+        p32.plan(CAPTIONS)
+    with TextTokens(j32) as jac_runs, PassTimer(torch) as pt32:
+        j32.plan(CAPTIONS)
+    check(torch.equal(jac_runs[0].cpu(), seq_runs[0].cpu()),
+          "fp32 Jacobi against the graph text loop: " + str(
+              [first_difference(a, b) for a, b in zip(jac_runs[0].cpu().numpy(),
+                                                      seq_runs[0].cpu().numpy())]))
+    log(f"[13] Jacobi plan x4, fp32, budget {JACOBI_FP32_BUDGET}: tokens equal to the graph "
+        f"text loop's in {pt32.passes()} passes")
+    del model32, p32, j32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_artifacts(torch, dev, checkout) -> dict:
+    """[14] The weight artifacts at Janus-Pro-1B width, from phase 10's
+    `.bin` checkout: `cli convert` plain and `--quantize int4` (bf16),
+    `build_pipeline` from each `params_path` (weights bitwise equal to the
+    `janus_path` model and to its in-place int4 form; load s and size on
+    disk), the int4 artifact's `plan` x4 against the in-place int4
+    pipeline's (launches and tokens equal); `cli export` of the model
+    (fp32 safetensors) read back through `load_params`, bitwise equal to
+    the model's fp32 state dict. Returns the launches of the artifact's
+    `plan`."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    from plangen_tpu_torch import cli
+    from plangen_tpu_torch.config import GenerationConfig, PlanGenConfig, PlanGenModelConfig
+    from plangen_tpu_torch.convert.loading import load_params
+    from plangen_tpu_torch.ops.quant import quant_form
+    from plangen_tpu_torch.tasks.eval import build_pipeline
+
+    card = nvidia_smi_line()
+    mcfg = PlanGenModelConfig()  # Janus-Pro-1B widths
+    gen = GenerationConfig(cfg_weight=5.0, temperature=1.0)
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        return json.loads(buf.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0
+
+    def timed_pipeline(generation=gen, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = build_pipeline(PlanGenConfig(model=mcfg, generation=generation, **kw), device=dev)
+        torch.cuda.synchronize()
+        return p, time.perf_counter() - t0
+
+    def gib(path: pathlib.Path) -> float:
+        files = [path] if path.is_file() else [f for f in path.rglob("*") if f.is_file()]
+        return sum(f.stat().st_size for f in files) / 2**30
+
+    def same_weights(what, got, want):
+        got, want = got.state_dict(), want.state_dict()
+        check(sorted(got) == sorted(want), f"{what}: keys differ")
+        for k, v in want.items():
+            check(got[k].dtype == v.dtype and torch.equal(got[k], v),
+                  f"{what}: {k} is not bitwise equal")
+        return len(want)
+
+    bins = sorted(checkout.glob("pytorch_model-*.bin"))
+    ref, janus_s = timed_pipeline(janus_path=str(checkout))
+    log(f"[14] build_pipeline from the janus_path checkout: {janus_s:.2f} s "
+        f"({sum(gib(b) for b in bins):.2f} GiB of .bin shards); {card}")
+    launches = dict.fromkeys(kernel_counters(), 0)
+    with tempfile.TemporaryDirectory(prefix="plangen_artifacts_") as tmp:
+        tmp = pathlib.Path(tmp)
+        for form in (None, "int4"):
+            out = tmp / f"params_{form or 'bf16'}"
+            printed, convert_s = run_cli(
+                ["convert", "--janus-path", str(checkout), "--out", str(out), "--dtype",
+                 "bfloat16"] + (["--quantize", form] if form else []))
+            check(printed["saved"] == str(out.resolve()), f"convert printed {printed}")
+            art, load_s = timed_pipeline(params_path=str(out))
+            check(quant_form(art.model) == form and art.gen.quantize == form,
+                  f"artifact form {quant_form(art.model)}, pipeline {art.gen.quantize}")
+            if form is None:
+                n = same_weights("bf16 artifact", art.model, ref.model)
+                log(f"[14] cli convert (bf16): {convert_s:.2f} s, {printed['params_m']} M "
+                    f"parameters, {gib(out):.2f} GiB; build_pipeline from params_path "
+                    f"{load_s:.2f} s (janus_path {janus_s:.2f} s); {n} tensors bitwise equal "
+                    f"to the janus_path model's; {card}")
+            else:
+                inplace, inplace_s = timed_pipeline(
+                    generation=dataclasses.replace(gen, quantize=form), janus_path=str(checkout))
+                n = same_weights("int4 artifact", art.model, inplace.model)
+                plan_len = art.proc.stage1_batch(CAPTIONS, art.gen.max_new_text_tokens)[0].shape[1]
+                plans = []
+                for tag, p in (("int4 artifact", art), ("in-place int4", inplace)):
+                    plans.append(text_call(torch, p, mcfg, "14", f"{tag} plan x4",
+                                           lambda p=p: p.plan(CAPTIONS), len(CAPTIONS),
+                                           plan_len))
+                (_, a_tok, a_launches, a_s), (_, b_tok, b_launches, b_s) = plans
+                check(a_launches == b_launches, f"int4 plans: {a_launches} vs {b_launches}")
+                check(bool((a_tok == b_tok).all()), "int4 plans: tokens differ")
+                add_launches(launches, a_launches)
+                log(f"[14] cli convert --quantize int4: {convert_s:.2f} s, "
+                    f"{printed['params_m']} M stored elements, {gib(out):.2f} GiB; "
+                    f"build_pipeline from params_path {load_s:.2f} s (janus_path + in-place "
+                    f"int4 {inplace_s:.2f} s); {n} tensors bitwise equal to the in-place int4 "
+                    f"form's; plan x4 {a_s:.3f} s/call (in-place {b_s:.3f}), launches and "
+                    f"tokens equal; {card}")
+                del inplace
+            del art
+            torch.cuda.empty_cache()
+            shutil.rmtree(out)
+
+        export = tmp / "export"
+        export.mkdir()
+        printed, export_s = run_cli(["export", "--opt", f"janus_path={checkout}", "--out",
+                                     str(export / "model.safetensors")])
+        check(printed["keys"] == len(ref.model.state_dict()), f"export printed {printed}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = load_params(PlanGenConfig(model=mcfg, janus_path=str(export)), device=dev,
+                           dtype=torch.float32)
+        back_s = time.perf_counter() - t0
+        n = same_weights("export", back, copy.deepcopy(ref.model).float())
+        log(f"[14] cli export (fp32 safetensors): {export_s:.2f} s, {printed['keys']} keys, "
+            f"{gib(export):.2f} GiB; read back through load_params in {back_s:.2f} s, {n} "
+            f"tensors bitwise equal to the model's fp32 state dict; {card}")
+        del back
+    del ref
+    torch.cuda.empty_cache()
+    return launches
+
+
 def device_line(torch) -> dict:
     """The last line: the run drives cuda:0 only, so it used one card,
     whatever `torch.cuda.device_count()` says the machine shows."""
@@ -3144,6 +3552,7 @@ def main() -> int:
     for n in (4, 1):
         phase_graph_vs_eager(torch, pipe, cfg, "4c", n, GRAPH_TURNS)
     add_launches(launches, phase_eval(torch, pipe, cfg))
+    add_launches(launches, phase_decoders(torch, pipe, cfg))
 
     int4 = phase_int4_vs_plain(torch, dev)
     k1q8 = phase_k1_q8_vs_plain(torch, prompt_len, dev)
@@ -3177,7 +3586,11 @@ def main() -> int:
     add_launches(launches, phase_training(torch, dev))
     torch.cuda.empty_cache()
     add_launches(launches, phase_train_options(torch, dev))
-    add_launches(launches, phase_serving(torch, dev))
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="plangen_ckpt_") as checkout:
+        add_launches(launches, phase_serving(torch, dev, pathlib.Path(checkout)))
+        add_launches(launches, phase_artifacts(torch, dev, pathlib.Path(checkout)))
 
     kernels = [
         ("prefix_decode_attention", "prefix_decode_attention.cu",

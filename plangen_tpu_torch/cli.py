@@ -1,5 +1,5 @@
-"""Command line: serve, train, eval, metrics and doctor, with dotted-key
-config overrides.
+"""Command line: serve, train, eval, metrics, convert, export and doctor,
+with dotted-key config overrides.
 
 Port of `plangen_tpu/cli.py`. Configs are Python modules exporting
 `CONFIG: PlanGenConfig` (or a dict `OVERRIDES` applied to the default
@@ -19,9 +19,12 @@ tree and its metrics); `metrics` computes FID / KID between two image
 directories. `train` validates on `train.test_data` every
 `train.validation_steps` steps (0 turns it off), as the JAX CLI does.
 `doctor` reports torch, CUDA, the card, nvcc and the kernel builds.
-`convert` and `export` are not ported and raise `NotImplementedError`
-naming what is missing; the JAX package's TPU probe and compile cache have
-no counterpart.
+`convert` writes the port's weight artifact (`convert/params.py`) from a
+local checkout, quantized or not, with the JAX arguments (and `--dtype`,
+`--cfg` / `--opt` for the model config, `--device`); `export` writes the
+weights a config names as the reference's torch state dict, full or a
+tuning mode's trainable part. Both run on the card unless `--device cpu`.
+The JAX package's TPU probe and compile cache have no counterpart.
 """
 
 from __future__ import annotations
@@ -150,12 +153,61 @@ def cmd_serve(args) -> None:
           device=device)
 
 
-def _not_ported(what: str):
-    def cmd(args) -> None:
-        raise NotImplementedError(
-            f"{args.cmd}: not ported to plangen_tpu_torch yet ({what}); "
-            f"the JAX package has it: `python -m plangen_tpu.cli {args.cmd}`")
-    return cmd
+def cmd_convert(args) -> None:
+    """A local Janus-Pro checkout (+ an optional PlanGen fine-tune overlay)
+    -> the port's weight artifact (`convert/params.py`), which `params_path`
+    loads; `--quantize` writes a quantized serving artifact (int4 is ~4x
+    smaller on disk and skips quantization at load time). The weights are
+    read in `--dtype` (fp32, as the JAX converter reads them, by default)
+    and quantized from it."""
+    import torch
+
+    from plangen_tpu_torch.convert.loading import load_params
+    from plangen_tpu_torch.convert.params import save_params
+    from plangen_tpu_torch.ops.quant import quantize_model_
+
+    device = _device(args)
+    cfg = load_config(args.cfg, args.opt)
+    cfg = dataclasses.replace(cfg, janus_path=args.janus_path, finetune_path=args.finetune,
+                              params_path=None)
+    model = load_params(cfg, device=device, dtype=getattr(torch, args.dtype))
+    if model is None:
+        sys.exit(f"convert: no weights in --janus-path {args.janus_path!r}")
+    if args.quantize:
+        quantize_model_(model, args.quantize)
+    out = save_params(model, args.out)
+    n = sum(t.numel() for t in model.state_dict().values())
+    print(json.dumps({"saved": out, "params_m": round(n / 1e6, 1)}))
+
+
+def cmd_export(args) -> None:
+    """Weights back to the reference's torch world: the full HF state dict,
+    or only a tuning mode's trainable part, i.e. a reference-compatible
+    `trainable_model_parameters.pth` (base_system.py:166-189). The inverse
+    of loading a checkout: the weights `--cfg` / `--opt` name, in fp32."""
+    import torch
+
+    from plangen_tpu_torch.convert.export import model_state_dict, save_torch_state_dict
+    from plangen_tpu_torch.convert.loading import load_params
+
+    device = _device(args)
+    cfg = load_config(args.cfg, args.opt)
+    # export wants the dense fp32 values, not the serving cast
+    model = load_params(cfg, device=device, dtype=torch.float32)
+    if model is None:
+        sys.exit("export: no weights configured — set params_path (the port's "
+                 "artifact) or janus_path (torch checkpoint dir) via --opt/--cfg")
+    try:
+        sd = model_state_dict(model, args.trainable)
+        out = save_torch_state_dict(sd, args.out)
+    except ValueError as e:  # quantized model / unknown mode / bad extension
+        sys.exit(f"export: {e}")
+    total = sum(int(v.size) for v in sd.values())
+    print(json.dumps({"saved": out, "keys": len(sd),
+                      "params_m": round(total / 1e6, 1),
+                      "trainable": args.trainable,
+                      # bf16 sources upcast: fp32 values, 2x bf16 disk size
+                      "dtype": "float32 (bf16 params upcast on export)"}))
 
 
 def cmd_doctor(args) -> None:
@@ -302,13 +354,31 @@ def main(argv=None) -> None:
     pm.add_argument("--device", default=None, help="cuda (default) or cpu")
     pm.set_defaults(fn=cmd_metrics)
 
-    for name, what in (
-        ("convert", "orbax artifacts need jax; the port loads HF checkouts directly"),
-        ("export", "the export command; convert/export.py has the state-dict exporter"),
-    ):
-        px = sub.add_parser(name, help=f"not ported ({what})")
-        px.add_argument("rest", nargs=argparse.REMAINDER)
-        px.set_defaults(fn=_not_ported(what))
+    pc = sub.add_parser("convert", help="torch Janus checkpoint -> the port's weight artifact")
+    pc.add_argument("--janus-path", required=True)
+    pc.add_argument("--finetune", default=None,
+                    help="trainable_model_parameters.pth overlay")
+    pc.add_argument("--out", default="converted_params")
+    pc.add_argument("--quantize", default=None, choices=["int8", "int4", "int4_a8"],
+                    help="write a quantized serving artifact")
+    pc.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="the dtype the weights are read, quantized and stored in")
+    pc.add_argument("--cfg", default=None, help="the model config (default Janus-Pro-1B)")
+    pc.add_argument("--opt", nargs="*", default=[])
+    pc.add_argument("--device", default=None, help="cuda (default) or cpu")
+    pc.set_defaults(fn=cmd_convert)
+
+    px = sub.add_parser("export", help="params -> torch state dict (reference finetune format)")
+    px.add_argument("--cfg", default=None)
+    px.add_argument("--opt", nargs="*", default=[])
+    px.add_argument("--out", default="trainable_model_parameters.pth",
+                    help=".pth/.pt/.bin (torch), .safetensors, or .npz")
+    px.add_argument("--trainable", default=None,
+                    help="export only this tuning mode's trained subtree "
+                         "(stage1/stage2/stage3/lm/lora/lora_tokens/all); "
+                         "omit for the full state dict")
+    px.add_argument("--device", default=None, help="cuda (default) or cpu")
+    px.set_defaults(fn=cmd_export)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -1,18 +1,29 @@
-"""The JAX parameter tree as the HF-named state dict (numpy only).
+"""Weights as the HF-named state dict: the reference's torch format.
 
-A copy of `export_state_dict` and the helpers it needs from
+A copy of `export_state_dict`, `export_trainable_state_dict`,
+`save_torch_state_dict` and the helpers they need from
 `plangen_tpu/convert/jax_to_torch.py` (the port imports nothing of the JAX
-package): linear [in, out] -> [out, in], conv HWIO -> OIHW, the
-layer-stacked [L, ...] LM / SigLIP arrays unstacked into per-layer keys, the
-HF `MultiModalityCausalLM` submodule names. Quantized trees are refused; a
-tree with LoRA adapters is merged first (`train/lora.py::merge_lora`, on the
-tree), as the original merges it. tests/test_torch_copies.py holds it key
-for key and array for array against the original.
+package), over a JAX parameter tree of numpy arrays: linear [in, out] ->
+[out, in], conv HWIO -> OIHW, the layer-stacked [L, ...] LM / SigLIP arrays
+unstacked into per-layer keys, the HF `MultiModalityCausalLM` submodule
+names. Quantized trees are refused; a tree with LoRA adapters is merged
+first (`train/lora.py::merge_lora`, on the tree), as the original merges
+it. The tuning modes filter as the JAX package's path predicates
+(`plangen_tpu/train/optim.py::TUNING_MODES`, on "a/b/c" tree paths) do.
+tests/test_torch_copies.py and tests/test_torch_artifacts.py hold them key
+for key and array for array against the originals.
+
+`model_state_dict` gives the same dicts from the port's own
+`PlanGenModel`, whose module names are the HF names: its state dict in
+fp32 with LoRA merged (on a copy), a quantized model refused as
+`_check_dense` refuses a quantized tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import copy
+import re
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -255,3 +266,131 @@ def export_state_dict(
     """Full HF-named state dict (numpy values) from a dense param pytree."""
     return _export(params, cfg).sd
 
+
+
+# the tuning modes of the JAX package (plangen_tpu/train/optim.py::
+# TUNING_MODES); those that freeze by top-level name, whose rules read "a/b/c"
+# tree paths and HF keys alike (the top-level names are the same)
+_PREFIX_MODES: Dict[str, Callable[[str], bool]] = {
+    "all": lambda p: True,
+    "lm": lambda p: p.startswith("language_model"),
+    "stage1": lambda p: p.startswith(("aligner", "gen_aligner", "gen_head")),
+    "stage2": lambda p: not p.startswith(("vision_model", "gen_vision_model")),
+    "stage3": lambda p: not p.startswith("gen_vision_model"),
+}
+TUNING_MODES = tuple(_PREFIX_MODES) + ("lora", "lora_tokens")
+
+
+def _check_mode(tuning_mode: str) -> None:
+    if tuning_mode not in TUNING_MODES:
+        raise ValueError(
+            f"unknown tuning_mode {tuning_mode!r}; "
+            f"options: {sorted(TUNING_MODES)}"
+        )
+
+
+def export_trainable_state_dict(
+    params: Dict[str, Any], cfg: PlanGenModelConfig, tuning_mode: str,
+    prefix: str = "vl_gpt.",
+) -> Dict[str, np.ndarray]:
+    """Only the keys a tuning mode trained — the reference's
+    `trainable_model_parameters.pth` payload (base_system.py:166-189),
+    filtered by the SAME path predicates the JAX optimizer froze with.
+
+    Keys carry the `vl_gpt.` prefix by default: the reference saves from
+    the SYSTEM module's `named_parameters()` (base_system.py:188-189)
+    where the VLM is registered as `self.vl_gpt` (plangen_base.py:104),
+    and loads the payload back with `self.load_state_dict(sd,
+    strict=False)` (base_system.py:153-154) — bare HF names would
+    silently match ZERO keys there. Pass `prefix=""` for bare HF names
+    (e.g. to overlay onto an HF `MultiModalityCausalLM` directly).
+
+    'lora'/'lora_tokens' export the MERGED projections the adapters touched
+    (q/k/v/o — the reference can only consume merged weights), plus the
+    token embedding for 'lora_tokens'.
+    """
+    _check_mode(tuning_mode)
+    pred = _tree_predicate(tuning_mode)
+    em = _export(params, cfg)
+    return {prefix + k: v for k, v in em.sd.items()
+            if pred(em.jax_path[k])}
+
+
+def _tree_predicate(tuning_mode: str) -> Callable[[str], bool]:
+    if tuning_mode == "lora":
+        return lambda p: p.startswith("language_model/layers/") and any(
+            f"/{k}/" in p + "/" for k in ("q_proj", "k_proj", "v_proj",
+                                          "o_proj"))
+    if tuning_mode == "lora_tokens":
+        base = _tree_predicate("lora")
+        return lambda p: base(p) or p == "language_model/embed_tokens"
+    return _PREFIX_MODES[tuning_mode]
+
+
+_LM_ATTN_PROJ = re.compile(
+    r"^language_model\.model\.layers\.\d+\.self_attn\.[qkvo]_proj\.weight$")
+
+
+def _hf_predicate(tuning_mode: str) -> Callable[[str], bool]:
+    """`_tree_predicate` over HF keys: the adapters' merged projections for
+    the LoRA modes, the top-level prefix rules otherwise."""
+    if tuning_mode == "lora":
+        return lambda k: bool(_LM_ATTN_PROJ.match(k))
+    if tuning_mode == "lora_tokens":
+        return lambda k: (bool(_LM_ATTN_PROJ.match(k))
+                          or k == "language_model.model.embed_tokens.weight")
+    return _PREFIX_MODES[tuning_mode]
+
+
+def model_state_dict(model, tuning_mode: Optional[str] = None) -> Dict[str, np.ndarray]:
+    """The HF-named state dict of a port `PlanGenModel` as numpy fp32:
+    `export_state_dict`'s dict (bare names) without `tuning_mode`, else
+    `export_trainable_state_dict`'s (`vl_gpt.` names). LoRA adapters are
+    merged on a copy; a quantized model raises ValueError."""
+    import torch
+
+    from plangen_tpu_torch.ops.quant import quant_form
+    from plangen_tpu_torch.train.lora import has_lora, merge_lora
+
+    form = quant_form(model)
+    if form is not None:
+        raise ValueError(
+            f"cannot export a quantized model ({form}): quantization is "
+            "lossy — export from the dense artifact (load with "
+            "generation.quantize unset, or `cli convert` WITHOUT --quantize)"
+        )
+    if tuning_mode is not None:
+        _check_mode(tuning_mode)
+    if has_lora(model):
+        model = merge_lora(copy.deepcopy(model))
+    pred = (lambda k: True) if tuning_mode is None else _hf_predicate(tuning_mode)
+    prefix = "" if tuning_mode is None else "vl_gpt."
+    return {prefix + k: v.detach().to("cpu", torch.float32).numpy()
+            for k, v in model.state_dict().items() if pred(k)}
+
+
+def save_torch_state_dict(sd: Dict[str, np.ndarray], path: str) -> str:
+    """Write the exported dict: .pth via torch (the reference's format),
+    .safetensors via the port's writer (`convert/safetensors.py`), .npz as
+    the no-deps fallback."""
+    if path.endswith((".pth", ".pt", ".bin")):
+        import torch
+
+        # copy: read-only numpy views make torch.from_numpy warn
+        torch.save({k: torch.from_numpy(np.array(v, copy=True))
+                    for k, v in sd.items()}, path)
+    elif path.endswith(".safetensors"):
+        import torch
+
+        from plangen_tpu_torch.convert.safetensors import save_file
+
+        save_file({k: torch.from_numpy(np.ascontiguousarray(v))
+                   for k, v in sd.items()}, path)
+    elif path.endswith(".npz"):
+        np.savez(path, **sd)
+    else:
+        raise ValueError(
+            f"unsupported export extension on {path!r}: "
+            "use .pth/.pt/.bin (torch), .safetensors, or .npz"
+        )
+    return path

@@ -4,8 +4,12 @@ Port of `plangen_tpu/convert/loading.py::load_params` and of the checkpoint
 reading of `plangen_tpu/convert/torch_to_jax.py::load_janus_checkpoint`.
 Weights resolve in this order:
 
-  1. `cfg.params_path`, an orbax artifact of the JAX package's `cli
-     convert`: it needs orbax and jax, so it raises `NotImplementedError`;
+  1. `cfg.params_path`, the port's weight artifact (`convert/params.py`:
+     a safetensors state dict and a JSON naming its quantized form, written
+     by `cli convert` or `PlanGenCheckpointer.save_params_only`); a
+     quantized one is loaded in its form, the scales fp32. A directory
+     without the JSON (an orbax artifact of the JAX package, which needs
+     orbax and jax) raises `NotImplementedError`;
   2. `cfg.janus_path`, a local HF checkout: its `*.safetensors` files
      (read by `convert/safetensors.py`), or else its `pytorch_model*.bin`
      shards (`torch.load(..., weights_only=True)`), then the
@@ -133,9 +137,9 @@ def load_params(cfg: PlanGenConfig, model: Optional[nn.Module] = None, device=No
     when it names none. `model` is filled in place when given, else a
     `PlanGenModel` of `cfg.model` is built in `dtype` on `device`."""
     if cfg.params_path:
-        raise NotImplementedError(
-            f"params_path={cfg.params_path!r} is an orbax artifact of the JAX package, "
-            "which needs jax: point janus_path at the HF checkout instead")
+        from plangen_tpu_torch.convert.params import load_params_artifact
+
+        return load_params_artifact(cfg.params_path, cfg.model, model, device, dtype)
     if not has_weight_files(cfg.janus_path):
         print("plangen_tpu_torch: no weights found (params_path/janus_path unset or "
               "weightless) - using RANDOM init", file=sys.stderr)

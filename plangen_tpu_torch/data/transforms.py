@@ -1,11 +1,11 @@
 """Box-aware image transforms (host numpy + PIL).
 
 A copy of `plangen_tpu/data/transforms.py`, which the port cannot import
-(`plangen_tpu/data/__init__.py` imports jax), without the native C++ resize
-(`plangen_tpu/data/native.py`, not ported): `backend="auto"` takes PIL, as
-the JAX module does when `native/libplangen_data.so` is not built, and
-`backend="native"` raises. tests/test_torch_datasets.py holds the two
-copies equal.
+(`plangen_tpu/data/__init__.py` imports jax). Its native resize is the
+port's own binding (`data/native.py`) of the same C++ library, so
+`backend="auto"` takes the native resize exactly when
+`native/libplangen_data.so` is built, as the JAX module does.
+tests/test_torch_datasets.py holds the two copies equal.
 
 Behavioral re-implementations of the reference's shared dataset helpers:
   * short-side resize + center crop with box adjustment
@@ -28,7 +28,7 @@ def resize_short_side_center_crop(
     boxes_xywh: np.ndarray,  # [N, 4] pixel coords (x1, y1, w, h)
     target: int = 384,
     crop: bool = True,
-    backend: str = "auto",  # auto (= pil) | pil; native is not ported
+    backend: str = "auto",  # auto (native when built) | native | pil
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Bilinear short-side resize to `target`, center crop, adjust boxes.
 
@@ -36,8 +36,10 @@ def resize_short_side_center_crop(
     crops separately when use_MinIoURandomCrop is on, debug_grit.py:445-456);
     boxes stay in pixel coords of the resized image.
 
-    `backend="auto"` is PIL's bilinear resize (the JAX module's choice when
-    its native C++ resize is not built). The eval-side Janus preprocessor
+    `backend="auto"` uses the native C++ resize (native/plangen_data.cc,
+    half-pixel-center bilinear — the cv2/torch convention the REFERENCE's
+    dataset-side resize uses, funcs.py:523-528) when the library is built,
+    falling back to PIL. The eval-side Janus preprocessor
     (data/preprocess.py janus_image_preprocess) stays bicubic PIL for
     processor parity — this function is the TRAIN loaders' resize.
     """
@@ -52,16 +54,23 @@ def resize_short_side_center_crop(
     top = (new_h - target) // 2 if crop else 0
 
     src = image.astype(np.uint8) if image.dtype != np.uint8 else image
-    if backend == "native":
-        raise NotImplementedError(
-            "the native C++ resize (plangen_tpu/data/native.py) is not ported; "
-            "use backend='pil' or 'auto'")
-    from PIL import Image
+    if backend == "auto":
+        from plangen_tpu_torch.data.native import native_available
 
-    pil = Image.fromarray(src).resize((new_w, new_h), Image.BILINEAR)
-    if crop:
-        pil = pil.crop((left, top, left + target, top + target))
-    out = np.asarray(pil)
+        backend = "native" if native_available() else "pil"
+    if backend == "native":
+        from plangen_tpu_torch.data.native import resize_bilinear_native
+
+        full = resize_bilinear_native(src, (new_h, new_w), normalize=False)
+        full = np.clip(np.round(full), 0, 255).astype(np.uint8)
+        out = full[top:top + target, left:left + target] if crop else full
+    else:
+        from PIL import Image
+
+        pil = Image.fromarray(src).resize((new_w, new_h), Image.BILINEAR)
+        if crop:
+            pil = pil.crop((left, top, left + target, top + target))
+        out = np.asarray(pil)
 
     boxes = np.asarray(boxes_xywh, dtype=np.float32).reshape(-1, 4).copy()
     boxes[:, 0] = boxes[:, 0] * scale - left

@@ -38,6 +38,10 @@ the JAX layer adds `_lora_delta`.
 
 `remat` (training, no cache) runs each layer under `ops/remat.py`, as the
 JAX package wraps its layer-scan body in `jax.checkpoint`.
+
+`layers_limit` K exits after the first K layers through the shared final
+norm, as the JAX `forward` does for the self-speculative draft; a cached
+Q = 1 call still reads through the prefix kernel in each of its K layers.
 """
 
 from __future__ import annotations
@@ -266,6 +270,7 @@ class LlamaModel(nn.Module):
         kv_cache: Optional[KVCache] = None,  # written in place
         use_flash: bool = False,  # the flash kernel on the no-cache path
         remat: Remat = False,  # no cache: each layer under ops/remat.py
+        layers_limit: Optional[int] = None,  # early exit after the first K layers
     ) -> torch.Tensor:
         """Run the decoder stack (final RMSNorm applied, no head).
 
@@ -275,7 +280,15 @@ class LlamaModel(nn.Module):
         cache: the queries' rows are written at `positions`; prefill attends
         over the whole buffer with a causal + pad bias, a decode step
         (Q == 1) reads the live prefix through the prefix kernel with
-        `q_pos = positions`. Returns hidden [B, Q, hidden]."""
+        `q_pos = positions`. Returns hidden [B, Q, hidden].
+
+        `layers_limit` K runs the first K layers only, then the shared final
+        norm (the self-speculative draft, `runtime/speculative.py`); with a
+        cache only layers [0, K) are written. K must be in [1, num_layers]."""
+        n_layers = self.cfg.num_layers if layers_limit is None else layers_limit
+        if not 1 <= n_layers <= self.cfg.num_layers:
+            raise ValueError(f"layers_limit must be in [1, {self.cfg.num_layers}], "
+                             f"got {layers_limit}")
         B, Q, _ = inputs_embeds.shape
         device = inputs_embeds.device
         if positions is None:
@@ -295,7 +308,7 @@ class LlamaModel(nn.Module):
         cos, sin = rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
         x = inputs_embeds
         remat = remat if kv_cache is None else False
-        for i, layer in enumerate(self.layers):
+        for i, layer in enumerate(self.layers[:n_layers]):
             x = remat_call(layer, remat, x, cos, sin, bias, positions, attn_mask, kv_cache,
                            i, flash_mask, self.lora_scaling)
         return self.norm(x)
@@ -315,5 +328,6 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(hidden).float()
 
     def forward(self, inputs_embeds, attn_mask, positions=None, kv_cache=None,
-                use_flash=False, remat: Remat = False):
-        return self.model(inputs_embeds, attn_mask, positions, kv_cache, use_flash, remat)
+                use_flash=False, remat: Remat = False, layers_limit: Optional[int] = None):
+        return self.model(inputs_embeds, attn_mask, positions, kv_cache, use_flash, remat,
+                          layers_limit)

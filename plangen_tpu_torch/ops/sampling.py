@@ -65,6 +65,21 @@ def draw(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return (probs / noise).argmax(dim=-1)
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def mix_seed(seed: int, salt: int) -> int:
+    """A splitmix64 mix of (seed mod 2**32, salt): the seed of a stream
+    derived from `seed`, such as a caption's second copy or the
+    speculative decoder's accept draws. The CPU generator (mt19937) reads
+    only a seed's low 32 bits, so the mix spreads over them too; the card's
+    (Philox) reads all 64."""
+    x = ((int(seed) & 0xFFFFFFFF) + (salt << 32) + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
 def skip_categorical(
     n_rows: int,
     vocab: int,

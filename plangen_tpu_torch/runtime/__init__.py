@@ -1,1 +1,2 @@
-"""KV cache, prefill and the image-token decode loop."""
+"""KV cache, prefill, the decode loops and their CUDA graphs, and the
+opt-in decoders (`speculative`, `jacobi`)."""

@@ -39,10 +39,10 @@ Endpoints (JSON in/out):
                    -> {"image_b64": png, "tokens": [...], "seed": int}
   GET  /healthz    -> {"ok": true, "stats": {...}}
 
-Input PNGs are read by `utils/visualize.py::decode_png`: 8-bit gray, gray
-+ alpha, RGB or RGBA, non-interlaced; any other image is a 400 that names
-the limit (the JAX server reads whatever Pillow reads). They are resized to
-the model's size with `data/preprocess.py::resize_bicubic`.
+Input images (`image_b64`) are read as the JAX server reads them: any
+format Pillow reads (PNG of any depth, palette or interlacing, JPEG, ...),
+converted to RGB and resized to the model's size with Pillow's bicubic
+filter; an image Pillow cannot read is a 400.
 
 Seed contract: a request with "seed" samples from its own generators
 (`pipeline.row_generators`), so on the CPU its tokens are a pure function
@@ -59,13 +59,12 @@ Run: python -m plangen_tpu_torch.cli serve --opt ... --port 8000
 from __future__ import annotations
 
 import base64
+import io
 import json
 import queue
 import random
-import struct
 import threading
 import time
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -73,8 +72,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from plangen_tpu_torch.data.preprocess import build_edit_region, resize_bicubic, to_model_range
-from plangen_tpu_torch.utils.visualize import decode_png, encode_png
+from plangen_tpu_torch.data.preprocess import build_edit_region
+from plangen_tpu_torch.utils.visualize import encode_png
 
 MODES = ("generate", "plan", "joint", "understand", "edit")
 
@@ -84,9 +83,14 @@ def _png_b64(image: np.ndarray) -> str:
 
 
 def _png_decode(b64: str, hw: int) -> np.ndarray:
-    """base64 PNG -> [hw, hw, 3] float32 in [-1, 1], resized bicubically."""
-    rgb = decode_png(base64.b64decode(b64, validate=True))
-    return to_model_range(resize_bicubic(rgb, (hw, hw)))
+    """base64 image (any format Pillow reads) -> [hw, hw, 3] float32 in
+    [-1, 1]: RGB, then Pillow's bicubic resize, the reference
+    preprocessor's resample, as the JAX server does."""
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(base64.b64decode(b64, validate=True))).convert("RGB")
+    img = img.resize((hw, hw), Image.BICUBIC)
+    return np.asarray(img).astype(np.float32) / 127.5 - 1.0
 
 
 @dataclass
@@ -198,8 +202,8 @@ class Batcher:
             try:
                 req.pixels = _png_decode(payload["image_b64"],
                                          self.pipe.cfg.vision.image_size)
-            except (KeyError, TypeError, ValueError, zlib.error, struct.error) as e:
-                # a ValueError from decode_png names the formats it reads
+            except (KeyError, TypeError, ValueError, OSError, SyntaxError) as e:
+                # OSError: Pillow cannot identify or finish reading the image
                 raise ValueError(f"invalid image_b64: {type(e).__name__}: {e}")
         if mode == "edit":
             # rasterized once here; the batch loop re-reads the array form

@@ -41,8 +41,14 @@ forward each) on the route `_model_for` picks, with the raw schedule of the
 regen mask: the JAX pipeline canonicalizes it to bound its TPU compiles,
 which the port does not have; both schedules give the same tokens.
 
-Options the port does not have yet raise `NotImplementedError` instead of
-being ignored: `kv_a8`, `speculative` and `jacobi`. As in the
+The opt-in decoders: with `speculative`, a call of one image (B = 1, no
+teacher forcing) runs `runtime/speculative.py`, the request's generator
+driving its draws; `fast_edit` and teacher-forced calls keep their loops.
+With `jacobi`, every text decode (`plan`, the plan of `joint_generate`,
+`understand`) runs `runtime/jacobi.py`. Either with a quantized form raises
+`ValueError`, as the JAX config check does, before anything is quantized.
+The one option the port does not have, `kv_a8`, raises
+`NotImplementedError` instead of being ignored. As in the
 JAX pipeline, `gt_images` and `edit_region` take effect only with teacher
 forcing (the `teacher_forcing` argument, or
 `GenerationConfig.use_teacher_forcing` when it is None): the images are
@@ -61,14 +67,18 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from plangen_tpu_torch.config import GenerationConfig, PlanGenModelConfig
+from plangen_tpu_torch.config import (
+    GenerationConfig, PlanGenConfig, PlanGenModelConfig, validate_config,
+)
 from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.ops.quant import MODES, int4_view, quant_form, quantize_model_
-from plangen_tpu_torch.ops.sampling import Generators
+from plangen_tpu_torch.ops.sampling import Generators, mix_seed
 from plangen_tpu_torch.runtime.fast_edit import (
     frozen_chunk_schedule, generate_image_tokens_fast_edit,
 )
 from plangen_tpu_torch.runtime.generate import generate_image_tokens, greedy_decode_text
+from plangen_tpu_torch.runtime.jacobi import jacobi_decode_text
+from plangen_tpu_torch.runtime.speculative import generate_image_tokens_spec
 from plangen_tpu_torch.tasks.processor import PlanGenProcessor
 from plangen_tpu_torch.text.grounding import truncate_grounding
 
@@ -77,28 +87,16 @@ def _unsupported_options(gen: GenerationConfig) -> List[str]:
     names = []
     if gen.quantize not in (None, "auto") + MODES:
         names.append(f"quantize={gen.quantize!r}")
-    for flag in ("kv_a8", "speculative", "jacobi"):
-        if getattr(gen, flag):
-            names.append(f"{flag}=True")
+    if gen.kv_a8:
+        names.append("kv_a8=True")
     return names
-
-
-_MASK64 = (1 << 64) - 1
 
 
 def copy_seed(seed: int, copy: int) -> int:
     """The generator seed of `copy` of a caption seeded `seed`: the seed
-    itself (mod 2**32, like the JAX package's per-row keys) for copy 0, a
-    splitmix64 mix of (seed, copy) for the others. The CPU generator
-    (mt19937) reads only a seed's low 32 bits, so copies must differ there
-    too; the card's (Philox) reads all 64."""
-    s = int(seed) & 0xFFFFFFFF
-    if copy == 0:
-        return s
-    x = (s + (copy << 32) + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
+    itself (mod 2**32, like the JAX package's per-row keys) for copy 0,
+    `ops/sampling.py::mix_seed` of (seed, copy) for the others."""
+    return int(seed) & 0xFFFFFFFF if copy == 0 else mix_seed(seed, copy)
 
 
 def row_generators(
@@ -191,6 +189,9 @@ class PlanGenPipeline:
                 "plangen_tpu_torch does not implement "
                 + ", ".join(unsupported) + " yet"
             )
+        # the JAX config check's rules (speculative or jacobi with a
+        # quantized form raise ValueError), before anything is quantized
+        validate_config(PlanGenConfig(generation=gen))
         have = quant_form(model)
         if have is None:
             if gen.quantize == "auto":
@@ -259,11 +260,15 @@ class PlanGenPipeline:
 
     def _text_decode(self, embeds: torch.Tensor, mask: torch.Tensor,
                      budget: int) -> torch.Tensor:
-        """Greedy text decode over the pipeline's cache form, routed by its
-        rows."""
+        """Greedy text decode: the KV-cached loop over the pipeline's cache
+        form, routed by its rows, or Jacobi iteration when `gen.jacobi`
+        (token-exact either way), as the JAX pipeline chooses."""
+        eos = self.proc.tok.special.eos_id
+        if self.gen.jacobi:
+            return jacobi_decode_text(self.model, self.cfg, embeds, mask, eos,
+                                      max_new_tokens=budget)
         return greedy_decode_text(
-            self._model_for(int(embeds.shape[0])), self.cfg, embeds, mask,
-            self.proc.tok.special.eos_id,
+            self._model_for(int(embeds.shape[0])), self.cfg, embeds, mask, eos,
             max_new_tokens=budget, quantized_cache=self._quantized_cache,
         )
 
@@ -473,6 +478,15 @@ class PlanGenPipeline:
             tokens = generate_image_tokens_fast_edit(
                 model, self.cfg, prep.embeds, prep.cfg_mask,
                 schedule=frozen_chunk_schedule(prep.edit_mask_out), **kwargs)
+        elif self.gen.speculative and prep.embeds.shape[0] == 2 and prep.gt_tokens is None:
+            # B = 1: the request's generator (its row's, under per-request
+            # seeds) drives the draws, as the JAX pipeline passes row 0's key
+            tokens = generate_image_tokens_spec(
+                model, self.cfg, prep.embeds, prep.cfg_mask, prep.generator,
+                self.gen.cfg_weight, self.gen.temperature,
+                num_tokens=self.cfg.image_seq_len,
+                draft_layers=self.gen.spec_draft_layers,
+                draft_len=self.gen.spec_draft_len).tokens
         else:
             tokens = generate_image_tokens(model, self.cfg, prep.embeds, prep.cfg_mask,
                                            **kwargs)

@@ -8,15 +8,19 @@ running mean and the micro-step; the step) under
 `<directory>/<step>/state.pt`, keeps the newest `total_limit` steps and
 deletes older ones; `restore` loads the newest step
 (or a given one) into a train state, or returns None when there is none.
+`save_params_only` writes the model alone (or its masked part) as the
+port's weight artifact (`convert/params.py`) under
+`<directory>/params-<step>`, which `params_path` loads.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
+from torch import nn
 
 from plangen_tpu_torch.train.step import TrainState
 
@@ -65,3 +69,11 @@ class PlanGenCheckpointer:
         state.opt.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         return state
+
+    def save_params_only(self, step: int, model: nn.Module,
+                         mask: Optional[Dict[str, bool]] = None) -> str:
+        """Save the model's weights (with `mask`, {name: trainable}, only
+        the masked-in ones) as a standalone artifact; returns its path."""
+        from plangen_tpu_torch.convert.params import save_params
+
+        return save_params(model, os.path.join(self.directory, f"params-{step}"), mask)

@@ -12,9 +12,10 @@ cadence (save and raise); save every `checkpointing_steps` with FIFO
 rotation; resume from the latest checkpoint; save at the end. Steps count
 calls of the step, micro-steps under gradient accumulation, as in JAX.
 
-Without `model=`, the weights come from `cfg.janus_path` (and the
-`cfg.finetune_path` overlay) through `convert/loading.py::load_params`, or
-are seeded random when it names none; either way the model is built in the
+Without `model=`, the weights come from a dense `cfg.params_path`
+artifact (`convert/params.py`; a quantized one raises), or from
+`cfg.janus_path` (and the `cfg.finetune_path` overlay), through
+`convert/loading.py::load_params`, or are seeded random when it names none; either way the model is built in the
 master dtype (a random tensor is drawn in fp32 and cast, as a cast of the
 fp32 draw would give). A given model is cast to it.
 
@@ -30,7 +31,7 @@ numhw tokens are on; the effective mode is printed.
 metrics logged under `val/` keys.
 
 Not ported, and raising `NotImplementedError`: FSDP, a mesh of more than
-one device, and weights from an orbax `params_path`.
+one device, and weights from an orbax `params_path` of the JAX package.
 """
 
 from __future__ import annotations
@@ -67,9 +68,13 @@ def _check_supported(cfg: PlanGenConfig, model_given: bool) -> None:
         raise NotImplementedError(
             f"mesh_shape {tcfg.mesh_shape}: the port trains on one device")
     if not model_given and cfg.params_path:
-        raise NotImplementedError(
-            f"params_path={cfg.params_path!r} is an orbax artifact of the JAX package; "
-            "point janus_path at the HF checkout, or pass model=")
+        from plangen_tpu_torch.convert.params import read_meta
+
+        form = read_meta(cfg.params_path)["quantize"]  # an orbax one raises
+        if form is not None:
+            raise ValueError(
+                f"params_path={cfg.params_path!r} is a {form} artifact: training needs "
+                "dense weights (`cli convert` without --quantize)")
 
 
 def master_dtype(tcfg) -> torch.dtype:

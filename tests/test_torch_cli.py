@@ -101,12 +101,6 @@ def test_doctor_without_a_card_fails(monkeypatch, capsys):
     assert report["checks"]["config"]["ok"] is True
 
 
-@pytest.mark.parametrize("cmd", ["convert", "export"])
-def test_commands_not_ported_raise(cmd):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main([cmd])
-
-
 @pytest.mark.parametrize("argv", [["eval"], ["metrics", "gt", "pr"]], ids=["eval", "metrics"])
 def test_eval_and_metrics_without_a_card_exit_non_zero(argv, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -62,6 +62,26 @@ def test_port_source_imports_nothing_of_the_jax_package(path):
     assert _imports_of_jax_package(path) == []
 
 
+@pytest.mark.parametrize("module", ["runtime/speculative.py", "runtime/jacobi.py",
+                                    "convert/params.py", "convert/export.py",
+                                    "data/native.py"])
+def test_the_scan_covers_the_decoders_and_the_artifacts(module):
+    assert REPO / "plangen_tpu_torch" / module in PORT_SOURCES
+
+
+def test_native_binding_copy_has_the_same_interface():
+    """`plangen_tpu_torch/data/native.py` binds the same library with the
+    same functions (tests/test_torch_datasets.py runs both on one build)."""
+    import plangen_tpu.data.native as jnative
+    import plangen_tpu_torch.data.native as tnative
+
+    for name in ("native_available", "resize_bilinear_native",
+                 "resize_bilinear_batch_native", "resize_to_model_input"):
+        assert inspect.signature(getattr(tnative, name)) == \
+            inspect.signature(getattr(jnative, name)), name
+    assert tnative._SO_PATH == jnative._SO_PATH
+
+
 def test_the_scan_sees_an_import_of_the_jax_package(tmp_path):
     """The scan itself finds a lazy import inside a function."""
     probe = tmp_path / "probe.py"

@@ -5,7 +5,9 @@ Every dataset class of `plangen_tpu_torch/data/` (LayoutSAM eval and train,
 COCO val2017, COCO-200 removal and editing, NSR-1K, the LLM plans, GRiT and
 GRiT-7k, the edit specs, OpenImages) gives `Sample`s equal to the JAX
 copy's: strings equal, arrays exact (both decode and resize with Pillow).
-The transforms are equal, seeded augmentations draw the same, and the
+The transforms are equal, the native C++ resize included (both packages'
+bindings over one library the tests build with g++), seeded augmentations
+draw the same, and the
 registry has the JAX registry's names, each building the same dataset. The
 fixtures are built as the JAX package's own tests build them
 (tests/test_coco_real.py, test_grit.py, test_layoutsam_real.py,
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 
 import plangen_tpu.data.native as jnative
+import plangen_tpu_torch.data.native as tnative
 from plangen_tpu.config import PlanGenConfig as JPlanGenConfig
 from plangen_tpu.config import apply_overrides as japply_overrides
 from plangen_tpu.data import registry as jregistry
@@ -33,13 +36,6 @@ from test_layoutsam_real import make_eval_fixture, make_raw_train_fixture
 from test_oim_real import make_oim_fixture
 
 HW = 32  # janus_hw of the fixtures' configs
-
-
-@pytest.fixture(autouse=True)
-def _pil_resize_in_jax(monkeypatch):
-    """The JAX transforms take the native C++ resize when it is built; the
-    port has only Pillow's, so hold the JAX side to its Pillow path."""
-    monkeypatch.setattr(jnative, "native_available", lambda: False)
 
 
 def assert_samples_equal(got, want):
@@ -281,8 +277,96 @@ def test_resize_short_side_center_crop_equals_jax(hw, crop):
                                                      backend="pil")
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
-    with pytest.raises(NotImplementedError, match="native"):
-        transforms.resize_short_side_center_crop(image, boxes, 48, backend="native")
+    # without the library both `auto`s take Pillow, and `native` raises in both
+    for mod in (jnative, tnative):
+        assert mod._SO_PATH.endswith("native/libplangen_data.so")
+    with pytest.raises(RuntimeError, match="native library not built"):
+        _with_library(None, lambda: transforms.resize_short_side_center_crop(
+            image, boxes, 48, backend="native"))
+
+
+def _with_library(path, fn):
+    """fn() with both packages' bindings pointed at `path` (None: no
+    library), then their state restored."""
+    saved = [(m, m._SO_PATH, m._LIB, m._TRIED) for m in (jnative, tnative)]
+    try:
+        for m in (jnative, tnative):
+            m._SO_PATH = path or "/nonexistent/libplangen_data.so"
+            m._LIB, m._TRIED = None, False
+        return fn()
+    finally:
+        for m, so, lib, tried in saved:
+            m._SO_PATH, m._LIB, m._TRIED = so, lib, tried
+
+
+@pytest.fixture(scope="module")
+def native_lib(tmp_path_factory):
+    """native/plangen_data.cc built with g++ (the Makefile's flags) into a
+    temporary directory; skipped only where there is no compiler."""
+    import pathlib
+    import shutil
+    import subprocess
+
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no g++ to build native/plangen_data.cc")
+    src = pathlib.Path(__file__).resolve().parent.parent / "native" / "plangen_data.cc"
+    out = tmp_path_factory.mktemp("native") / "libplangen_data.so"
+    subprocess.run([cxx, "-O3", "-march=native", "-fPIC", "-std=c++17", str(src), "-o",
+                    str(out), "-shared", "-lpthread"], check=True, timeout=300)
+    return str(out)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_native_resize_equals_jax(native_lib, normalize):
+    rs = np.random.RandomState(5)
+    image = rs.randint(0, 256, (37, 53, 3), dtype=np.uint8)
+    batch = rs.randint(0, 256, (3, 20, 30, 3), dtype=np.uint8)
+
+    def both(fn_name, *args, **kw):
+        return [getattr(m, fn_name)(*args, **kw) for m in (tnative, jnative)]
+
+    def run():
+        assert tnative.native_available() and jnative.native_available()
+        got, want = both("resize_bilinear_native", image, (24, 31), normalize=normalize)
+        np.testing.assert_array_equal(got, want)
+        got, want = both("resize_bilinear_batch_native", batch, (9, 14), normalize=normalize)
+        np.testing.assert_array_equal(got, want)
+        got, want = both("resize_to_model_input", image, 16)
+        np.testing.assert_array_equal(got, want)
+        return got
+
+    assert _with_library(native_lib, run).shape == (16, 16, 3)
+
+
+@pytest.mark.parametrize("backend", ["auto", "native"])
+def test_native_transform_equals_jax(native_lib, backend):
+    rs = np.random.RandomState(6)
+    image = rs.randint(0, 256, (70, 110, 3), dtype=np.uint8)
+    boxes = np.array([[10, 5, 40, 30]], dtype=np.float32)
+
+    def run():
+        got = transforms.resize_short_side_center_crop(image, boxes, 48, backend=backend)
+        want = jtransforms.resize_short_side_center_crop(image, boxes, 48, backend=backend)
+        pil = transforms.resize_short_side_center_crop(image, boxes, 48, backend="pil")
+        return got, want, pil
+
+    got, want, pil = _with_library(native_lib, run)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    # the native resize is not Pillow's: `auto` took the library, as JAX's does
+    assert not np.array_equal(got[0], pil[0])
+
+
+def test_auto_takes_the_backend_jax_takes(native_lib):
+    image = np.random.RandomState(7).randint(0, 256, (60, 90, 3), dtype=np.uint8)
+    boxes = np.zeros((0, 4), np.float32)
+    for path in (native_lib, None):
+        got, want = _with_library(path, lambda: (
+            transforms.resize_short_side_center_crop(image, boxes, 32)[0],
+            jtransforms.resize_short_side_center_crop(image, boxes, 32)[0]))
+        np.testing.assert_array_equal(got, want)
+        assert _with_library(path, tnative.native_available) == (path is not None)
 
 
 def test_box_transforms_equal_jax():

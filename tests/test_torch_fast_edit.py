@@ -249,8 +249,32 @@ def test_pipeline_fast_edit_equals_standard(quantize, n, monkeypatch):
     assert calls == []
 
 
-def test_fast_edit_flag_is_accepted_with_the_other_options_still_raising():
+def test_fast_edit_flag_is_accepted_with_the_other_options_still_raising(monkeypatch):
+    """With `fast_edit` and `speculative` both on, a teacher-forced call of
+    one image takes `fast_edit`, as in JAX (speculative decoding is for
+    calls without teacher forcing), and gives the plain `fast_edit`
+    pipeline's tokens; `kv_a8`, the option the port lacks, still raises."""
     assert dataclasses.replace(_pipeline(None, True).gen).fast_edit
-    with pytest.raises(NotImplementedError, match="speculative"):
+    with pytest.raises(NotImplementedError, match="kv_a8"):
         PlanGenPipeline(_load()[1], TCFG, _pipeline(None, True).proc,
-                        gen_cfg=GenerationConfig(fast_edit=True, speculative=True))
+                        gen_cfg=GenerationConfig(fast_edit=True, kv_a8=True, quantize="int8"))
+    fast = _pipeline(None, True)
+    gen = dataclasses.replace(fast.gen, speculative=True, spec_draft_layers=1)
+    both = PlanGenPipeline(fast.model, TCFG, fast.proc, gen_cfg=gen)
+    calls = []
+    for name in ("generate_image_tokens_fast_edit", "generate_image_tokens_spec"):
+        inner = getattr(tpipeline, name)
+        monkeypatch.setattr(tpipeline, name, lambda *a, _n=name, _f=inner, **kw: (
+            calls.append(_n), _f(*a, **kw))[1])
+    size = TCFG.vision.image_size
+    image = np.random.RandomState(8).uniform(-1, 1, (1, size, size, 3)).astype(np.float32)
+    region = np.zeros((1, TCFG.image_seq_len), np.int32)
+    region[0, 2] = 1
+    grounding = ["<grounding><ref>x</ref><box>[0, 0, 500, 500]</box></grounding>"]
+    got = both.edit_image(["c"], grounding, image, region, seeds=[3])
+    want = fast.edit_image(["c"], grounding, image, region, seeds=[3])
+    assert calls == ["generate_image_tokens_fast_edit"] * 2
+    np.testing.assert_array_equal(got.image_tokens, want.image_tokens)
+    calls.clear()
+    both.layout_to_image(["c"], grounding, seeds=[3])  # no teacher forcing
+    assert calls == ["generate_image_tokens_spec"]

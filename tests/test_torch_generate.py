@@ -230,13 +230,13 @@ def test_sampled_layout_to_image_is_reproducible_per_seed():
 
 
 @pytest.mark.parametrize("option", [
-    dict(quantize="int2"), dict(speculative=True), dict(kv_a8=True, quantize="int8"),
-    dict(jacobi=True),
-], ids=["quantize", "speculative", "kv_a8", "jacobi"])
+    dict(quantize="int2"), dict(kv_a8=True, quantize="int8"),
+], ids=["quantize", "kv_a8"])
 def test_unported_options_raise(option):
-    """Options the port lacks raise; so does a quantize value outside the
-    modes (every mode of the JAX package, 'auto' included, is ported;
-    `fast_edit` too, tests/test_torch_fast_edit.py)."""
+    """The option the port lacks (`kv_a8`) raises; so does a quantize value
+    outside the modes (every mode of the JAX package, 'auto' included, is
+    ported; `fast_edit` too, tests/test_torch_fast_edit.py; `speculative`
+    and `jacobi`, tests/test_torch_speculative.py and test_torch_jacobi.py)."""
     cfg, _, model = _load("tiny")
     tok = ByteFallbackTokenizer(vocab_size=cfg.llama.vocab_size)
     proc = PlanGenProcessor(tok, image_tokens=cfg.image_seq_len)

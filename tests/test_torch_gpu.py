@@ -1359,3 +1359,84 @@ def test_lora_captured_steps_equal_eager_loops(cuda, loop, monkeypatch):
     torch.cuda.synchronize()
     assert len(graphs) == 1
     assert torch.equal(graph_tokens, eager_tokens)
+
+
+# ---------------------------------------------------------- the opt-in decoders
+
+
+def _spec_prompt(cuda, cfg, n):
+    """One image's CFG pair: embeds [2, 12, H] bf16, mask [2, 12 + n]."""
+    embeds, mask = _graph_prompt(cuda, cfg, n)
+    return embeds[:2].contiguous(), mask[:2].contiguous()
+
+
+def _spec_run(model, cfg, embeds, mask, n, temperature, eager, draft_layers=1, seed=5):
+    from plangen_tpu_torch.runtime.speculative import generate_image_tokens_spec
+
+    generator = (None if temperature == 0
+                 else torch.Generator(device=embeds.device).manual_seed(seed))
+    before = _loop_counts()
+    plain = da.prefix_decode_attention_reference.calls
+    out = generate_image_tokens_spec(model, cfg, embeds, mask, generator, 5.0, temperature,
+                                     num_tokens=n, draft_layers=draft_layers, draft_len=3,
+                                     eager=eager)
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip(_loop_counts(), before))
+    return out.tokens.cpu(), out.rounds, counts, da.prefix_decode_attention_reference.calls - plain
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.0], ids=["sampled", "greedy"])
+def test_speculative_graph_round_equals_the_eager_round(cuda, temperature, monkeypatch):
+    """`generate_image_tokens_spec` on the card (round 1 eager, then one
+    captured round replayed) against its eager round loop: the same tokens
+    and rounds, bit for bit, from generators seeded alike; one graph."""
+    from plangen_tpu_torch.runtime import speculative as spec_mod
+
+    cfg, model = _graph_model(cuda)
+    n = 40
+    embeds, mask = _spec_prompt(cuda, cfg, n)
+    made, cls = [], spec_mod.StepGraph
+    monkeypatch.setattr(spec_mod, "StepGraph", lambda *a, **kw: made.append(1) or cls(*a, **kw))
+    eager = _spec_run(model, cfg, embeds, mask, n, temperature, eager=True)
+    assert not made
+    graph = _spec_run(model, cfg, embeds, mask, n, temperature, eager=False)
+    assert len(made) == 1
+    assert torch.equal(graph[0], eager[0]) and graph[1] == eager[1] and graph[2] == eager[2]
+    assert graph[0].shape == (1, n) and int(graph[0].max()) < cfg.image_token_size
+
+
+def test_speculative_call_launches_k1_and_no_plain_version(cuda):
+    """Each round's 3 draft steps launch K1 in each of the draft's layers;
+    the verify attends densely; the plain version never runs. In fp32 a
+    full-depth greedy draft gives base greedy's tokens."""
+    cfg, model = _graph_model(cuda)
+    n = 40
+    embeds, mask = _spec_prompt(cuda, cfg, n)
+    tokens, rounds, counts, plain = _spec_run(model, cfg, embeds, mask, n, 1.0, eager=False)
+    assert counts[0] == rounds * 3 * 1 and sum(counts[1:]) == 0 and plain == 0
+    L = cfg.llama.num_layers
+    model, embeds = model.float(), embeds.float()
+    tokens, rounds, counts, plain = _spec_run(model, cfg, embeds, mask, n, 0.0, eager=False,
+                                              draft_layers=L)
+    base = generate_image_tokens(model, cfg, embeds, mask, None, 5.0, 0.0, num_tokens=n)
+    assert counts[0] == rounds * 3 * L and plain == 0
+    assert torch.equal(tokens, base.cpu())
+
+
+def test_jacobi_equals_the_graph_text_loop_in_fp32(cuda):
+    """Jacobi on the card in fp32 (dense attention, no kernel) gives the
+    graph text loop's tokens (K1 at every step)."""
+    from plangen_tpu_torch.runtime.jacobi import jacobi_decode_text
+
+    cfg = _tiny_d64()
+    model = init_params(PlanGenModel(cfg, dtype=torch.float32, device=cuda),
+                        torch.Generator(device=cuda).manual_seed(0)).eval()
+    n = 24
+    embeds, mask = _text_prompt(cuda, cfg, n)
+    embeds = embeds.float()
+    seq, _ = _text_run(model, cfg, embeds, mask, TEXT_EOS, n)
+    before = _loop_counts()
+    jac, iters = jacobi_decode_text(model, cfg, embeds, mask, TEXT_EOS, max_new_tokens=n,
+                                    return_iters=True)
+    assert _loop_counts() == before
+    assert torch.equal(jac.cpu(), seq) and 1 <= iters <= n

@@ -7,7 +7,9 @@
     outputs equal JAX's within fp32 rounding (1e-5);
   * an extra checkpoint key is skipped and listed, a missing one raises;
   * the `finetune_path` overlay strips `vl_gpt.` and skips unmatched keys,
-    as JAX's does; `params_path` raises; the `Trainer` starts from the
+    as JAX's does; a `params_path` that is not the port's artifact (an
+    orbax directory) raises (the artifact itself:
+    tests/test_torch_artifacts.py); the `Trainer` starts from the
     loaded checkpoint in fp32;
   * the port's safetensors reader and writer against the `safetensors`
     package, every dtype they take.

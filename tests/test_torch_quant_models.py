@@ -347,16 +347,18 @@ def test_prequantized_model_engages_its_form():
     assert out.image_tokens.shape == (1, CFG.image_seq_len)
 
 
-@pytest.mark.parametrize("option", [
-    dict(quantize="auto", speculative=True), dict(kv_a8=True, quantize="int4"),
+@pytest.mark.parametrize("option,error", [
+    (dict(quantize="auto", speculative=True), ValueError),
+    (dict(kv_a8=True, quantize="int4"), NotImplementedError),
 ], ids=["auto", "kv_a8"])
-def test_unported_quantized_options_raise(option):
-    """An unported option raises before the model is quantized (or, under
-    'auto', before its int4 view is built); 'auto' itself is ported
-    (tests/test_torch_auto_route.py)."""
+def test_unported_quantized_options_raise(option, error):
+    """The unported option (`kv_a8`) raises NotImplementedError, and
+    `speculative` with a quantized form the JAX config check's ValueError,
+    before the model is quantized (or, under 'auto', before its int4 view is
+    built); 'auto' itself is ported (tests/test_torch_auto_route.py)."""
     _, proc = _procs(GenerationConfig())
     model = _dense_model()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         PlanGenPipeline(model, CFG, proc, gen_cfg=GenerationConfig(**option))
     assert quant_form(model) is None  # refused before quantizing anything
 

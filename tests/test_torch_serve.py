@@ -10,7 +10,10 @@ contract, and holds the answers against the JAX package:
     pixels;
   * `/edit` with an all-zero region equals the JAX server's tokens;
   * a seeded `/generate` reproduces across batch compositions;
-  * buckets, `min_batch`, the 400s, `close`, `warmup` and `parallel_size`.
+  * buckets, `min_batch`, the 400s, `close`, `warmup` and `parallel_size`;
+  * input images in every format Pillow reads (JPEG, palette, RGBA, 16-bit
+    and interlaced PNG) decode bit for bit as the JAX server's
+    `_png_decode` decodes them, and reach an answer through `/understand`.
 """
 
 import base64
@@ -31,6 +34,7 @@ import jax.numpy as jnp
 from plangen_tpu.config import GenerationConfig as JaxGenerationConfig
 from plangen_tpu.models import vlm as jvlm
 from plangen_tpu.serve import Batcher as JaxBatcher
+from plangen_tpu.serve import _png_decode as jax_png_decode
 from plangen_tpu.tasks.pipeline import PlanGenPipeline as JaxPipeline
 from plangen_tpu.tasks.processor import PlanGenProcessor as JaxProcessor
 from plangen_tpu.text.tokenizer import ByteFallbackTokenizer as JaxByteTokenizer
@@ -38,7 +42,7 @@ from plangen_tpu_torch.config import GenerationConfig, PlanGenModelConfig
 from plangen_tpu_torch.convert import load_jax_params
 from plangen_tpu_torch.data.preprocess import build_edit_region
 from plangen_tpu_torch.models.vlm import PlanGenModel
-from plangen_tpu_torch.serve import Batcher, _Request, make_server, warmup
+from plangen_tpu_torch.serve import Batcher, _Request, _png_decode, make_server, warmup
 from plangen_tpu_torch.tasks.pipeline import PlanGenPipeline
 from plangen_tpu_torch.tasks.processor import PlanGenProcessor
 from plangen_tpu_torch.text.tokenizer import ByteFallbackTokenizer
@@ -196,10 +200,14 @@ class TestServe:
         assert code == 400 and "image_b64" in out["error"]
 
     def test_unsupported_png_is_a_400_naming_the_limit(self, server):
+        """Bytes Pillow cannot read as an image are a 400 naming the field
+        (a palette PNG is read, as the JAX server reads it:
+        `TestImageFormats`)."""
         base, _ = server
-        code, out = post(base, "/understand", {"image_b64": _png(_pattern(), "P")})
+        junk = base64.b64encode(b"\x89PNG\r\n\x1a\n not an image").decode()
+        code, out = post(base, "/understand", {"image_b64": junk})
         assert code == 400
-        assert "image_b64" in out["error"] and "no palette" in out["error"]
+        assert "image_b64" in out["error"] and "UnidentifiedImageError" in out["error"]
 
     def test_per_request_seeds_reproduce_across_batching(self, server):
         base, _ = server
@@ -466,3 +474,69 @@ class TestWarmup:
                 warmup(b, "nosuchmode:2")
         finally:
             b.close()
+
+
+def _encoded(fmt: str) -> str:
+    """A 45 x 50 seeded image in one of the formats a client may send."""
+    rgb = _pattern(45, 50, seed=9)
+    buf = io.BytesIO()
+    if fmt == "jpeg":
+        Image.fromarray(rgb).save(buf, format="JPEG", quality=90)
+    elif fmt == "palette":
+        Image.fromarray(rgb).convert("P").save(buf, format="PNG")
+    elif fmt == "rgba":
+        alpha = np.random.RandomState(10).randint(0, 256, (45, 50, 1), dtype=np.uint8)
+        Image.fromarray(np.concatenate([rgb, alpha], axis=2), "RGBA").save(buf, format="PNG")
+    elif fmt == "gray16":
+        gray = np.random.RandomState(11).randint(0, 65536, (45, 50)).astype(np.uint16)
+        Image.fromarray(gray).save(buf, format="PNG")
+    elif fmt == "interlaced":
+        # Pillow writes no Adam7 PNG: the interlaced PNG is assembled here
+        buf.write(_adam7_png(rgb))
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _adam7_png(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG with Adam7 interlacing, every scanline filter 0."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    passes = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+              (0, 1, 2, 2), (1, 0, 2, 1))
+    raw = b""
+    for y0, x0, dy, dx in passes:
+        sub = rgb[y0::dy, x0::dx]
+        if sub.size:
+            raw += b"".join(b"\x00" + row.tobytes() for row in sub)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 1))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+FORMATS = ("jpeg", "palette", "rgba", "gray16", "interlaced")
+
+
+class TestImageFormats:
+    @pytest.mark.parametrize("fmt", FORMATS)
+    def test_decode_equals_the_jax_server(self, fmt):
+        b64 = _encoded(fmt)
+        got = _png_decode(b64, SIZE)
+        assert got.shape == (SIZE, SIZE, 3) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, jax_png_decode(b64, SIZE))
+
+    def test_the_interlaced_fixture_is_interlaced(self):
+        png = base64.b64decode(_encoded("interlaced"))
+        img = Image.open(io.BytesIO(png))
+        assert img.info.get("interlace") == 1
+        np.testing.assert_array_equal(np.asarray(img.convert("RGB")), _pattern(45, 50, seed=9))
+
+    @pytest.mark.parametrize("fmt", FORMATS)
+    def test_understand_answers(self, server, fmt):
+        base, _ = server
+        code, out = post(base, "/understand", {"image_b64": _encoded(fmt)})
+        assert code == 200 and isinstance(out["grounding"], str)
