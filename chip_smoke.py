@@ -183,19 +183,23 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      rounds, tokens a round, a round's device ms (CUDA events) and host ms
      (the n read included), capture ms; K1 launches 4 x 8 a round and no
      plain call; the graph's rounds bitwise equal to the eager round loop's
-     over the first 64 tokens; on an fp32 copy a full-depth draft bitwise
+     over the first 32 tokens; on an fp32 copy a full-depth draft bitwise
      equal to the graph base loop at temperature 1 in ceil(575 / 5) rounds,
      and greedy with the 8-layer draft equal to base greedy; then `plan` x4
      with `jacobi` (bf16, budget 512) against the graph text loop: s/call,
-     passes, a pass's device and host ms, no kernel of the table launched,
+     the decoder's passes (its `return_iters`), a pass's device and host ms
+     (the whole call timed by CUDA events and the host clock over its
+     passes), no kernel of the table launched,
      the column where each row first parts from the graph loop (reported:
      the two round differently); at budget 64 in fp32 equal to it.
 
   14. the weight artifacts (run after phase 10, from its `.bin` checkout):
-     `cli convert` plain and `--quantize int4` (`--dtype bfloat16`, the
-     checkout's), `build_pipeline` from each `params_path` (every tensor
-     bitwise equal to the `janus_path` model's, or to its in-place int4
-     form's), load s and size on disk; the int4 artifact's `plan` x4 and
+     `cli convert` plain and `--quantize int4` (the weights read, quantized
+     and stored in fp32, as a user runs it), `build_pipeline` (bf16) from
+     each `params_path` (every tensor bitwise equal to the `janus_path`
+     model's, or to its in-place int4 form's: the checkout holds bf16
+     values and quantization runs in fp32 from either), load s and size on
+     disk; the int4 artifact's `plan` x4 and
      the in-place int4 pipeline's launch K2 and K1-q8 alike, with equal
      tokens; `cli export` (fp32 safetensors) read back through
      `load_params`, bitwise equal to the model's fp32 state dict. Run 13
@@ -3110,7 +3114,7 @@ def fast_against_standard(torch, ecfg, model, ds, task: str, bs: int) -> dict:
 # ------------------------------------------------------------ phases 13, 14
 
 SPEC_DRAFT_LAYERS, SPEC_DRAFT_LEN = 8, 4
-SPEC_EAGER_TOKENS = 64  # graph against eager rounds: the first 64 tokens
+SPEC_EAGER_TOKENS = 32  # graph against eager rounds: the first 32 tokens
 JACOBI_FP32_BUDGET = 64
 TIMED_REPLAYS = 32  # replays timed by CUDA events
 
@@ -3163,65 +3167,47 @@ class ReplayTimer:
         return (self.starts[-1] - self.starts[0]) * 1e3 / (len(self.starts) - 1)
 
 
-class SpecRounds:
-    """The rounds of every speculative call the pipeline makes while the
-    `with` block lasts."""
+class DecoderCalls:
+    """While the `with` block lasts, every call the pipeline makes to the
+    decoder entry point `name` (`generate_image_tokens_spec` or
+    `jacobi_decode_text`) is timed whole, by two CUDA events and the host
+    clock, and leaves `(steps, device_ms, host_ms)` in `calls`: a
+    speculative call's rounds, or a Jacobi call's passes (the decoder's own
+    count, through `return_iters=True`)."""
+
+    def __init__(self, torch, name: str):
+        self.torch, self.name, self.calls = torch, name, []
 
     def __enter__(self):
         from plangen_tpu_torch.tasks import pipeline
 
-        self.mod, inner, self.rounds = pipeline, pipeline.generate_image_tokens_spec, []
+        self.mod, inner = pipeline, getattr(pipeline, self.name)
         self.inner = inner
-
-        def record(*args, **kw):
-            out = inner(*args, **kw)
-            self.rounds.append(out.rounds)
-            return out
-
-        pipeline.generate_image_tokens_spec = record
-        return self
-
-    def __exit__(self, *exc):
-        self.mod.generate_image_tokens_spec = self.inner
-
-
-class PassTimer:
-    """An event and the host clock at the end of every Jacobi pass (its
-    `sticky_eos`) while the `with` block lasts."""
-
-    def __init__(self, torch):
-        self.torch, self.events, self.stamps = torch, [], []
-
-    def __enter__(self):
-        from plangen_tpu_torch.runtime import jacobi
-
-        self.mod, inner = jacobi, jacobi.sticky_eos
-        self.inner = inner
+        jacobi = self.name == "jacobi_decode_text"
 
         def timed(*args, **kw):
-            out = inner(*args, **kw)
-            event = self.torch.cuda.Event(enable_timing=True)
-            event.record()
-            self.events.append(event)
-            self.stamps.append(time.perf_counter())
+            start, end = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            out = inner(*args, **kw, **({"return_iters": True} if jacobi else {}))
+            end.record()
+            end.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            out, steps = out if jacobi else (out, out.rounds)
+            self.calls.append((int(steps), start.elapsed_time(end), host_ms))
             return out
 
-        jacobi.sticky_eos = timed
+        setattr(pipeline, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        self.mod.sticky_eos = self.inner
+        setattr(self.mod, self.name, self.inner)
 
-    def passes(self) -> int:
-        return len(self.events)
-
-    def device_ms(self) -> float:
-        self.torch.cuda.synchronize()
-        ev = self.events
-        return sum(a.elapsed_time(b) for a, b in zip(ev, ev[1:])) / (len(ev) - 1)
-
-    def host_ms(self) -> float:
-        return (self.stamps[-1] - self.stamps[0]) * 1e3 / (len(self.stamps) - 1)
+    def per_step(self) -> tuple:
+        """(steps, device ms a step, host ms a step) over every call."""
+        steps = sum(c[0] for c in self.calls)
+        return (steps, sum(c[1] for c in self.calls) / steps,
+                sum(c[2] for c in self.calls) / steps)
 
 
 def first_difference(a, b) -> str:
@@ -3236,13 +3222,13 @@ def phase_decoders(torch, pipe, cfg) -> dict:
     """[13] The opt-in decoders at Janus-Pro-1B width on the phase-4 model:
     speculative `layout_to_image` x1 in bf16 (K 8, d 4) against the graph
     base loop (K1 launches d x K a round, no plain call; graph rounds
-    against the eager round loop, bitwise, over the first 64 tokens); on an
+    against the eager round loop, bitwise, over the first 32 tokens); on an
     fp32 copy, a full-depth draft bitwise equal to the graph base loop at
     temperature 1 in ceil(575 / 5) rounds and K 8 greedy equal to base
     greedy; Jacobi `plan` x4 at budget 512 in bf16 against the graph text
-    loop (passes, ms a pass, where each row first parts), and at budget 64
-    in fp32 equal to it. Returns the launches by kernel of the speculative
-    pipeline call."""
+    loop (the decoder's passes, ms a pass from the whole call, where each
+    row first parts), and at budget 64 in fp32 equal to it. Returns the
+    launches by kernel of the speculative pipeline call."""
     import dataclasses
 
     from plangen_tpu_torch.runtime.generate import generate_image_tokens
@@ -3250,6 +3236,7 @@ def phase_decoders(torch, pipe, cfg) -> dict:
     from plangen_tpu_torch.tasks.pipeline import PlanGenPipeline
 
     card = nvidia_smi_line()
+    t_phase = time.perf_counter()
     dev = pipe.device
     K, d, L, N = SPEC_DRAFT_LAYERS, SPEC_DRAFT_LEN, cfg.llama.num_layers, cfg.image_seq_len
     one = (CAPTIONS[:1], GROUNDINGS[:1])
@@ -3261,10 +3248,11 @@ def phase_decoders(torch, pipe, cfg) -> dict:
     spipe = variant(pipe, speculative=True, spec_draft_layers=K, spec_draft_len=d)
     base, base_s, base_launches, _, _ = counted(
         torch, dev, lambda: pipe.layout_to_image(*one, seeds=SEEDS[:1]))
-    with SpecRounds() as sr, ReplayTimer(torch) as rt:
+    with DecoderCalls(torch, "generate_image_tokens_spec") as sc, ReplayTimer(torch) as rt:
         out, spec_s, launches, plain, tc = counted(
             torch, dev, lambda: spipe.layout_to_image(*one, seeds=SEEDS[:1]))
-    rounds = sr.rounds[0]
+    check(len(sc.calls) == 1, f"{len(sc.calls)} speculative calls for one image")
+    rounds = sc.calls[0][0]
     want = dict.fromkeys(kernel_counters(), 0)
     want["prefix_decode_attention"] = rounds * d * K
     check_launches("13", f"speculative x1 (K {K}, d {d}, {rounds} rounds)", launches, want,
@@ -3305,6 +3293,7 @@ def phase_decoders(torch, pipe, cfg) -> dict:
         f"loop's ({g_rounds} rounds; graph {g_s:.3f} s, eager {e_s:.3f} s)")
 
     # the identities, on an fp32 copy
+    t_fp32 = time.perf_counter()
     model32 = copy.deepcopy(pipe.model).float()
     e32 = prep.embeds.float()
     base32 = generate_image_tokens(model32, cfg, e32, prep.cfg_mask,
@@ -3321,15 +3310,17 @@ def phase_decoders(torch, pipe, cfg) -> dict:
           + first_difference(spec_greedy[0], greedy32[0]))
     log(f"[13] fp32: full-depth draft (K {L}) bitwise equal to the graph base loop at "
         f"temperature 1 in {full_rounds} rounds; K {K} greedy equal to base greedy in "
-        f"{greedy_rounds} rounds")
+        f"{greedy_rounds} rounds ({time.perf_counter() - t_fp32:.1f} s for the four calls)")
 
     # Jacobi against the graph text loop
     jpipe = variant(pipe, jacobi=True)
     with TextTokens(pipe) as runs:
         _, graph_s, _, _, _ = counted(torch, dev, lambda: pipe.plan(CAPTIONS))
     graph_tokens = runs[0].cpu().numpy()
-    with TextTokens(jpipe) as runs, PassTimer(torch) as pt:
+    with TextTokens(jpipe) as runs, DecoderCalls(torch, "jacobi_decode_text") as jc:
         plans, jac_s, jac_launches, plain, _ = counted(torch, dev, lambda: jpipe.plan(CAPTIONS))
+    check(len(jc.calls) == 1, f"{len(jc.calls)} Jacobi calls for one plan batch")
+    passes, pass_device_ms, pass_host_ms = jc.per_step()
     jac_tokens = runs[0].cpu().numpy()
     check(jac_tokens.shape == graph_tokens.shape and str(jac_tokens.dtype) == "int32",
           f"Jacobi tokens {jac_tokens.dtype} {jac_tokens.shape}")
@@ -3340,9 +3331,9 @@ def phase_decoders(torch, pipe, cfg) -> dict:
     check(len(plans) == len(CAPTIONS), f"Jacobi plans: {plans}")
     parts = [first_difference(j, g) for j, g in zip(jac_tokens, graph_tokens)]
     log(f"[13] Jacobi plan x4, bf16, budget {graph_tokens.shape[1]}: {jac_s:.3f} s/call "
-        f"against the graph text loop's {graph_s:.3f} ({card}); {pt.passes()} passes; a "
-        f"pass: device {pt.device_ms():.3f} ms (events between pass ends), host "
-        f"{pt.host_ms():.3f} ms; rows part from the graph loop at: {parts}")
+        f"against the graph text loop's {graph_s:.3f} ({card}); {passes} passes; a "
+        f"pass: device {pass_device_ms:.3f} ms, host {pass_host_ms:.3f} ms (the whole "
+        f"decoder call over its passes); rows part from the graph loop at: {parts}")
 
     gen64 = dict(max_new_text_tokens=JACOBI_FP32_BUDGET)
     p32 = PlanGenPipeline(model32, cfg, pipe.proc,
@@ -3350,25 +3341,26 @@ def phase_decoders(torch, pipe, cfg) -> dict:
     j32 = variant(p32, jacobi=True)
     with TextTokens(p32) as seq_runs:
         p32.plan(CAPTIONS)
-    with TextTokens(j32) as jac_runs, PassTimer(torch) as pt32:
+    with TextTokens(j32) as jac_runs, DecoderCalls(torch, "jacobi_decode_text") as jc32:
         j32.plan(CAPTIONS)
     check(torch.equal(jac_runs[0].cpu(), seq_runs[0].cpu()),
           "fp32 Jacobi against the graph text loop: " + str(
               [first_difference(a, b) for a, b in zip(jac_runs[0].cpu().numpy(),
                                                       seq_runs[0].cpu().numpy())]))
     log(f"[13] Jacobi plan x4, fp32, budget {JACOBI_FP32_BUDGET}: tokens equal to the graph "
-        f"text loop's in {pt32.passes()} passes")
+        f"text loop's in {jc32.per_step()[0]} passes")
     del model32, p32, j32
     torch.cuda.empty_cache()
+    log(f"[13] phase 13: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
 def phase_artifacts(torch, dev, checkout) -> dict:
     """[14] The weight artifacts at Janus-Pro-1B width, from phase 10's
-    `.bin` checkout: `cli convert` plain and `--quantize int4` (bf16),
-    `build_pipeline` from each `params_path` (weights bitwise equal to the
-    `janus_path` model and to its in-place int4 form; load s and size on
-    disk), the int4 artifact's `plan` x4 against the in-place int4
+    `.bin` checkout: `cli convert` plain and `--quantize int4` (fp32, the
+    command's only form), `build_pipeline` from each `params_path` (weights
+    bitwise equal to the `janus_path` model and to its in-place int4 form;
+    load s and size on disk), the int4 artifact's `plan` x4 against the in-place int4
     pipeline's (launches and tokens equal); `cli export` of the model
     (fp32 safetensors) read back through `load_params`, bitwise equal to
     the model's fp32 state dict. Returns the launches of the artifact's
@@ -3386,6 +3378,7 @@ def phase_artifacts(torch, dev, checkout) -> dict:
     from plangen_tpu_torch.tasks.eval import build_pipeline
 
     card = nvidia_smi_line()
+    t_phase = time.perf_counter()
     mcfg = PlanGenModelConfig()  # Janus-Pro-1B widths
     gen = GenerationConfig(cfg_weight=5.0, temperature=1.0)
 
@@ -3424,17 +3417,17 @@ def phase_artifacts(torch, dev, checkout) -> dict:
     with tempfile.TemporaryDirectory(prefix="plangen_artifacts_") as tmp:
         tmp = pathlib.Path(tmp)
         for form in (None, "int4"):
-            out = tmp / f"params_{form or 'bf16'}"
+            out = tmp / f"params_{form or 'dense'}"
             printed, convert_s = run_cli(
-                ["convert", "--janus-path", str(checkout), "--out", str(out), "--dtype",
-                 "bfloat16"] + (["--quantize", form] if form else []))
+                ["convert", "--janus-path", str(checkout), "--out", str(out)]
+                + (["--quantize", form] if form else []))
             check(printed["saved"] == str(out.resolve()), f"convert printed {printed}")
             art, load_s = timed_pipeline(params_path=str(out))
             check(quant_form(art.model) == form and art.gen.quantize == form,
                   f"artifact form {quant_form(art.model)}, pipeline {art.gen.quantize}")
             if form is None:
-                n = same_weights("bf16 artifact", art.model, ref.model)
-                log(f"[14] cli convert (bf16): {convert_s:.2f} s, {printed['params_m']} M "
+                n = same_weights("fp32 artifact in bf16", art.model, ref.model)
+                log(f"[14] cli convert (fp32): {convert_s:.2f} s, {printed['params_m']} M "
                     f"parameters, {gib(out):.2f} GiB; build_pipeline from params_path "
                     f"{load_s:.2f} s (janus_path {janus_s:.2f} s); {n} tensors bitwise equal "
                     f"to the janus_path model's; {card}")
@@ -3480,6 +3473,7 @@ def phase_artifacts(torch, dev, checkout) -> dict:
         del back
     del ref
     torch.cuda.empty_cache()
+    log(f"[14] phase 14: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

@@ -20,8 +20,9 @@ directories. `train` validates on `train.test_data` every
 `train.validation_steps` steps (0 turns it off), as the JAX CLI does.
 `doctor` reports torch, CUDA, the card, nvcc and the kernel builds.
 `convert` writes the port's weight artifact (`convert/params.py`) from a
-local checkout, quantized or not, with the JAX arguments (and `--dtype`,
-`--cfg` / `--opt` for the model config, `--device`); `export` writes the
+local checkout, quantized or not, with the JAX arguments (and `--cfg` /
+`--opt` for the model config, `--device`), refusing an `--out` that holds
+anything but an artifact, as orbax does; `export` writes the
 weights a config names as the reference's torch state dict, full or a
 tuning mode's trainable part. Both run on the card unless `--device cpu`.
 The JAX package's TPU probe and compile cache have no counterpart.
@@ -158,19 +159,23 @@ def cmd_convert(args) -> None:
     -> the port's weight artifact (`convert/params.py`), which `params_path`
     loads; `--quantize` writes a quantized serving artifact (int4 is ~4x
     smaller on disk and skips quantization at load time). The weights are
-    read in `--dtype` (fp32, as the JAX converter reads them, by default)
-    and quantized from it."""
+    read, quantized and stored in fp32, as the JAX converter reads them;
+    `--out` must be new, an empty directory or an artifact."""
     import torch
 
     from plangen_tpu_torch.convert.loading import load_params
-    from plangen_tpu_torch.convert.params import save_params
+    from plangen_tpu_torch.convert.params import check_destination, save_params
     from plangen_tpu_torch.ops.quant import quantize_model_
 
     device = _device(args)
     cfg = load_config(args.cfg, args.opt)
     cfg = dataclasses.replace(cfg, janus_path=args.janus_path, finetune_path=args.finetune,
                               params_path=None)
-    model = load_params(cfg, device=device, dtype=getattr(torch, args.dtype))
+    try:
+        check_destination(os.path.abspath(args.out))
+    except FileExistsError as e:
+        sys.exit(f"convert: {e}")
+    model = load_params(cfg, device=device, dtype=torch.float32)
     if model is None:
         sys.exit(f"convert: no weights in --janus-path {args.janus_path!r}")
     if args.quantize:
@@ -361,8 +366,6 @@ def main(argv=None) -> None:
     pc.add_argument("--out", default="converted_params")
     pc.add_argument("--quantize", default=None, choices=["int8", "int4", "int4_a8"],
                     help="write a quantized serving artifact")
-    pc.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                    help="the dtype the weights are read, quantized and stored in")
     pc.add_argument("--cfg", default=None, help="the model config (default Janus-Pro-1B)")
     pc.add_argument("--opt", nargs="*", default=[])
     pc.add_argument("--device", default=None, help="cuda (default) or cpu")

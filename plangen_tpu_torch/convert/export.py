@@ -8,8 +8,9 @@ package), over a JAX parameter tree of numpy arrays: linear [in, out] ->
 unstacked into per-layer keys, the HF `MultiModalityCausalLM` submodule
 names. Quantized trees are refused; a tree with LoRA adapters is merged
 first (`train/lora.py::merge_lora`, on the tree), as the original merges
-it. The tuning modes filter as the JAX package's path predicates
-(`plangen_tpu/train/optim.py::TUNING_MODES`, on "a/b/c" tree paths) do.
+it. One rule per tuning mode (`_TRAINED`, over HF keys) filters both
+entry points as the JAX package's path predicates
+(`plangen_tpu/train/optim.py::TUNING_MODES`) filter the tree.
 tests/test_torch_copies.py and tests/test_torch_artifacts.py hold them key
 for key and array for array against the originals.
 
@@ -28,6 +29,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from plangen_tpu_torch.config import PlanGenModelConfig, ProjectorConfig
+from plangen_tpu_torch.train.optim import TUNING_MODES as OPTIM_MODES
 
 
 def _np(x: Any) -> np.ndarray:
@@ -45,24 +47,21 @@ def _np(x: Any) -> np.ndarray:
 
 
 class _Emitter:
-    """Collects (hf_name -> array) plus the pytree path each came from, so
-    tuning-mode filters run on the SAME "a/b/c" strings train/optim used."""
+    """Collects hf_name -> array, refusing a name twice."""
 
     def __init__(self) -> None:
         self.sd: Dict[str, np.ndarray] = {}
-        self.jax_path: Dict[str, str] = {}
 
-    def put(self, hf_name: str, arr: Any, path: str) -> None:
+    def put(self, hf_name: str, arr: Any) -> None:
         if hf_name in self.sd:
             raise ValueError(f"duplicate export key {hf_name}")
         self.sd[hf_name] = _np(arr)
-        self.jax_path[hf_name] = path
 
-    def linear(self, hf_name: str, w: Any, path: str) -> None:
-        self.put(hf_name, _np(w).T, path)  # [in, out] -> [out, in]
+    def linear(self, hf_name: str, w: Any) -> None:
+        self.put(hf_name, _np(w).T)  # [in, out] -> [out, in]
 
-    def conv(self, hf_name: str, w: Any, path: str) -> None:
-        self.put(hf_name, _np(w).transpose(3, 2, 0, 1), path)  # HWIO -> OIHW
+    def conv(self, hf_name: str, w: Any) -> None:
+        self.put(hf_name, _np(w).transpose(3, 2, 0, 1))  # HWIO -> OIHW
 
 
 def _check_dense(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -100,10 +99,9 @@ def _check_dense(params: Dict[str, Any]) -> Dict[str, Any]:
 
 def _export_lm(em: _Emitter, lm: Dict[str, Any], p: str) -> None:
     m = p + "model."
-    em.put(m + "embed_tokens.weight", lm["embed_tokens"],
-           "language_model/embed_tokens")
-    em.put(m + "norm.weight", lm["final_norm"], "language_model/final_norm")
-    em.linear(p + "lm_head.weight", lm["lm_head"], "language_model/lm_head")
+    em.put(m + "embed_tokens.weight", lm["embed_tokens"])
+    em.put(m + "norm.weight", lm["final_norm"])
+    em.linear(p + "lm_head.weight", lm["lm_head"])
     layers = lm["layers"]
     hf = {
         "input_norm": ("input_layernorm.weight", False),
@@ -121,172 +119,144 @@ def _export_lm(em: _Emitter, lm: Dict[str, Any], p: str) -> None:
         stacked = _np(layers[key])
         for i in range(L):
             name = f"{m}layers.{i}.{suffix}"
-            path = f"language_model/layers/{key}"
             if is_linear:
-                em.linear(name, stacked[i], path)
+                em.linear(name, stacked[i])
             else:
-                em.put(name, stacked[i], path)
+                em.put(name, stacked[i])
 
 
 def _export_siglip(em: _Emitter, vm: Dict[str, Any], p: str) -> None:
-    em.conv(p + "patch_embed.proj.weight", vm["patch_embed"]["w"],
-            "vision_model/patch_embed/w")
-    em.put(p + "patch_embed.proj.bias", vm["patch_embed"]["b"],
-           "vision_model/patch_embed/b")
-    em.put(p + "pos_embed", vm["pos_embed"], "vision_model/pos_embed")
-    em.put(p + "norm.weight", vm["final_norm"]["scale"],
-           "vision_model/final_norm/scale")
-    em.put(p + "norm.bias", vm["final_norm"]["bias"],
-           "vision_model/final_norm/bias")
+    em.conv(p + "patch_embed.proj.weight", vm["patch_embed"]["w"])
+    em.put(p + "patch_embed.proj.bias", vm["patch_embed"]["b"])
+    em.put(p + "pos_embed", vm["pos_embed"])
+    em.put(p + "norm.weight", vm["final_norm"]["scale"])
+    em.put(p + "norm.bias", vm["final_norm"]["bias"])
     layers = vm["layers"]
     L = len(_np(layers["norm1"]["scale"]))
     for i in range(L):
         b = f"{p}blocks.{i}."
         for mod, hf_mod in (("norm1", "norm1"), ("norm2", "norm2")):
-            em.put(b + hf_mod + ".weight", _np(layers[mod]["scale"])[i],
-                   f"vision_model/layers/{mod}/scale")
-            em.put(b + hf_mod + ".bias", _np(layers[mod]["bias"])[i],
-                   f"vision_model/layers/{mod}/bias")
+            em.put(b + hf_mod + ".weight", _np(layers[mod]["scale"])[i])
+            em.put(b + hf_mod + ".bias", _np(layers[mod]["bias"])[i])
         for mod, hf_mod in (("qkv", "attn.qkv"), ("proj", "attn.proj"),
                             ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
-            em.linear(b + hf_mod + ".weight", _np(layers[mod]["w"])[i],
-                      f"vision_model/layers/{mod}/w")
-            em.put(b + hf_mod + ".bias", _np(layers[mod]["b"])[i],
-                   f"vision_model/layers/{mod}/b")
+            em.linear(b + hf_mod + ".weight", _np(layers[mod]["w"])[i])
+            em.put(b + hf_mod + ".bias", _np(layers[mod]["b"])[i])
 
 
 def _export_projector(
-    em: _Emitter, proj: Dict[str, Any], pcfg: ProjectorConfig, p: str,
-    path: str,
+    em: _Emitter, proj: Dict[str, Any], pcfg: ProjectorConfig, p: str
 ) -> None:
     layers: List[Dict[str, Any]] = proj["layers"]
     if pcfg.projector_type == "identity" or not layers:
         return
     if pcfg.projector_type == "linear":
-        em.linear(p + "layers.weight", layers[0]["w"], f"{path}/layers/0/w")
-        em.put(p + "layers.bias", layers[0]["b"], f"{path}/layers/0/b")
+        em.linear(p + "layers.weight", layers[0]["w"])
+        em.put(p + "layers.bias", layers[0]["b"])
         return
     # mlp_gelu Sequential: Linear at indices 0, 2, 4, ... (GELU between)
     for j, lyr in enumerate(layers):
-        em.linear(f"{p}layers.{2 * j}.weight", lyr["w"],
-                  f"{path}/layers/{j}/w")
-        em.put(f"{p}layers.{2 * j}.bias", lyr["b"], f"{path}/layers/{j}/b")
+        em.linear(f"{p}layers.{2 * j}.weight", lyr["w"])
+        em.put(f"{p}layers.{2 * j}.bias", lyr["b"])
 
 
-def _export_gn(em: _Emitter, node, hf: str, path: str) -> None:
-    em.put(hf + ".weight", node["scale"], path + "/scale")
-    em.put(hf + ".bias", node["bias"], path + "/bias")
+def _export_gn(em: _Emitter, node, hf: str) -> None:
+    em.put(hf + ".weight", node["scale"])
+    em.put(hf + ".bias", node["bias"])
 
 
-def _export_conv(em: _Emitter, node, hf: str, path: str) -> None:
-    em.conv(hf + ".weight", node["w"], path + "/w")
-    em.put(hf + ".bias", node["b"], path + "/b")
+def _export_conv(em: _Emitter, node, hf: str) -> None:
+    em.conv(hf + ".weight", node["w"])
+    em.put(hf + ".bias", node["b"])
 
 
-def _export_resblock(em: _Emitter, node, hf: str, path: str) -> None:
-    _export_gn(em, node["norm1"], hf + "norm1", path + "/norm1")
-    _export_conv(em, node["conv1"], hf + "conv1", path + "/conv1")
-    _export_gn(em, node["norm2"], hf + "norm2", path + "/norm2")
-    _export_conv(em, node["conv2"], hf + "conv2", path + "/conv2")
+def _export_resblock(em: _Emitter, node, hf: str) -> None:
+    _export_gn(em, node["norm1"], hf + "norm1")
+    _export_conv(em, node["conv1"], hf + "conv1")
+    _export_gn(em, node["norm2"], hf + "norm2")
+    _export_conv(em, node["conv2"], hf + "conv2")
     if "nin_shortcut" in node:
-        _export_conv(em, node["nin_shortcut"], hf + "nin_shortcut",
-                     path + "/nin_shortcut")
+        _export_conv(em, node["nin_shortcut"], hf + "nin_shortcut")
 
 
-def _export_attnblock(em: _Emitter, node, hf: str, path: str) -> None:
-    _export_gn(em, node["norm"], hf + "norm", path + "/norm")
+def _export_attnblock(em: _Emitter, node, hf: str) -> None:
+    _export_gn(em, node["norm"], hf + "norm")
     for k in ("q", "k", "v", "proj_out"):
-        _export_conv(em, node[k], hf + k, path + "/" + k)
+        _export_conv(em, node[k], hf + k)
 
 
 def _export_vq(em: _Emitter, vq: Dict[str, Any], p: str) -> None:
-    def side(tower: Dict[str, Any], prefix: str, path: str) -> None:
-        _export_conv(em, tower["conv_in"], prefix + "conv_in",
-                     path + "/conv_in")
+    def side(tower: Dict[str, Any], prefix: str) -> None:
+        _export_conv(em, tower["conv_in"], prefix + "conv_in")
         for li, level in enumerate(tower["levels"]):
             lp = f"{prefix}conv_blocks.{li}."
-            lpath = f"{path}/levels/{li}"
             for r, res in enumerate(level["res"]):
-                _export_resblock(em, res, f"{lp}res.{r}.",
-                                 f"{lpath}/res/{r}")
+                _export_resblock(em, res, f"{lp}res.{r}.")
             for r, attn in enumerate(level["attn"]):
-                _export_attnblock(em, attn, f"{lp}attn.{r}.",
-                                  f"{lpath}/attn/{r}")
+                _export_attnblock(em, attn, f"{lp}attn.{r}.")
             if "down" in level:
-                _export_conv(em, level["down"]["conv"],
-                             lp + "downsample.conv", lpath + "/down/conv")
+                _export_conv(em, level["down"]["conv"], lp + "downsample.conv")
             if "up" in level:
-                _export_conv(em, level["up"]["conv"],
-                             lp + "upsample.conv", lpath + "/up/conv")
+                _export_conv(em, level["up"]["conv"], lp + "upsample.conv")
         for idx, key in ((0, "res1"), (1, "attn"), (2, "res2")):
             fn = _export_attnblock if key == "attn" else _export_resblock
-            fn(em, tower["mid"][key], f"{prefix}mid.{idx}.",
-               f"{path}/mid/{key}")
-        _export_gn(em, tower["norm_out"], prefix + "norm_out",
-                   path + "/norm_out")
-        _export_conv(em, tower["conv_out"], prefix + "conv_out",
-                     path + "/conv_out")
+            fn(em, tower["mid"][key], f"{prefix}mid.{idx}.")
+        _export_gn(em, tower["norm_out"], prefix + "norm_out")
+        _export_conv(em, tower["conv_out"], prefix + "conv_out")
 
-    side(vq["encoder"], p + "encoder.", "gen_vision_model/encoder")
-    side(vq["decoder"], p + "decoder.", "gen_vision_model/decoder")
-    em.put(p + "quantize.embedding.weight", vq["codebook"],
-           "gen_vision_model/codebook")
-    _export_conv(em, vq["quant_conv"], p + "quant_conv",
-                 "gen_vision_model/quant_conv")
-    _export_conv(em, vq["post_quant_conv"], p + "post_quant_conv",
-                 "gen_vision_model/post_quant_conv")
+    side(vq["encoder"], p + "encoder.")
+    side(vq["decoder"], p + "decoder.")
+    em.put(p + "quantize.embedding.weight", vq["codebook"])
+    _export_conv(em, vq["quant_conv"], p + "quant_conv")
+    _export_conv(em, vq["post_quant_conv"], p + "post_quant_conv")
 
 
-def _export(params: Dict[str, Any], cfg: PlanGenModelConfig) -> _Emitter:
+def _export(params: Dict[str, Any], cfg: PlanGenModelConfig) -> Dict[str, np.ndarray]:
     params = _check_dense(params)
     em = _Emitter()
     _export_lm(em, params["language_model"], "language_model.")
-    _export_siglip(em, params["vision_model"],
-                   "vision_model.vision_tower.")
-    _export_projector(em, params["aligner"], cfg.aligner, "aligner.",
-                      "aligner")
-    _export_projector(em, params["gen_aligner"], cfg.gen_aligner,
-                      "gen_aligner.", "gen_aligner")
-    em.linear("gen_head.output_mlp_projector.weight",
-              params["gen_head"]["fc1"]["w"], "gen_head/fc1/w")
-    em.put("gen_head.output_mlp_projector.bias",
-           params["gen_head"]["fc1"]["b"], "gen_head/fc1/b")
-    em.linear("gen_head.vision_head.weight", params["gen_head"]["fc2"]["w"],
-              "gen_head/fc2/w")
-    em.put("gen_head.vision_head.bias", params["gen_head"]["fc2"]["b"],
-           "gen_head/fc2/b")
-    em.put("gen_embed.weight", params["gen_embed"], "gen_embed")
+    _export_siglip(em, params["vision_model"], "vision_model.vision_tower.")
+    _export_projector(em, params["aligner"], cfg.aligner, "aligner.")
+    _export_projector(em, params["gen_aligner"], cfg.gen_aligner, "gen_aligner.")
+    em.linear("gen_head.output_mlp_projector.weight", params["gen_head"]["fc1"]["w"])
+    em.put("gen_head.output_mlp_projector.bias", params["gen_head"]["fc1"]["b"])
+    em.linear("gen_head.vision_head.weight", params["gen_head"]["fc2"]["w"])
+    em.put("gen_head.vision_head.bias", params["gen_head"]["fc2"]["b"])
+    em.put("gen_embed.weight", params["gen_embed"])
     _export_vq(em, params["gen_vision_model"], "gen_vision_model.")
-    return em
+    return em.sd
 
 
 def export_state_dict(
     params: Dict[str, Any], cfg: PlanGenModelConfig
 ) -> Dict[str, np.ndarray]:
     """Full HF-named state dict (numpy values) from a dense param pytree."""
-    return _export(params, cfg).sd
+    return _export(params, cfg)
 
 
+_LM_ATTN_PROJ = re.compile(
+    r"^language_model\.model\.layers\.\d+\.self_attn\.[qkvo]_proj\.weight$")
 
-# the tuning modes of the JAX package (plangen_tpu/train/optim.py::
-# TUNING_MODES); those that freeze by top-level name, whose rules read "a/b/c"
-# tree paths and HF keys alike (the top-level names are the same)
-_PREFIX_MODES: Dict[str, Callable[[str], bool]] = {
-    "all": lambda p: True,
-    "lm": lambda p: p.startswith("language_model"),
-    "stage1": lambda p: p.startswith(("aligner", "gen_aligner", "gen_head")),
-    "stage2": lambda p: not p.startswith(("vision_model", "gen_vision_model")),
-    "stage3": lambda p: not p.startswith("gen_vision_model"),
+# what each tuning mode trained, over HF keys: the optimizer's rules
+# (train/optim.py, the JAX package's TUNING_MODES), except that the LoRA
+# modes keep the merged projections the adapters touched in place of the
+# adapters, 'lora_tokens' the token embedding too
+_TRAINED: Dict[str, Callable[[str], bool]] = {
+    **OPTIM_MODES,
+    "lora": lambda k: bool(_LM_ATTN_PROJ.match(k)),
+    "lora_tokens": lambda k: (bool(_LM_ATTN_PROJ.match(k))
+                              or OPTIM_MODES["lora_tokens"](k)),
 }
-TUNING_MODES = tuple(_PREFIX_MODES) + ("lora", "lora_tokens")
+TUNING_MODES = tuple(_TRAINED)
 
 
-def _check_mode(tuning_mode: str) -> None:
-    if tuning_mode not in TUNING_MODES:
+def _trained(tuning_mode: str) -> Callable[[str], bool]:
+    if tuning_mode not in _TRAINED:
         raise ValueError(
             f"unknown tuning_mode {tuning_mode!r}; "
             f"options: {sorted(TUNING_MODES)}"
         )
+    return _TRAINED[tuning_mode]
 
 
 def export_trainable_state_dict(
@@ -295,7 +265,7 @@ def export_trainable_state_dict(
 ) -> Dict[str, np.ndarray]:
     """Only the keys a tuning mode trained — the reference's
     `trainable_model_parameters.pth` payload (base_system.py:166-189),
-    filtered by the SAME path predicates the JAX optimizer froze with.
+    filtered by the rules the JAX optimizer froze with (`_TRAINED`).
 
     Keys carry the `vl_gpt.` prefix by default: the reference saves from
     the SYSTEM module's `named_parameters()` (base_system.py:188-189)
@@ -309,37 +279,8 @@ def export_trainable_state_dict(
     (q/k/v/o — the reference can only consume merged weights), plus the
     token embedding for 'lora_tokens'.
     """
-    _check_mode(tuning_mode)
-    pred = _tree_predicate(tuning_mode)
-    em = _export(params, cfg)
-    return {prefix + k: v for k, v in em.sd.items()
-            if pred(em.jax_path[k])}
-
-
-def _tree_predicate(tuning_mode: str) -> Callable[[str], bool]:
-    if tuning_mode == "lora":
-        return lambda p: p.startswith("language_model/layers/") and any(
-            f"/{k}/" in p + "/" for k in ("q_proj", "k_proj", "v_proj",
-                                          "o_proj"))
-    if tuning_mode == "lora_tokens":
-        base = _tree_predicate("lora")
-        return lambda p: base(p) or p == "language_model/embed_tokens"
-    return _PREFIX_MODES[tuning_mode]
-
-
-_LM_ATTN_PROJ = re.compile(
-    r"^language_model\.model\.layers\.\d+\.self_attn\.[qkvo]_proj\.weight$")
-
-
-def _hf_predicate(tuning_mode: str) -> Callable[[str], bool]:
-    """`_tree_predicate` over HF keys: the adapters' merged projections for
-    the LoRA modes, the top-level prefix rules otherwise."""
-    if tuning_mode == "lora":
-        return lambda k: bool(_LM_ATTN_PROJ.match(k))
-    if tuning_mode == "lora_tokens":
-        return lambda k: (bool(_LM_ATTN_PROJ.match(k))
-                          or k == "language_model.model.embed_tokens.weight")
-    return _PREFIX_MODES[tuning_mode]
+    keep = _trained(tuning_mode)
+    return {prefix + k: v for k, v in _export(params, cfg).items() if keep(k)}
 
 
 def model_state_dict(model, tuning_mode: Optional[str] = None) -> Dict[str, np.ndarray]:
@@ -359,14 +300,12 @@ def model_state_dict(model, tuning_mode: Optional[str] = None) -> Dict[str, np.n
             "lossy — export from the dense artifact (load with "
             "generation.quantize unset, or `cli convert` WITHOUT --quantize)"
         )
-    if tuning_mode is not None:
-        _check_mode(tuning_mode)
+    keep = (lambda k: True) if tuning_mode is None else _trained(tuning_mode)
     if has_lora(model):
         model = merge_lora(copy.deepcopy(model))
-    pred = (lambda k: True) if tuning_mode is None else _hf_predicate(tuning_mode)
     prefix = "" if tuning_mode is None else "vl_gpt."
     return {prefix + k: v.detach().to("cpu", torch.float32).numpy()
-            for k, v in model.state_dict().items() if pred(k)}
+            for k, v in model.state_dict().items() if keep(k)}
 
 
 def save_torch_state_dict(sd: Dict[str, np.ndarray], path: str) -> str:

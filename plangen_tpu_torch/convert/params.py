@@ -11,7 +11,9 @@ A directory of two files:
     "version": 1, "quantize": null | "int8" | "int4" | "int4_a8"}`.
 
 `save_params` writes one (`cli convert`, `PlanGenCheckpointer.
-save_params_only`); `load_params_artifact` fills a `PlanGenModel` from one:
+save_params_only`) and, as orbax refuses an existing destination, replaces
+only an empty directory or an artifact (these two files and nothing else);
+`load_params_artifact` fills a `PlanGenModel` from one:
 a quantized artifact into `ops/quant.py::quantized_structure_` of its form,
 the scales kept fp32 and every other floating tensor cast to the model's
 dtype, as `plangen_tpu/convert/loading.py` casts an orbax tree; LoRA
@@ -26,6 +28,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import tempfile
 from typing import Dict, Optional
 
 import torch
@@ -41,26 +44,56 @@ WEIGHTS = "model.safetensors"
 _SCALING = "language_model.model.lora_scaling"
 
 
+def check_destination(path: str) -> None:
+    """Raise `FileExistsError` unless `path` is free, an empty directory or
+    an artifact directory holding only this format's two files: anything
+    else there (a checkout, a home directory) is never replaced."""
+    if not os.path.lexists(path):
+        return
+    if os.path.isdir(path) and not os.path.islink(path):
+        entries = set(os.listdir(path))
+        if not entries or (entries <= {META, WEIGHTS} and _is_artifact(path)):
+            return
+    raise FileExistsError(f"{path!r} exists and is not an artifact of this format: "
+                          "give --out a new directory")
+
+
+def _is_artifact(path: str) -> bool:
+    try:
+        read_meta(path)
+    except (NotImplementedError, ValueError, OSError):
+        return False
+    return True
+
+
 def save_params(model: nn.Module, path: str, mask: Optional[Dict[str, bool]] = None) -> str:
-    """Write `model` as an artifact directory at `path` (replacing one
-    there); with `mask` ({parameter name: keep}) only the kept parameters,
-    which `load_params_artifact` then refuses as incomplete. Returns the
-    absolute path."""
+    """Write `model` as an artifact directory at `path` (see
+    `check_destination` for what may be there already); with `mask`
+    ({parameter name: keep}) only the kept parameters, which
+    `load_params_artifact` then refuses as incomplete. Returns the absolute
+    path."""
     from plangen_tpu_torch.ops.quant import quant_form
 
     path = os.path.abspath(path)
+    check_destination(path)
     sd = model.state_dict()
     if mask is not None:
         sd = {k: v for k, v in sd.items() if mask.get(k, False)}
     meta = {"format": FORMAT, "version": VERSION, "quantize": quant_form(model)}
-    tmp = path + ".tmp"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    safetensors.save_file(sd, os.path.join(tmp, WEIGHTS), metadata={"format": FORMAT})
-    with open(os.path.join(tmp, META), "w") as f:
-        json.dump(meta, f)
-    shutil.rmtree(path, ignore_errors=True)
-    os.replace(tmp, path)
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=os.path.basename(path) + ".", dir=parent)
+    os.chmod(tmp, 0o755)  # mkdtemp's 0o700 is for the name, not the artifact
+    try:
+        safetensors.save_file(sd, os.path.join(tmp, WEIGHTS), metadata={"format": FORMAT})
+        with open(os.path.join(tmp, META), "w") as f:
+            json.dump(meta, f)
+        if os.path.lexists(path):
+            shutil.rmtree(path)  # an empty directory or an artifact: checked above
+        os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     return path
 
 

@@ -6,6 +6,7 @@
     every tensor bitwise equal to the checkout's model (quantized: to that
     model quantized in place), the scales fp32 in any load dtype; the
     pipeline serves an int4 artifact in its form without quantizing again;
+    an `--out` holding anything but an artifact is refused and kept;
   * `export`, full and `--trainable` in every tuning mode, in all three
     file formats: bitwise equal to the JAX package's `export_state_dict` /
     `export_trainable_state_dict` on the same weights; the port's tree
@@ -156,13 +157,61 @@ def test_convert_applies_the_finetune_overlay(checkout, tmp_path, capsys):
                                overlay["vl_gpt.gen_embed.weight"], rtol=0, atol=0)
 
 
-def test_convert_in_bf16_stores_bf16(checkout, tmp_path, capsys):
-    path = _convert(checkout, tmp_path / "art", capsys, "--dtype", "bfloat16")["saved"]
+def test_an_int4_artifact_in_bf16_is_the_in_place_bf16_form(checkout, tmp_path, capsys):
+    """A checkout of bf16 weights (as released): converted in fp32 and
+    quantized from it, then loaded in bf16, the artifact is bitwise the bf16
+    load quantized in place (quantization runs in fp32 from either)."""
+    bf16 = tmp_path / "bf16"
+    bf16.mkdir()
+    sd = _checkout_model(checkout, torch.bfloat16).state_dict()
+    torch.save(sd, bf16 / "pytorch_model.bin")
+    path = _convert(bf16, tmp_path / "art", capsys, "--quantize", "int4")["saved"]
     stored = safetensors.load_file(str(pathlib.Path(path) / artifact.WEIGHTS))
-    assert stored["gen_embed.weight"].dtype == torch.bfloat16
-    want = _checkout_model(checkout, torch.bfloat16).state_dict()
+    assert stored["gen_embed.weight"].dtype == torch.float32
     got = load_params(PlanGenConfig(model=TINY, params_path=path), dtype=torch.bfloat16)
-    _assert_state_equal(got.state_dict(), want)
+    want = quantize_model_(_checkout_model(bf16, torch.bfloat16), "int4")
+    _assert_state_equal(got.state_dict(), want.state_dict())
+
+
+@pytest.mark.parametrize("where", ["a directory with a file", "the checkout itself"])
+def test_convert_refuses_an_out_that_is_not_an_artifact(checkout, tmp_path, capsys, where):
+    """As orbax refuses an existing destination: nothing at --out is lost."""
+    if where == "the checkout itself":
+        out = tmp_path / "janus"
+        out.mkdir()
+        (out / "pytorch_model.bin").write_bytes((checkout / "pytorch_model.bin").read_bytes())
+        janus = out
+    else:
+        out, janus = tmp_path / "models", checkout
+        out.mkdir()
+        (out / "notes.txt").write_text("keep me")
+    before = {f.name: f.read_bytes() for f in out.iterdir()}
+    with pytest.raises(SystemExit) as e:
+        _convert(janus, out, capsys)
+    assert "not an artifact" in str(e.value.code)
+    assert {f.name: f.read_bytes() for f in out.iterdir()} == before
+
+
+def test_convert_replaces_an_empty_directory_or_an_artifact(checkout, tmp_path, capsys):
+    out = tmp_path / "art"
+    out.mkdir()
+    _convert(checkout, out, capsys, "--quantize", "int8")
+    printed = _convert(checkout, out, capsys)
+    assert sorted(p.name for p in out.iterdir()) == sorted([artifact.META, artifact.WEIGHTS])
+    assert [p.name for p in tmp_path.iterdir()] == ["art"]  # no temporary left
+    got = load_params(PlanGenConfig(model=TINY, params_path=printed["saved"]),
+                      dtype=torch.float32)
+    assert quant_form(got) is None
+
+
+def test_save_params_refuses_a_directory_with_more_than_an_artifact(checkout, tmp_path):
+    model = _checkout_model(checkout)
+    path = artifact.save_params(model, str(tmp_path / "art"))
+    (tmp_path / "art" / "extra.bin").write_bytes(b"\0")
+    with pytest.raises(FileExistsError, match="not an artifact"):
+        artifact.save_params(model, path)
+    assert (tmp_path / "art" / "extra.bin").exists()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["art"]
 
 
 def test_an_orbax_directory_still_raises(tmp_path):
