@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run plangen_tpu_torch's layout-to-image, text, editing, training,
-serving and evaluation paths, the opt-in decoders and the weight artifacts
-once on one NVIDIA card.
+serving and evaluation paths, the opt-in decoders, the weight artifacts and
+the parallel path (on a world-1 mesh) once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -209,6 +209,26 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      False); cs.phase_decoders(torch, p, c); d =
      pathlib.Path(tempfile.mkdtemp()); cs.write_checkpoint(torch, p.model,
      d); del p; cs.phase_artifacts(torch, dev, d)"`.
+  15. parallelism (`parallel/mesh.py`; run after phase 12, before 10):
+     (a) `init_distributed` opens a world-1 NCCL group on cuda:0 and
+     `create_mesh` a 1 x 1 mesh; (d) the phase-4 model (a fresh seeded
+     build) split by `shard_params(tp_axis="model")` over the world-1
+     axis: `layout_to_image` x4 on the graph path in turns unsharded, TP,
+     TP, unsharded (tokens bitwise equal, K1 576 x 24 a call), the TP loop
+     for 16 steps eager against the graph, `plan` x4 TP against unsharded
+     (groundings and tokens bitwise equal); (e) two ranks on the one card
+     over gloo with CUDA tensors (NCCL refuses two ranks on one device):
+     the seeded model in fp32, TP 2, 32 eager steps, the ranks' tokens
+     equal to each other and to the unsharded fp32 model's; (b) the
+     phase-9 Trainer plain, then with `fsdp=True` on the 1 x 1 mesh, 3
+     steps each from the same seed (K3 96 forward and 96 backward a step,
+     no plain call; s/step, peak) and a fourth under the profiler (device
+     busy, kernels by group), then the losses and every parameter against
+     plain; (c) the FSDP run's checkpoint (gathered, written by the lead)
+     restored into a plain Trainer, every parameter bitwise. Run it alone
+     from the root with `python3 -c "import torch, chip_smoke as cs;
+     cs.phase_header(torch); cs.phase_build(); cs.phase_parallel(torch,
+     torch.device('cuda:0'))"`.
 
 The last two lines are a JSON object describing the kernels (each with its
 launches on the main path, error, time, plain time, the one-call
@@ -1974,7 +1994,7 @@ KERNEL_GROUPS = (("K3 forward", ("flash_fwd",)), ("K3 backward", ("flash_bwd",))
                  ("softmax / log-softmax", ("softmax",)), ("other", ("",)))
 
 
-def profile_step(torch, trainer, loader) -> None:
+def profile_step(torch, trainer, loader, tag: str = "9") -> None:
     """One more training step under `torch.profiler`: the device's busy time
     (the sum of its kernels) against the step's wall time under the
     profiler, and the device time by kernel group, largest kernels named."""
@@ -1989,18 +2009,18 @@ def profile_step(torch, trainer, loader) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = profiled_kernels(prof)
     if not kernels:
-        log("[9] profile: not measured (the profiler showed no device time)")
+        log(f"[{tag}] profile: not measured (the profiler showed no device time)")
         return
     busy = sum(t for t, _, _ in kernels)
     groups = dict.fromkeys((g for g, _ in KERNEL_GROUPS), 0.0)
     for t, _, name in kernels:
         low = name.lower()
         groups[next(g for g, keys in KERNEL_GROUPS if any(k in low for k in keys))] += t
-    log(f"[9] profile of one step: wall {wall_us / 1e3:.1f} ms under the profiler, device "
+    log(f"[{tag}] profile of one step: wall {wall_us / 1e3:.1f} ms under the profiler, device "
         f"busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, idle "
         f"{100 * (1 - busy / wall_us):.1f}%), {sum(c for _, c, _ in kernels)} kernel launches; "
         + ", ".join(f"{g} {t / 1e3:.1f} ms" for g, t in groups.items()))
-    log("[9] largest kernels: " + "; ".join(
+    log(f"[{tag}] largest kernels: " + "; ".join(
         f"{name[:70]} {t / 1e3:.2f} ms x{c}" for t, c, name in sorted(kernels, reverse=True)[:8]))
 
 
@@ -2383,6 +2403,342 @@ def phase_train_options(torch, dev) -> dict:
         add_launches(launches, run(torch, dev))
         torch.cuda.empty_cache()
     log(f"[12] {nvidia_smi_line()}")
+    return launches
+
+
+# ----------------------------------------------------------- [15] parallel
+
+
+PARALLEL_STEPS = 3  # checked trainer steps of (b), each run, before a profiled one
+TP2_STEPS = 32  # the 2-rank decode of (e)
+TP2_TIMEOUT_S = 240.0
+TP_EAGER_STEPS = 16  # (d): eager against graph under TP; an eager step is host-bound
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def trainer_steps(torch, tag: str, what: str, trainer, loader, steps: int):
+    """`steps` of the trainer's own step on its batches, K3 counted each
+    step (forward and backward = `n_attention_calls`, all on the tensor
+    cores, no plain call): (losses, seconds, peak GiB, launches)."""
+    import math
+
+    n_calls = n_attention_calls(trainer)
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(counters)
+    losses, seconds = [], []
+    for step in range(steps):
+        before = k3_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.state, metrics = trainer.step_fn(trainer.state,
+                                                 trainer.device_batches(next(loader)))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        losses.append(metrics)
+        calls = tuple(a - b for a, b in zip(k3_counts(), before))
+        log(f"[{tag}] {what} step {step}: {seconds[-1]:.3f} s, K3 forward/backward calls "
+            f"{calls[:2]}, on the tensor cores {calls[2:4]}, plain {calls[4]}, "
+            f"loss {metrics['loss']:.6f}")
+        check(all(math.isfinite(v) for v in metrics.values()), f"{what} step {step}: non-finite")
+        check(calls == n_calls + n_calls + (0,),
+              f"{what} step {step}: K3 calls {calls}, expected {n_calls} each on the tensor "
+              "cores and no plain call")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: w.launches for k, (w, _) in counters.items()}
+    return losses, seconds, peak, launches
+
+
+def parallel_trainer_run(torch, dev, what: str, overrides: dict, launches: dict):
+    """[15b] One phase-9 Trainer (`options_trainer`) for PARALLEL_STEPS
+    checked steps, then one more under the profiler: (trainer, its
+    numbers)."""
+    import statistics
+
+    trainer, loader, built = options_trainer(torch, dev, overrides)
+    check((trainer.mesh is None) == (what == "plain"), f"[15b] {what}: mesh {trainer.mesh}")
+    losses, seconds, peak, got = trainer_steps(torch, "15b", what, trainer, loader,
+                                               PARALLEL_STEPS)
+    add_launches(launches, got)
+    run = dict(losses=losses, s_step=statistics.median(seconds[1:]), step0_s=seconds[0],
+               peak_gib=peak, built_s=built)
+    log(f"[15b] {what}: built in {built:.2f} s, {run['s_step']:.4f} s/step (median of steps "
+        f"1-{PARALLEL_STEPS - 1}; step 0 {seconds[0]:.3f} s), peak device memory "
+        f"{peak:.2f} GiB, {nvidia_smi_line()}")
+    profile_step(torch, trainer, loader, f"15b {what}")
+    return trainer, run
+
+
+def full_params_cpu(torch, model) -> dict:
+    """Every parameter whole (a DTensor gathered) on the CPU."""
+    with torch.no_grad():
+        return {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).to("cpu", copy=True)
+                for n, p in model.named_parameters()}
+
+
+def phase_parallel_train(torch, dev, launches: dict) -> dict:
+    """[15b, c] the phase-9 Trainer plain, then with `fsdp=True` on the 1 x 1
+    mesh (FSDP2 over the world-1 group), from the same seed on the same toy
+    batches; then the FSDP run's checkpoint restored into a plain Trainer."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[15b] device memory allocated before the runs "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    trainer, plain = parallel_trainer_run(torch, dev, "plain", {}, launches)
+    ref = full_params_cpu(torch, trainer.model)
+    drop_trainer(torch, trainer)
+    trainer, fsdp = parallel_trainer_run(
+        torch, dev, "fsdp", {"fsdp": True, "mesh_shape": {"data": 1, "model": 1}}, launches)
+    got = full_params_cpu(torch, trainer.model)
+    steps = trainer.state.step
+    diffs = {n: float((got[n].float() - ref[n].float()).abs().max()) for n in ref}
+    diff, n_equal = max(diffs.values()), sum(d == 0.0 for d in diffs.values())
+    loss_diff = max(abs(a[k] - b[k]) for a, b in zip(plain["losses"], fsdp["losses"]) for k in a)
+    lr = trainer.cfg.train.optim.learning_rate
+    log(f"[15b] fsdp against plain after {steps} steps: losses max abs diff "
+        f"{loss_diff:.3e}, parameters max abs diff {diff:.3e} ({n_equal} of {len(ref)} tensors "
+        f"bitwise equal)")
+    check(loss_diff <= 1e-5 * max(abs(v) for v in plain["losses"][0].values()),
+          f"[15b] fsdp losses {fsdp['losses']} against plain {plain['losses']}")
+    check(diff <= 2 * lr * steps, f"[15b] fsdp parameters differ by up to {diff}")
+    fsdp.update(param_max_abs_diff=diff, loss_max_abs_diff=loss_diff,
+                tensors_bitwise_equal=n_equal, tensors=len(ref))
+    del ref
+    # [15c] the checkpoint: gathered (world 1) and written by the lead
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.ckpt.save(steps, trainer.state)
+    saved_s = time.perf_counter() - t0
+    out_dir = trainer.cfg.train.output_dir
+    trainer.state = trainer.model = trainer.step_fn = None
+    torch.cuda.empty_cache()
+    back, _, _ = options_trainer(torch, dev, {"output_dir": out_dir})
+    t0 = time.perf_counter()
+    step = back.maybe_resume()
+    restored_s = time.perf_counter() - t0
+    check(step == steps == PARALLEL_STEPS + 1 and back.mesh is None,
+          f"[15c] restored step {step} of {steps}")
+    unequal = [n for n, p in back.model.named_parameters() if not torch.equal(p.cpu(), got[n])]
+    check(not unequal, f"[15c] restored parameters differ: {unequal[:5]}")
+    log(f"[15c] the fsdp checkpoint (gathered, step {steps}) written in "
+        f"{saved_s:.1f} s, restored into a plain Trainer in {restored_s:.1f} s: all "
+        f"{len(got)} parameters bitwise equal")
+    drop_trainer(torch, back)
+    return dict(plain=plain, fsdp=fsdp, checkpoint_save_s=saved_s, restore_s=restored_s)
+
+
+def tp2_rank(rank: int, port: int, inputs: dict, results) -> None:
+    """[15e] one of two ranks on the one card over gloo: the seeded model in
+    fp32, TP = 2, eager `generate_image_tokens` for TP2_STEPS steps."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from plangen_tpu_torch.parallel import mesh as pm
+        from plangen_tpu_torch.runtime.generate import generate_image_tokens
+        from plangen_tpu_torch.tasks.pipeline import row_generators
+
+        t0 = time.perf_counter()
+
+        def stage(what):
+            log(f"[15e] rank {rank}: {what} at {time.perf_counter() - t0:.1f} s")
+
+        dev = torch.device("cuda:0")
+        torch.cuda.set_device(dev)
+        pm.init_distributed(f"localhost:{port}", 2, rank, device="cpu")  # gloo
+        t = torch.full((4,), float(rank + 1), device=dev)
+        dist.all_reduce(t)
+        parts = torch.empty(8, device=dev)
+        dist.all_gather_into_tensor(parts, torch.full((4,), float(rank), device=dev))
+        stage(f"gloo all_reduce {t.tolist()} and all_gather_into_tensor {parts.tolist()} "
+              "on CUDA tensors")
+        mesh = pm.create_mesh({"data": 1, "model": 2}, device="cuda")
+        stage(f"mesh {mesh}")
+        pipe, cfg = build_pipeline(torch, dev, False)
+        model = pm.shard_params(pipe.model.float(), mesh, tp_axis="model")
+        stage("the seeded model built in fp32 and split")
+        embeds = torch.from_numpy(inputs["embeds"]).to(dev)
+        mask = torch.from_numpy(inputs["mask"]).to(dev)
+        tokens = generate_image_tokens(
+            model, cfg, embeds, mask, row_generators(inputs["seeds"], 1, dev),
+            inputs["cfg_weight"], inputs["temperature"], num_tokens=TP2_STEPS, eager=True)
+        stage(f"{TP2_STEPS} eager steps decoded")
+        results.put((rank, tokens.cpu().numpy()))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_tp2_one_card(torch, pipe, cfg) -> dict:
+    """[15e] two ranks on the one card over gloo with CUDA tensors (NCCL
+    refuses two ranks on one device): TP = 2, eager, on the phase-4 model in
+    fp32; the ranks' tokens against each other and against the unsharded
+    fp32 model's eager run on the same prompt and generators."""
+    import multiprocessing
+    import queue
+
+    from plangen_tpu_torch.runtime.generate import generate_image_tokens
+    from plangen_tpu_torch.tasks.pipeline import row_generators
+
+    prep = pipe.prepare_layout_to_image(CAPTIONS[:1], GROUNDINGS[:1], seeds=SEEDS[:1])
+    L = prep.embeds.shape[1]
+    inputs = dict(embeds=prep.embeds.float().cpu().numpy(),
+                  mask=prep.cfg_mask[:, :L + TP2_STEPS].cpu().numpy(),
+                  seeds=SEEDS[:1], cfg_weight=pipe.gen.cfg_weight,
+                  temperature=pipe.gen.temperature)
+    model32 = copy.deepcopy(pipe.model).float()
+    want = generate_image_tokens(
+        model32, cfg, torch.from_numpy(inputs["embeds"]).to(pipe.device),
+        torch.from_numpy(inputs["mask"]).to(pipe.device),
+        row_generators(SEEDS[:1], 1, pipe.device), inputs["cfg_weight"],
+        inputs["temperature"], num_tokens=TP2_STEPS, eager=True).cpu().numpy()
+    del model32
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=tp2_rank, args=(r, port, inputs, results)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, res = results.get(timeout=TP2_TIMEOUT_S)
+            got[rank] = res
+    except queue.Empty:
+        got["timeout"] = f"no result within {TP2_TIMEOUT_S} s"
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    seconds = time.perf_counter() - t0
+    errors = {r: v for r, v in got.items() if isinstance(v, str)}
+    check(not errors, "[15e] two ranks over gloo on the one card: " + "; ".join(
+        f"rank {r}: {v.strip().splitlines()[-1]}" for r, v in errors.items()))
+    check(all((got[r] == got[0]).all() for r in got), "[15e] the ranks' tokens differ")
+    same = bool((got[0] == want).all())
+    log(f"[15e] TP = 2 over gloo, two ranks on cuda:0, fp32, {TP2_STEPS} eager steps in "
+        f"{seconds:.1f} s (both processes' start, build and decode): the ranks agree; "
+        f"tokens {'equal' if same else 'differ from'} the unsharded fp32 model's "
+        f"({int((got[0] != want).sum())} of {want.size} differ)")
+    check(same, f"[15e] TP = 2 tokens {got[0].tolist()} against {want.tolist()}")
+    return dict(seconds=seconds, steps=TP2_STEPS, tokens_equal=same)
+
+
+def tp_eager_against_graph(torch, tpipe, cfg) -> dict:
+    """[15d] The TP model's image loop for TP_EAGER_STEPS steps, eager then
+    graph, on the x4 prompt and generators: bitwise equal, device and host
+    time a step (an eager step dispatches every DTensor op on the host)."""
+    from plangen_tpu_torch.runtime.generate import generate_image_tokens
+    from plangen_tpu_torch.tasks.pipeline import row_generators
+
+    prep = tpipe.prepare_layout_to_image(CAPTIONS, GROUNDINGS, seeds=SEEDS)
+    L, n = prep.embeds.shape[1], TP_EAGER_STEPS
+    out = {}
+    for kind in ("eager", "graph"):
+        tokens, seconds, got, plain_calls, _ = counted(torch, tpipe.device, lambda: (
+            generate_image_tokens(tpipe.model, cfg, prep.embeds, prep.cfg_mask[:, :L + n],
+                                  row_generators(SEEDS, 1, tpipe.device), tpipe.gen.cfg_weight,
+                                  tpipe.gen.temperature, num_tokens=n, eager=kind == "eager")))
+        check(got["prefix_decode_attention"] == n * cfg.llama.num_layers and not plain_calls,
+              f"[15d] tp {kind} x{n}: launches {got}, plain {plain_calls}")
+        out[kind] = (tokens.cpu(), seconds)
+    check(torch.equal(out["eager"][0], out["graph"][0]), "[15d] tp graph tokens differ from eager")
+    row = dict(model="tp", steps=n, eager_s=out["eager"][1], graph_s=out["graph"][1])
+    log(f"[15d] tp x4, {n} steps with the prefill: eager {row['eager_s']:.3f} s "
+        f"({1e3 * row['eager_s'] / n:.1f} ms a step), graph {row['graph_s']:.3f} s (step 0 "
+        "eager and the capture included); tokens bitwise equal")
+    return row
+
+
+def phase_parallel(torch, dev) -> dict:
+    """[15] `parallel/mesh.py` on the one card (module docstring); returns
+    the launches of its runs, each counted from 0."""
+    import torch.distributed as dist
+
+    from plangen_tpu_torch.parallel import mesh as pm
+
+    launches = dict.fromkeys(kernel_counters(), 0)
+    log(f"[15] {nvidia_smi_line()}")
+    # (a) a world-1 NCCL group on cuda:0
+    pm.init_distributed(f"localhost:{_free_port()}", 1, 0)
+    mesh = pm.create_mesh({"data": 1, "model": 1})
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and mesh.device_type == "cuda", f"[15a] {dist.get_backend()} {mesh}")
+    log(f"[15a] init_distributed: a world-1 {dist.get_backend()} group, mesh {mesh}")
+    try:
+        # (d) TP over the world-1 "model" axis on the phase-4 model
+        pipe, cfg = build_pipeline(torch, dev, False)
+        tp_model = pm.shard_params(copy.deepcopy(pipe.model), mesh, tp_axis="model")
+        tpipe, _ = build_pipeline(torch, dev, False, model=tp_model)
+        check(pm.is_sharded(tp_model), "[15d] no DTensor in the TP model")
+        ids, mask = pipe.proc.uni_batch(CAPTIONS, GROUNDINGS)
+        prompt_len = pipe.proc.cfg_batch(ids, mask)[0].shape[1]
+        want = expected_launches(cfg, None, 2 * len(CAPTIONS), prompt_len)
+        base = pipe.layout_to_image(CAPTIONS, GROUNDINGS, seeds=SEEDS).image_tokens
+        rows = []
+        for i, (what, p) in enumerate((("unsharded", pipe), ("tp", tpipe), ("tp", tpipe),
+                                        ("unsharded", pipe))):
+            loop = DecodeLoop(torch)
+            torch.cuda.reset_peak_memory_stats()
+            with loop:
+                out, seconds, got, plain_calls, tc = counted(
+                    torch, dev, lambda: p.layout_to_image(CAPTIONS, GROUNDINGS, seeds=SEEDS))
+            check_launches("15d", f"{what} x4 turn {i + 1}", got, want, plain_calls, tc)
+            if what == "tp":
+                add_launches(launches, got)
+            check_image_output(cfg, out, len(CAPTIONS))
+            diff = int((out.image_tokens != base).sum())
+            check(diff == 0, f"[15d] {what} x4: {diff} tokens differ from the unsharded "
+                  "model's first call")
+            rows.append(dict(model=what, s_per_call=seconds,
+                             host_ms_per_step=loop.host_ms_per_step(),
+                             capture_ms=loop.capture_ms[0],
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+            log(f"[15d] {what} x4 turn {i + 1} (graph): {seconds:.3f} s/call, host "
+                f"{rows[-1]['host_ms_per_step']:.3f} ms a replay, capture + instantiate "
+                f"{rows[-1]['capture_ms']:.2f} ms, peak {rows[-1]['peak_gib']:.2f} GiB; tokens "
+                "bitwise equal to the unsharded model's")
+        rows.append(tp_eager_against_graph(torch, tpipe, cfg))
+        budget = pipe.gen.max_new_text_tokens
+        plan_len = pipe.proc.stage1_batch(CAPTIONS, budget)[0].shape[1]
+        plans, plan_tokens, _, plain_s = text_call(
+            torch, pipe, cfg, "15d", "plan x4 unsharded", lambda: pipe.plan(CAPTIONS), 4,
+            plan_len)
+        tplans, tplan_tokens, got, tp_s = text_call(
+            torch, tpipe, cfg, "15d", "tp plan x4", lambda: tpipe.plan(CAPTIONS), 4, plan_len)
+        add_launches(launches, got)
+        check(tplans == plans and (tplan_tokens == plan_tokens).all(),
+              "[15d] tp plan x4 differs from the unsharded model's")
+        log(f"[15d] tp plan x4: {tp_s:.3f} s/call against {plain_s:.3f} unsharded; "
+            "groundings and tokens bitwise equal")
+        del tpipe, tp_model
+        torch.cuda.empty_cache()
+        tp2 = phase_tp2_one_card(torch, pipe, cfg)
+        del pipe
+        torch.cuda.empty_cache()
+        train = phase_parallel_train(torch, dev, launches)
+        log("[15] " + json.dumps(dict(decode_turns=rows, tp2=tp2, train=train)))
+    finally:
+        dist.destroy_process_group()
+    log(f"[15] {nvidia_smi_line()}")
     return launches
 
 
@@ -3580,6 +3936,8 @@ def main() -> int:
     add_launches(launches, phase_training(torch, dev))
     torch.cuda.empty_cache()
     add_launches(launches, phase_train_options(torch, dev))
+    torch.cuda.empty_cache()
+    add_launches(launches, phase_parallel(torch, dev))
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="plangen_ckpt_") as checkout:

@@ -204,9 +204,10 @@ class LlamaDecoderLayer(nn.Module):
         attn_in = self.input_layernorm(x)
         sa = self.self_attn
         q, k, v = sa.qkv(attn_in, cfg, lora_scaling)
-        q = q.reshape(B, Q, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(B, Q, cfg.num_kv_heads, cfg.head_dim)
+        # the heads this rank holds: all of them, or H/tp under TP
+        q = q.reshape(B, Q, -1, cfg.head_dim)
+        k = k.reshape(B, Q, -1, cfg.head_dim)
+        v = v.reshape(B, Q, -1, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         if cache is None and flash_mask is not None:
@@ -228,7 +229,7 @@ class LlamaDecoderLayer(nn.Module):
                 )
             else:
                 attn = dot_product_attention(q, k_layer, v_layer, bias=bias)
-        x = sa.out(x, attn.reshape(B, Q, cfg.q_dim), lora_scaling)
+        x = sa.out(x, attn.reshape(B, Q, -1), lora_scaling)
         return x + self.mlp(self.post_attention_layernorm(x))
 
     @staticmethod
@@ -312,6 +313,17 @@ class LlamaModel(nn.Module):
             x = remat_call(layer, remat, x, cos, sin, bias, positions, attn_mask, kv_cache,
                            i, flash_mask, self.lora_scaling)
         return self.norm(x)
+
+
+def local_kv_heads(lm: "LlamaForCausalLM") -> int:
+    """The KV heads this rank's layers produce: all of them, or the rank's
+    share of a TP-split `k_proj` (its local weight's rows over head_dim)."""
+    cfg = lm.model.cfg
+    k_proj = getattr(lm.model.layers[0].self_attn, "k_proj", None)
+    weight = getattr(k_proj, "weight", None)
+    if weight is None or not hasattr(weight, "to_local"):  # dense, quantized
+        return cfg.num_kv_heads
+    return weight.to_local().shape[0] // cfg.head_dim
 
 
 class LlamaForCausalLM(nn.Module):

@@ -39,20 +39,21 @@ class LayerNorm(nn.LayerNorm):
 class Attention(nn.Module):
     def __init__(self, dim: int, heads: int, dtype=None, device=None):
         super().__init__()
-        self.heads = heads
+        self.head_dim = dim // heads
         self.qkv = nn.Linear(dim, 3 * dim, dtype=dtype, device=device)
         self.proj = nn.Linear(dim, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, use_flash: bool = False) -> torch.Tensor:
         B, N, D = x.shape
-        qkv = self.qkv(x).reshape(B, N, 3, self.heads, D // self.heads)
+        # the heads this rank holds: all of them, or heads/tp under TP
+        qkv = self.qkv(x).reshape(B, N, 3, -1, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if use_flash:
             mask = torch.ones((B, N), dtype=torch.int32, device=x.device)
             attn = flash_attention(q, k, v, mask, causal=False)
         else:
             attn = dot_product_attention(q, k, v)
-        return self.proj(attn.reshape(B, N, D))
+        return self.proj(attn.reshape(B, N, -1))
 
 
 class Mlp(nn.Module):

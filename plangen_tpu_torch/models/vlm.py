@@ -4,7 +4,7 @@ Port of `plangen_tpu/models/vlm.py`: a `MultiModalityCausalLM`-named module
 holding `language_model`, `gen_embed`, `gen_aligner`, `gen_head`,
 `gen_vision_model` (the VQ tokenizer), `vision_model` (SigLIP) and the
 understanding `aligner`, plus the embedding-splice helpers of the
-understanding flow.
+understanding flow. Its `forward(fn, *args)` runs `fn` on the model itself.
 """
 
 from __future__ import annotations
@@ -48,6 +48,13 @@ class PlanGenModel(nn.Module):
         self.gen_vision_model = VQModel(cfg.vq, **kw)
         self.vision_model = SigLIPVisionModel(cfg.vision, **kw)
         self.aligner = MlpProjector(cfg.aligner, **kw)
+
+    def forward(self, fn, *args, **kwargs):
+        """`fn(self, *args, **kwargs)`: a run of the model's submodules made
+        through the model's own call, so that hooks on the model see it (the
+        train step's loss under FSDP2, whose root unit is this model, and
+        the compute copy `torch.func.functional_call` swaps in)."""
+        return fn(self, *args, **kwargs)
 
     def embed_text(self, ids: torch.Tensor) -> torch.Tensor:
         """Token ids -> LLM embeddings [B, L, H]."""

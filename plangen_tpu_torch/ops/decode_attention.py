@@ -35,6 +35,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from plangen_tpu_torch.ops import require_local
 from plangen_tpu_torch.ops.attention import NEG_INF
 
 CHUNK = 128
@@ -203,6 +204,7 @@ def prefix_decode_attention(
     bfloat16, head_dim 64 or 128, contiguous and 16-byte aligned, int32 mask
     and q_pos on the device) and raise on anything else; CPU inputs run the
     plain version."""
+    require_local("prefix_decode_attention", q, k_cache, v_cache, pad_mask, q_pos)
     _check_inputs(q, k_cache, v_cache, pad_mask, layer, q_pos)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -308,6 +310,8 @@ def prefix_decode_attention_q8(
     """Single-step decode attention over layer `layer`'s live int8 cache
     prefix (K1-q8). Requirements as `prefix_decode_attention`, with int8 k/v
     and fp32 scales; CPU inputs run the plain version."""
+    require_local("prefix_decode_attention_q8", q, k_q8, k_scale, v_q8, v_scale, pad_mask,
+                  q_pos)
     _check_q8_inputs(q, k_q8, k_scale, v_q8, v_scale, pad_mask, layer)
     if scale is None:
         scale = q.shape[-1] ** -0.5

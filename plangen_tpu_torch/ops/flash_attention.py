@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from plangen_tpu_torch.ops import require_local
 from plangen_tpu_torch.ops.attention import NEG_INF, dot_product_attention, make_causal_bias
 
 KERNEL_NAME = "flash_attention"
@@ -218,6 +219,7 @@ def flash_attention(
     (float32 or bfloat16, head_dim 64 or 128; strided operands are made
     contiguous, the mask becomes int32) and raise on anything else; CPU
     inputs run the plain version."""
+    require_local("flash_attention", q, k, v, pad_mask)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q, k, v must be [B, S, H, D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")

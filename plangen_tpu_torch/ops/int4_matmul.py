@@ -41,6 +41,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from plangen_tpu_torch.ops import require_local
+
 Int4Weight = Dict[str, torch.Tensor]
 
 KERNEL_NAME = "int4_matmul"
@@ -418,6 +420,7 @@ def int4_matmul_w16(
     CUDA inputs launch the kernel (contiguous float32 or bfloat16 x; bf16
     on the tensor cores, fp32 on the CUDA cores, as `w16_plan` says) and
     raise on anything else; CPU inputs run the plain version."""
+    require_local("int4_matmul_w16", x, w_p4, s_lo, s_hi16)
     if x.dim() != 2:
         raise ValueError(f"x must be [R, I], got {tuple(x.shape)}")
     R, I = x.shape
@@ -466,6 +469,7 @@ def int4_matmul_w4a8(
     CUDA inputs launch the kernel (on the tensor cores, as `a8_plan` says)
     and raise on anything else; CPU inputs run the plain version. Both give
     the same bits: the dots are exact."""
+    require_local("int4_matmul_w4a8", x8, xs, w_p4, s_lo, s_hi16)
     if x8.dim() != 2 or x8.dtype != torch.int8:
         raise TypeError(f"x8 must be int8 [R, I], got {x8.dtype} {tuple(x8.shape)}")
     R, I = x8.shape

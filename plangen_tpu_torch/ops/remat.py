@@ -17,7 +17,9 @@ non-reentrant form), where the JAX package wraps its layer-scan body in
 The module's parameters reach the checkpointed function as an argument and
 go back in through `torch.func.functional_call` at the recompute: the train
 step swaps the compute copy into the model only for the forward, so a
-recompute that read the module's attributes would see the masters.
+recompute that read the module's attributes would see the masters. An
+FSDP2 unit (`parallel/mesh.py`) is checkpointed as it is: its own hooks
+gather and cast its parameters at the forward and at the recompute.
 
 The flash-attention kernel (`ops/flash_attention.py`) is an
 `autograd.Function` around an extension call, which no policy can save: its
@@ -31,6 +33,7 @@ from typing import Union
 
 import torch
 from torch import nn
+from torch.distributed.fsdp import FSDPModule
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 Remat = Union[bool, str]  # False | True ("full") | policy name
@@ -67,5 +70,9 @@ def remat_call(module: nn.Module, remat: Remat, *args):
     if saved is not None:
         kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                  sorted(saved, key=str))
+    if isinstance(module, FSDPModule):
+        # FSDP2 all-gathers the unit's parameters in its own pre-forward
+        # hook, at the forward and again at the recompute
+        return checkpoint(module, *args, use_reentrant=False, **kwargs)
     params = dict(module.named_parameters())
     return checkpoint(_functional, module, params, *args, use_reentrant=False, **kwargs)

@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from plangen_tpu_torch.config import PlanGenModelConfig
+from plangen_tpu_torch.models.llama import local_kv_heads
 from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.ops.sampling import (
     Generators, apply_teacher_forcing, cfg_combine, sample_categorical,
@@ -159,7 +160,8 @@ def start_image_loop(
     mask = torch.as_tensor(attn_mask, device=device).to(torch.int32)
     mask = F.pad(mask, (0, S - mask.shape[1])).contiguous()  # zero tail
     cache = init_kv_cache(cfg.llama, B2, S, dtype=cfg_embeds.dtype, device=device,
-                          quantized=quantized_cache)
+                          quantized=quantized_cache,
+                          num_kv_heads=local_kv_heads(model.language_model))
     buffers = StepBuffers(
         last_hidden=prefill(model, cfg_embeds, mask, cache).clone(
             memory_format=torch.contiguous_format),
@@ -289,7 +291,8 @@ def greedy_decode_text(
     mask = torch.as_tensor(attn_mask, device=device).to(torch.int32)
     mask = F.pad(mask, (0, S - mask.shape[1])).contiguous()  # zero tail
     cache = init_kv_cache(cfg.llama, B, S, dtype=inputs_embeds.dtype, device=device,
-                          quantized=quantized_cache)
+                          quantized=quantized_cache,
+                          num_kv_heads=local_kv_heads(model.language_model))
     buffers = TextStepBuffers(
         last_hidden=prefill(model, inputs_embeds, mask, cache).clone(
             memory_format=torch.contiguous_format),

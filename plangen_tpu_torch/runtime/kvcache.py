@@ -1,7 +1,9 @@
 """Fixed-buffer KV cache.
 
 Port of `plangen_tpu/runtime/kvcache.py::init_kv_cache`. Slot s holds the
-key/value of absolute position s of the left-padded sequence. The decoder
+key/value of absolute position s of the left-padded sequence. Under tensor
+parallelism a rank's cache holds its own KV heads (`num_kv_heads`, from
+`models/llama.py::local_kv_heads`). The decoder
 writes rows into it in place (`torch.Tensor.index_copy_`), so the buffer is
 allocated once per generation and never copied. Layouts, zero-filled:
 
@@ -12,7 +14,7 @@ allocated once per generation and never copied. Layouts, zero-filled:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -28,8 +30,10 @@ def init_kv_cache(
     dtype: torch.dtype = torch.bfloat16,
     device=None,
     quantized: bool = False,
+    num_kv_heads: Optional[int] = None,  # the heads a rank holds under TP
 ) -> KVCache:
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    heads = cfg.num_kv_heads if num_kv_heads is None else num_kv_heads
+    shape = (cfg.num_layers, batch, max_len, heads, cfg.head_dim)
     if quantized:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),

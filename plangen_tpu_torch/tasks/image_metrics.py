@@ -218,16 +218,19 @@ class TorchScriptFeaturizer:
     Contract: module(float32 NCHW in [0,1] at `size`) -> [N, D]; tuple/list
     outputs take the first element; trailing 1x1 spatial dims are squeezed
     (the pytorch-fid wrapper's output shape is [N,2048,1,1]). The module
-    runs on `device`.
+    runs on `device`: the card when it is None (raising without one), the
+    CPU only when asked.
     """
 
-    def __init__(self, path: str, size: int = 299, batch_size: int = 16, device="cpu"):
+    def __init__(self, path: str, size: int = 299, batch_size: int = 16, device=None):
         import torch
+
+        from plangen_tpu_torch.tasks.eval import resolve_device
 
         self._torch = torch
         self.size = int(size)
         self.batch = int(batch_size)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.mod = torch.jit.load(path, map_location=self.device).eval()
 
     def _unit_range(self, images: np.ndarray) -> np.ndarray:
@@ -261,9 +264,9 @@ class TorchScriptFeaturizer:
 
 
 def make_featurizer(spec: str, model, model_cfg, batch_size: int = 16,
-                    size: int = 299, device="cpu"):
+                    size: int = 299, device=None):
     """'siglip' (the model's own tower, on its device) or 'torch:<path>'
-    (on `device`) -> (featurizer, tag). The tag lands in the metric keys
+    (on `device`: the card when it is None) -> (featurizer, tag). The tag lands in the metric keys
     (fid_<tag>) so reports are self-describing about comparability."""
     if spec == "siglip":
         return SigLIPFeaturizer(model, model_cfg, batch_size=batch_size), "siglip"

@@ -11,6 +11,14 @@ deletes older ones; `restore` loads the newest step
 `save_params_only` writes the model alone (or its masked part) as the
 port's weight artifact (`convert/params.py`) under
 `<directory>/params-<step>`, which `params_path` loads.
+
+With a process `group` (a Trainer on a mesh) every rank takes part and the
+checkpoint is the same `state.pt` a one-device run writes: each sharded
+tensor (a DTensor of TP or FSDP2: parameters, AdamW moments, the
+accumulated gradient) is gathered whole, tensor by tensor, to the CPU of
+rank 0, which alone writes, then all ranks wait for it. `restore` loads
+such a file into any mesh, or none: each rank takes its shard of every
+tensor its live state holds sharded.
 """
 
 from __future__ import annotations
@@ -20,17 +28,44 @@ import shutil
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from plangen_tpu_torch.train.step import TrainState
 
 _FILE = "state.pt"
 
 
+def _gathered(tree, lead: bool):
+    """The state with every DTensor gathered whole (a collective: every
+    rank calls it), on the CPU of the lead rank; None elsewhere."""
+    if isinstance(tree, dict):
+        return {k: _gathered(v, lead) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        full = tree.full_tensor()
+        return full.cpu() if lead else None
+    return tree.cpu() if lead and isinstance(tree, torch.Tensor) else tree
+
+
+def _sharded_like(live, saved):
+    """`saved` (whole tensors) with each tensor that `live` holds as a
+    DTensor distributed as it is (a collective over its mesh)."""
+    if isinstance(saved, dict):
+        live = live if isinstance(live, dict) else {}
+        return {k: _sharded_like(live.get(k), v) for k, v in saved.items()}
+    if isinstance(live, DTensor):
+        return distribute_tensor(saved.to(live.device, live.dtype), live.device_mesh,
+                                 live.placements)
+    return saved
+
+
 class PlanGenCheckpointer:
-    def __init__(self, directory: str, total_limit: int = 3):
+    def __init__(self, directory: str, total_limit: int = 3, group=None):
         self.directory = os.path.abspath(directory)
         self.total_limit = total_limit
+        self.group = group  # the ranks that share the directory; its rank 0 writes
+        self.lead = group is None or dist.get_rank(group) == 0
         os.makedirs(self.directory, exist_ok=True)
 
     def all_steps(self) -> List[int]:
@@ -46,16 +81,22 @@ class PlanGenCheckpointer:
     def save(self, step: int, state: TrainState) -> None:
         """Write step `step` (replacing one of that number), then drop the
         oldest steps beyond `total_limit`."""
-        final = os.path.join(self.directory, str(step))
-        tmp = final + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save({"model": state.model.state_dict(), "optimizer": state.opt.state_dict(),
-                    "step": state.step}, os.path.join(tmp, _FILE))
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
-        for old in self.all_steps()[:-self.total_limit]:
-            shutil.rmtree(os.path.join(self.directory, str(old)))
+        payload = {"model": state.model.state_dict(), "optimizer": state.opt.state_dict(),
+                   "step": state.step}
+        if self.group is not None:
+            payload = _gathered(payload, self.lead)
+        if self.lead:
+            final = os.path.join(self.directory, str(step))
+            tmp = final + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(payload, os.path.join(tmp, _FILE))
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            for old in self.all_steps()[:-self.total_limit]:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> Optional[TrainState]:
         """Load a saved step into `state` (in place); None when no
@@ -65,8 +106,9 @@ class PlanGenCheckpointer:
             return None
         payload = torch.load(os.path.join(self.directory, str(step), _FILE),
                              map_location="cpu", weights_only=True)
-        state.model.load_state_dict(payload["model"], strict=True)
-        state.opt.load_state_dict(payload["optimizer"])
+        state.model.load_state_dict(_sharded_like(state.model.state_dict(), payload["model"]),
+                                    strict=True)
+        state.opt.load_state_dict(_sharded_like(state.opt.state_dict(), payload["optimizer"]))
         state.step = int(payload["step"])
         return state
 

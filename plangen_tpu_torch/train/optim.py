@@ -35,7 +35,9 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from plangen_tpu_torch.config import OptimConfig
 
@@ -102,6 +104,47 @@ def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the tensor itself otherwise): the updates
+    are elementwise, so each rank updates its shard in place."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def placed_like(grads: Grads, params: Dict[str, torch.Tensor]) -> Grads:
+    """The gradients of DTensor parameters laid out as their parameters
+    are (autograd may hand back another placement, such as the whole
+    gradient of a vocab-parallel embedding)."""
+    out = dict(grads)
+    for n, p in params.items():
+        g = grads.get(n)
+        if isinstance(g, DTensor) and g.placements != p.placements:
+            out[n] = g.redistribute(p.device_mesh, p.placements)
+    return out
+
+
+def global_sq_norm(tensors) -> torch.Tensor:
+    """The sum of squares over every element of the tensors, in their
+    dtype: a DTensor's shards are summed over the mesh dims that split it,
+    so each element counts once, and a replicated tensor counts once."""
+    total = None
+    split: Dict[tuple, torch.Tensor] = {}  # the process groups that split a sum
+    for t in tensors:
+        s = torch.sum(_local(t) * _local(t))
+        if isinstance(t, DTensor):
+            mesh = t.device_mesh
+            key = tuple(mesh.get_group(d) for d, pl in enumerate(t.placements)
+                        if pl.is_shard())
+            if key:
+                split[key] = s if key not in split else split[key] + s
+                continue
+        total = s if total is None else total + s
+    for groups, s in split.items():
+        for group in groups:
+            dist.all_reduce(s, group=group)
+        total = s if total is None else total + s
+    return total
+
+
 class _Masked:
     """The trainable parameters of a model whose masters it updates in
     place, after optax's clip_by_global_norm. Subclasses yield the updates."""
@@ -115,18 +158,22 @@ class _Masked:
     @torch.no_grad()
     def step(self, grads: Grads) -> None:
         """One update from {name: gradient} (None = zero gradient). The
-        gradients are clipped (and may be overwritten) in place."""
+        gradients are clipped (and may be overwritten) in place. A DTensor
+        parameter (TP, FSDP2) is updated shard by shard, its state sharded
+        with it, and the clip takes the global norm."""
         for _, p, u in self.updates(grads):
-            p.add_(u)  # apply_updates
+            _local(p).add_(u)  # apply_updates
 
     def updates(self, grads: Grads) -> Iterator[Tuple[str, torch.Tensor, torch.Tensor]]:
         raise NotImplementedError
 
     def _clipped(self, grads: Grads) -> Dict[str, torch.Tensor]:
         """clip_by_global_norm: t / norm * max_norm unless norm < max_norm."""
-        g = {n: grads.get(n) if grads.get(n) is not None else torch.zeros_like(p)
+        grads = placed_like(grads, self.params)
+        g = {n: _local(grads[n]) if grads.get(n) is not None else torch.zeros_like(_local(p))
              for n, p in self.params.items()}
-        norm = torch.sqrt(sum(torch.sum(t * t) for t in g.values()))
+        norm = torch.sqrt(global_sq_norm([grads[n] if grads.get(n) is not None else g[n]
+                                          for n in self.params]))
         if not bool(norm < self.cfg.max_grad_norm):
             for t in g.values():
                 t.div_(norm.to(t.dtype)).mul_(_in(self.cfg.max_grad_norm, t.dtype))
@@ -155,7 +202,8 @@ class AdamW(_Masked):
         lr = self.schedule(self.count)
         for n, p in self.params.items():
             d = p.dtype
-            mu, nu = self.mu[n], self.nu[n]
+            p = _local(p)
+            mu, nu = _local(self.mu[n]), _local(self.nu[n])
             mu.mul_(_in(b1, d)).add_(_in(1 - b1, d) * g[n])
             nu.mul_(_in(b2, d)).add_(_in(1 - b2, d) * (g[n] * g[n]))
             u = (mu / _in(bc1, d)) / (torch.sqrt(nu / _in(bc2, d)) + _in(cfg.adam_epsilon, d))
@@ -241,6 +289,10 @@ class Adafactor(_Masked):
 
     def __init__(self, cfg: OptimConfig, model: nn.Module, mask: Dict[str, bool]):
         super().__init__(cfg, model, mask)
+        if any(isinstance(p, DTensor) for p in self.params.values()):
+            raise NotImplementedError(
+                "Adafactor under FSDP or TP: its factored statistics span the JAX "
+                "package's layer-stacked leaf")
         self.weight_decay = cfg.adam_weight_decay * cfg.learning_rate
         self.leaves = _jax_leaves(model, self.params)
         self.v_row: Dict[str, torch.Tensor] = {}
@@ -344,9 +396,10 @@ class Accumulate:
     @torch.no_grad()
     def step(self, grads: Grads) -> None:
         n = self.mini_step
+        grads = placed_like(grads, self.params)
         for name, acc in self.acc.items():
-            g = grads.get(name)
-            acc.add_(((g if g is not None else torch.zeros_like(acc)) - acc) / (n + 1))
+            g, acc = grads.get(name), _local(acc)
+            acc.add_(((_local(g) if g is not None else torch.zeros_like(acc)) - acc) / (n + 1))
         if n + 1 < self.every_k:
             self.mini_step = n + 1
             return

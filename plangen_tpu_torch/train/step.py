@@ -12,7 +12,10 @@ is made inside the step by `torch.func.functional_call` with
 {name: p.to(compute_dtype)}: trainable parameters are cast differentiably,
 frozen ones detached first (the JAX package's `_cast` after
 `stop_gradient`), so the gradient lands on the masters in their dtype and
-no frozen module does weight-gradient work.
+no frozen module does weight-gradient work. Under FSDP2
+(`parallel/mesh.py::shard_params`) the model's `MixedPrecisionPolicy` makes
+the same cast after each all-gather, and frozen parameters take no
+gradient because they do not require one (the Trainer sets that).
 
 `gradient_checkpointing` rematerializes every LLaMA layer and SigLIP block
 by `remat_policy` (`ops/remat.py`), `fused_lm_ce` takes the lm_head CE in
@@ -22,10 +25,13 @@ chunks (`train/loss.py`).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.fsdp import FSDPModule
+from torch.distributed.tensor import DTensor
 
 from plangen_tpu_torch.config import PlanGenModelConfig, TrainConfig
 from plangen_tpu_torch.models.vlm import PlanGenModel
@@ -42,18 +48,6 @@ class TrainState:
     step: int = 0
 
 
-class _FlowLosses(nn.Module):
-    """Holds the model so that `functional_call` can swap in the compute copy."""
-
-    def __init__(self, model: PlanGenModel, run: Callable):
-        super().__init__()
-        self.model = model
-        self._run = run
-
-    def forward(self, batches: Batches):
-        return self._run(self.model, batches)
-
-
 def make_loss_fn(
     model_cfg: PlanGenModelConfig,
     train_cfg: TrainConfig,
@@ -61,9 +55,11 @@ def make_loss_fn(
     flows: Sequence[Tuple[int, str]],  # (flow_id, task_type)
     compute_dtype: torch.dtype = torch.bfloat16,
     trainable_mask: Optional[Dict[str, bool]] = None,
+    group=None,
 ) -> Callable:
     """Build `loss_fn(model, batches) -> (total, loss_dict)` over the fp32
-    masters of `model`.
+    masters of `model`; under a data `group` (a process group) this rank's
+    share of the global-batch losses (`train/loss.py`).
 
     Batch format per flow (tensors on the model's device):
       uni/t2i: {input_ids [B,L], attn_mask [B,L+N], images [B,H,W,3]}
@@ -79,7 +75,7 @@ def make_loss_fn(
     use_flash = train_cfg.use_flash_attention
     use_local_edit_loss = train_cfg.use_local_edit_loss
     remat = policy_name(train_cfg.remat_policy) if train_cfg.gradient_checkpointing else False
-    kw = dict(use_flash=use_flash, remat=remat, fused_ce=train_cfg.fused_lm_ce)
+    kw = dict(use_flash=use_flash, remat=remat, fused_ce=train_cfg.fused_lm_ce, group=group)
 
     def run(model: PlanGenModel, batches: Batches):
         loss_dict: Dict[str, torch.Tensor] = {}
@@ -114,12 +110,14 @@ def make_loss_fn(
         return total, loss_dict
 
     def loss_fn(model: PlanGenModel, batches: Batches):
+        if isinstance(model, FSDPModule):  # FSDP2 gathers and casts
+            return model(run, batches)
         params = {}
         for name, p in model.named_parameters():
             if trainable_mask is not None and not trainable_mask[name]:
                 p = p.detach()
-            params["model." + name] = p.to(compute_dtype) if p.is_floating_point() else p
-        return torch.func.functional_call(_FlowLosses(model, run), params, (batches,))
+            params[name] = p.to(compute_dtype) if p.is_floating_point() else p
+        return torch.func.functional_call(model, params, (run, batches))
 
     return loss_fn
 
@@ -131,24 +129,59 @@ def make_train_step(
     flows: Sequence[Tuple[int, str]],
     compute_dtype: torch.dtype = torch.bfloat16,
     trainable_mask: Optional[Dict[str, bool]] = None,
+    group=None,
 ) -> Callable:
     """Build `train_step(state, batches) -> (state, metrics)`; the state is
-    updated in place. metrics: {"loss": total, **loss_dict}, 0-d tensors."""
+    updated in place. metrics: {"loss": total, **loss_dict}, 0-d tensors.
+
+    Under a data `group` each rank's batches are its rows of the global
+    batch: the gradients are summed over the group (by FSDP2's
+    reduce-scatter, or here by one all-reduce per dtype), as are the
+    metrics, so every rank reports the global-batch losses."""
     loss_fn = make_loss_fn(model_cfg, train_cfg, pad_id, flows, compute_dtype,
-                           trainable_mask=trainable_mask)
+                           trainable_mask=trainable_mask, group=group)
 
     def train_step(state: TrainState, batches: Batches):
         model = state.model
         model.zero_grad(set_to_none=True)
         loss, loss_dict = loss_fn(model, batches)
         loss.backward()
+        if group is not None and not isinstance(model, FSDPModule):
+            sum_gradients(model, group)
         state.opt.step({n: p.grad for n, p in model.named_parameters()})
         model.zero_grad(set_to_none=True)
         state.step += 1
         metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in loss_dict.items()}}
+        if group is not None:
+            metrics = dict(zip(metrics, sum_over(list(metrics.values()), group)))
         return state, metrics
 
     return train_step
+
+
+def sum_over(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The tensors (each a local tensor, or a DTensor's local shard) summed
+    over `group`, one all-reduce for each dtype."""
+    locals_ = [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
+    out = list(locals_)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(locals_):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([locals_[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        for i, part in zip(idx, flat.split([locals_[i].numel() for i in idx])):
+            out[i] = part.view_as(locals_[i])
+    return out
+
+
+@torch.no_grad()
+def sum_gradients(model: nn.Module, group) -> None:
+    """Sum every gradient over the data group in place (data parallelism
+    without FSDP; a TP-split gradient is summed shard by shard)."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    for g, total in zip(grads, sum_over(grads, group)):
+        (g.to_local() if isinstance(g, DTensor) else g).copy_(total)
 
 
 def init_train_state(model: PlanGenModel, opt,

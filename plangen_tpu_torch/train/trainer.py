@@ -30,8 +30,26 @@ numhw tokens are on; the effective mode is printed.
 `train.val_max_len` batches on the trainer's own model (no reload), its
 metrics logged under `val/` keys.
 
-Not ported, and raising `NotImplementedError`: FSDP, a mesh of more than
-one device, and weights from an orbax `params_path` of the JAX package.
+On a mesh (`parallel/mesh.py`): `train.mesh_shape` is resolved over the
+process group's world (one process a device; -1 takes the ranks left, and
+JAX's "needs N devices" assertion holds), and `train.fsdp` shards over its
+"data" axis with FSDP2 whatever the axis size. Then, as in JAX: the mesh,
+the model, LoRA, `shard_params` (TP over "model" when it is larger than 1,
+the frozen parameters set not to require a gradient under FSDP), and only
+then the optimizer, so that it holds the sharded parameters. The flow
+`batch_size` is per data shard: each data shard loads its own disjoint
+stride of the dataset through the loader's `num_shards` / `shard_id`, the
+ranks of one data shard the same rows. The losses and gradients are the
+global batch's (`train/step.py`); only the lead process writes
+`metrics.jsonl`, `params.jsonl` and TensorBoard, and the checkpoint is
+gathered to it (`train/checkpoint.py`). Without `fsdp` and with a mesh of
+one device the Trainer opens no process group and shards nothing.
+`train.fsdp_min_size` has no counterpart: FSDP2 shards every parameter.
+
+Not ported, and raising `NotImplementedError`: weights from an orbax
+`params_path` of the JAX package, `validate` on a mesh, and what
+`shard_params` and the optimizers refuse (LoRA or a quantized form under
+TP, Adafactor under FSDP or TP).
 """
 
 from __future__ import annotations
@@ -44,6 +62,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from plangen_tpu_torch.config import PlanGenConfig, validate_config
 from plangen_tpu_torch.convert.from_jax import init_params
@@ -52,21 +71,18 @@ from plangen_tpu_torch.data.collate import collate_flows
 from plangen_tpu_torch.data.loader import BatchLoader, CombinedLoader, PrefetchLoader, infinite
 from plangen_tpu_torch.data.registry import get_dataset
 from plangen_tpu_torch.models.vlm import PlanGenModel
+from plangen_tpu_torch.parallel.mesh import batch_sharding, create_mesh, mesh_dims, shard_params
 from plangen_tpu_torch.tasks.processor import PlanGenProcessor
 from plangen_tpu_torch.train.checkpoint import PlanGenCheckpointer
 from plangen_tpu_torch.train.lora import add_lora, init_lora
 from plangen_tpu_torch.train.metrics import MetricsLogger
-from plangen_tpu_torch.train.optim import count_params, make_optimizer
+from plangen_tpu_torch.train.optim import count_params, make_optimizer, trainable_mask
 from plangen_tpu_torch.train.step import init_train_state, make_train_step
+
+COMPUTE_DTYPE = torch.bfloat16  # the step's compute copy, as the JAX Trainer's
 
 
 def _check_supported(cfg: PlanGenConfig, model_given: bool) -> None:
-    tcfg = cfg.train
-    if tcfg.fsdp:
-        raise NotImplementedError("fsdp is not ported: the port trains on one device")
-    if any(size > 1 for size in tcfg.mesh_shape.values()):
-        raise NotImplementedError(
-            f"mesh_shape {tcfg.mesh_shape}: the port trains on one device")
     if not model_given and cfg.params_path:
         from plangen_tpu_torch.convert.params import read_meta
 
@@ -99,6 +115,13 @@ class Trainer:
             device = "cuda"
         self.device = torch.device(device)
 
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        dims = mesh_dims(tcfg.mesh_shape, world)
+        self.mesh = None
+        if tcfg.fsdp or world > 1 or dims["data"] * dims["model"] > 1:
+            self.mesh = create_mesh(tcfg.mesh_shape, device=self.device)
+        self.is_lead = self.mesh is None or dist.get_rank() == 0
+
         # without a tokenizer in janus_path, the byte-level fallback
         self.tokenizer = load_tokenizer_for(cfg)
         self.processor = PlanGenProcessor(
@@ -123,6 +146,16 @@ class Trainer:
             if tcfg.tune_token_when_lora and (cfg.use_special_tokens or cfg.use_numhw_tokens):
                 tuning_mode = "lora_tokens"
         self.tuning_mode = tuning_mode
+        group = None
+        if self.mesh is not None:
+            if tcfg.fsdp:
+                for name, trainable in trainable_mask(self.model, tuning_mode).items():
+                    self.model.get_parameter(name).requires_grad_(trainable)
+            shard_params(self.model, self.mesh,
+                         tp_axis="model" if dims["model"] > 1 else None,
+                         fsdp_axis="data" if tcfg.fsdp else None, param_dtype=COMPUTE_DTYPE)
+            if dims["data"] > 1:
+                group = self.mesh["data"].get_group()
 
         opt, self.mask = make_optimizer(tcfg.optim, self.model, tuning_mode)
         counts = count_params(self.model, self.mask)
@@ -136,14 +169,18 @@ class Trainer:
         self.state = init_train_state(self.model, opt, dtype)
         self.step_fn = make_train_step(
             cfg.model, tcfg, pad_id=self.tokenizer.special.pad_id, flows=self.flows,
-            trainable_mask=self.mask,
+            compute_dtype=COMPUTE_DTYPE, trainable_mask=self.mask, group=group,
         )
-        self.ckpt = PlanGenCheckpointer(os.path.join(tcfg.output_dir, "checkpoints"),
-                                        total_limit=tcfg.checkpoints_total_limit)
-        self.logger = MetricsLogger(tcfg.output_dir)
+        self.ckpt = PlanGenCheckpointer(
+            os.path.join(tcfg.output_dir, "checkpoints"), total_limit=tcfg.checkpoints_total_limit,
+            group=None if self.mesh is None else dist.group.WORLD)
+        self.logger = MetricsLogger(tcfg.output_dir, use_tensorboard=self.is_lead)
 
     def _dump_trainable_names(self) -> None:
-        """Trainable parameter names and shapes to params.jsonl."""
+        """Trainable parameter names and shapes (whole) to params.jsonl, from
+        the lead process."""
+        if not self.is_lead:
+            return
         os.makedirs(self.cfg.train.output_dir, exist_ok=True)
         with open(os.path.join(self.cfg.train.output_dir, "params.jsonl"), "w") as f:
             for name, p in self.model.named_parameters():
@@ -154,13 +191,15 @@ class Trainer:
 
     def build_dataloader(self):
         tcfg = self.cfg.train
+        # flow batch_size is per data shard; the global batch is batch_size x dp
+        dp, shard = (1, 0) if self.mesh is None else batch_sharding(self.mesh)
         loaders = {}
         for fid, flow in enumerate(tcfg.train_data):
             ds = get_dataset(self.cfg, flow.data_name, is_test=False)
             loaders[fid] = BatchLoader(ds, flow.batch_size, shuffle=True, seed=tcfg.seed + fid,
-                                       workers=tcfg.num_workers)
+                                       workers=tcfg.num_workers, num_shards=dp, shard_id=shard)
             print(f"flow {fid}: task={flow.task_type} data={flow.data_name} "
-                  f"len={len(ds)} bs={flow.batch_size}")
+                  f"len={len(ds)} bs={flow.batch_size}x{dp}")
         combined = CombinedLoader(loaders)
         if tcfg.prefetch_depth > 0:
             combined = PrefetchLoader(combined, depth=tcfg.prefetch_depth)
@@ -203,7 +242,8 @@ class Trainer:
                 t_step = time.perf_counter()
                 last_logged = step
                 metrics["sec_per_step"] = dt
-                self.logger.log(step + 1, metrics)
+                if self.is_lead:
+                    self.logger.log(step + 1, metrics)
                 last_metrics = metrics
                 # a non-finite loss has already poisoned the Adam state: save
                 # a post-mortem checkpoint and stop
@@ -229,6 +269,10 @@ class Trainer:
         that rewrites weights in place (int8, int4, int4_a8) runs on a copy."""
         from plangen_tpu_torch.ops.quant import MODES
         from plangen_tpu_torch.tasks.eval import run_validation
+
+        if self.mesh is not None:
+            raise NotImplementedError("validate on a mesh: run_validation takes an "
+                                      "unsharded model")
 
         td = self.cfg.train.test_data
         model = self.model if model is None else model

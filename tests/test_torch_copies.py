@@ -64,7 +64,7 @@ def test_port_source_imports_nothing_of_the_jax_package(path):
 
 @pytest.mark.parametrize("module", ["runtime/speculative.py", "runtime/jacobi.py",
                                     "convert/params.py", "convert/export.py",
-                                    "data/native.py"])
+                                    "data/native.py", "parallel/mesh.py"])
 def test_the_scan_covers_the_decoders_and_the_artifacts(module):
     assert REPO / "plangen_tpu_torch" / module in PORT_SOURCES
 

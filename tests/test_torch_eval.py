@@ -145,6 +145,29 @@ def test_siglip_featurizer_within_2e4_of_jax(kind):
         tim.make_featurizer("inception", model, TTINY)
 
 
+def test_torchscript_featurizer_runs_on_the_card_unless_asked_for_the_cpu(
+        tmp_path, monkeypatch):
+    """`make_featurizer("torch:<path>")` and `TorchScriptFeaturizer` take
+    the card when no device is named, and raise without one; the CPU runs
+    when asked, the module seeing [0, 1] NCHW at its size."""
+
+    class Pool(torch.nn.Module):
+        def forward(self, x):
+            return x.mean(dim=(2, 3), keepdim=True)  # [N, 3, 1, 1]
+
+    path = str(tmp_path / "pool.pt")
+    torch.jit.script(Pool()).save(path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tim.make_featurizer(f"torch:{path}", None, TTINY, size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tim.TorchScriptFeaturizer(path, size=8)
+    feat, tag = tim.make_featurizer(f"torch:{path}", None, TTINY, size=8, device="cpu")
+    assert tag == "torchscript" and feat.device.type == "cpu"
+    images = np.random.RandomState(3).randint(0, 256, (3, 8, 8, 3)).astype(np.uint8)
+    np.testing.assert_allclose(feat(images), images.mean(axis=(1, 2)) / 255.0, rtol=1e-6)
+
+
 def test_draw_layout_grid_and_image_dir_equal_jax(tmp_path):
     rs = np.random.RandomState(2)
     img = rs.uniform(-1, 1, (40, 48, 3)).astype(np.float32)

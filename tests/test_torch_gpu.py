@@ -1440,3 +1440,94 @@ def test_jacobi_equals_the_graph_text_loop_in_fp32(cuda):
                                     return_iters=True)
     assert _loop_counts() == before
     assert torch.equal(jac.cpu(), seq) and 1 <= iters <= n
+
+
+# ---------------------------- parallel/mesh.py over a world-1 NCCL group
+
+
+@pytest.fixture
+def world1_nccl(cuda):
+    """A 1 x 1 mesh over a world-1 NCCL group on cuda:0, destroyed after."""
+    import torch.distributed as dist
+
+    from plangen_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.create_mesh({"data": 1, "model": 1})
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_fsdp_train_step_over_nccl_equals_the_plain_step(cuda, world1_nccl):
+    """One stage3 step (fp32 compute, K3) under FSDP2 over the world-1 NCCL
+    group equals the plain step: the losses, and the weights to Adam's 2 lr
+    (a rounding-level gradient may take either sign)."""
+    from plangen_tpu_torch.config import TrainConfig
+    from plangen_tpu_torch.ops import flash_attention as fa
+    from plangen_tpu_torch.parallel import mesh as pm
+    from plangen_tpu_torch.train.optim import make_optimizer, trainable_mask
+    from plangen_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = _train_config()
+    tcfg = TrainConfig(use_flash_attention=True)
+    flows = ((0, "uni"), (1, "mmu"), (2, "plan"))
+    results = {}
+    for fsdp in (False, True):
+        model = init_params(PlanGenModel(cfg, dtype=torch.float32, device=cuda),
+                            torch.Generator(device=cuda).manual_seed(0))
+        if fsdp:
+            for name, trainable in trainable_mask(model, "stage3").items():
+                model.get_parameter(name).requires_grad_(trainable)
+            pm.shard_params(model, world1_nccl, tp_axis=None, fsdp_axis="data")
+        opt, mask = make_optimizer(tcfg.optim, model, "stage3")
+        step = make_train_step(cfg, tcfg, 2, flows, compute_dtype=torch.float32,
+                               trainable_mask=mask)
+        plain = fa.flash_attention_reference.calls
+        _, metrics = step(init_train_state(model, opt), _train_batches(cfg, cuda))
+        assert fa.flash_attention_reference.calls == plain
+        with torch.no_grad():
+            weights = {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).cpu()
+                       for n, p in model.named_parameters()}
+        results[fsdp] = ({k: float(v) for k, v in metrics.items()}, weights)
+    assert pm.is_sharded(model)
+    for k, v in results[False][0].items():
+        np.testing.assert_allclose(results[True][0][k], v, rtol=1e-6, err_msg=k)
+    lr = tcfg.optim.learning_rate
+    for k, w in results[False][1].items():
+        torch.testing.assert_close(results[True][1][k], w, rtol=0, atol=2 * lr,
+                                   msg=lambda m, k=k: f"weight {k}: {m}")
+
+
+@pytest.mark.parametrize("case", ["bf16_greedy", "bf16_per_row_sampled", "int8_cache"])
+def test_tp_sharded_graph_equals_eager_and_the_unsharded_model(cuda, world1_nccl, case):
+    """The image loop of a model TP-sharded over the world-1 "model" axis:
+    the captured step (its all-reduces and gathers included) replays the
+    eager loop's tokens bit for bit, and both equal the unsharded model's."""
+    import copy
+
+    from plangen_tpu_torch.parallel import mesh as pm
+
+    _, q8, temperature, gens, _ = GRAPH_CASES[case]
+    cfg, model = _graph_model(cuda)
+    tp_model = pm.shard_params(copy.deepcopy(model), world1_nccl, tp_axis="model")
+    assert pm.is_sharded(tp_model)
+    n = 16
+    embeds, mask = _graph_prompt(cuda, cfg, n)
+
+    def run(m, eager):
+        generator = None
+        if gens == "per_row":
+            generator = [torch.Generator(device=cuda).manual_seed(s) for s in (5, 6)]
+        before = _loop_counts()
+        tokens = generate_image_tokens(m, cfg, embeds, mask, generator=generator,
+                                       cfg_weight=5.0, temperature=temperature,
+                                       num_tokens=n, quantized_cache=q8, eager=eager)
+        torch.cuda.synchronize()
+        return tokens.cpu(), tuple(a - b for a, b in zip(_loop_counts(), before))
+
+    want, want_counts = run(model, eager=False)
+    for eager in (True, False):
+        tokens, counts = run(tp_model, eager)
+        assert torch.equal(tokens, want), eager
+        assert counts == want_counts
+    assert want_counts[1 if q8 else 0] == n * cfg.llama.num_layers

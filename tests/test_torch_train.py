@@ -456,11 +456,27 @@ def test_trainer_nonfinite_loss_checkpoints_and_raises(tmp_path):
     {"params_path": "weights"},
 ], ids=lambda o: next(iter(o)))
 def test_trainer_unported_options_raise(tmp_path, override):
+    """An orbax `params_path` raises NotImplementedError. `train.fsdp` is
+    ported: on one process it trains under FSDP2 over a world-1 gloo group
+    (tests/test_torch_distributed.py holds it against one process on 2
+    ranks). A mesh larger than the world raises JAX's assertion."""
+    import torch.distributed as dist
+
     from plangen_tpu_torch.train.trainer import Trainer
 
     cfg = apply_overrides(_toy_config(tmp_path), override)
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, device="cpu").fit(max_steps=1)
+    if "train.fsdp" in override:
+        try:
+            t = Trainer(cfg, device="cpu")
+            assert t.mesh is not None and np.isfinite(t.fit(max_steps=1)["loss"])
+        finally:
+            dist.destroy_process_group()
+    elif "train.mesh_shape" in override:
+        with pytest.raises(AssertionError, match="needs 2 devices, have 1"):
+            Trainer(cfg, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError):
+            Trainer(cfg, device="cpu").fit(max_steps=1)
 
 
 def test_trainer_unknown_dataset_raises(tmp_path):
