@@ -34,7 +34,9 @@ LoRA (`train/lora.py::add_lora`): each attention may hold adapters
 `self_attn.lora.<q|k|v|o>_proj.{a [in, r], b [r, out]}` and the model one
 `lora_scaling` (alpha / r); the delta `((x @ a) @ b) * scaling` is added to
 the projection's output, dense or quantized, with or without a cache, as
-the JAX layer adds `_lora_delta`.
+the JAX layer adds `_lora_delta`. Under TP (`parallel/mesh.py`) a pair's
+forward is its split one, and the delta is this rank's columns of the
+projection's output.
 
 `remat` (training, no cache) runs each layer under `ops/remat.py`, as the
 JAX package wraps its layer-scan body in `jax.checkpoint`.
@@ -151,10 +153,10 @@ class LlamaAttention(nn.Module):
     def qkv(self, x: torch.Tensor, cfg: LlamaConfig, scaling=None):
         """Flat q, k, v projections of x, from the split or fused modules,
         each with its LoRA delta when the layer has adapters."""
-        if hasattr(self, "qkv_proj"):  # fused int4 triple (MHA)
+        if hasattr(self, "qkv_proj"):  # fused int4 triple (MHA: equal thirds)
             qkv = self.qkv_proj(x)
-            qd, kd = cfg.q_dim, cfg.kv_dim
-            q, k, v = qkv[..., :qd], qkv[..., qd:qd + kd], qkv[..., qd + kd:]
+            d = qkv.shape[-1] // 3  # q_dim, or this rank's share under TP
+            q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
         elif hasattr(self, "k_v_proj"):  # GQA: only k|v fuse
             q = self.q_proj(x)
             kv = self.k_v_proj(x)
@@ -317,13 +319,19 @@ class LlamaModel(nn.Module):
 
 def local_kv_heads(lm: "LlamaForCausalLM") -> int:
     """The KV heads this rank's layers produce: all of them, or the rank's
-    share of a TP-split `k_proj` (its local weight's rows over head_dim)."""
+    share under TP (the local width of k_proj, or of the fused k|v or q|k|v
+    projection of a quantized model, over head_dim)."""
     cfg = lm.model.cfg
-    k_proj = getattr(lm.model.layers[0].self_attn, "k_proj", None)
-    weight = getattr(k_proj, "weight", None)
-    if weight is None or not hasattr(weight, "to_local"):  # dense, quantized
-        return cfg.num_kv_heads
-    return weight.to_local().shape[0] // cfg.head_dim
+    sa = lm.model.layers[0].self_attn
+    name, parts = next((n, p) for n, p in (("k_proj", 1), ("k_v_proj", 2), ("qkv_proj", 3))
+                       if hasattr(sa, n))
+    proj = getattr(sa, name)
+    weight = getattr(proj, "weight", None)
+    if weight is not None:  # dense [out, in], or a DTensor's local shard
+        width = (weight.to_local() if hasattr(weight, "to_local") else weight).shape[0]
+    else:  # quantized (`ops/quant.py`): its local out features
+        width = proj.out_features
+    return width // parts // cfg.head_dim
 
 
 class LlamaForCausalLM(nn.Module):

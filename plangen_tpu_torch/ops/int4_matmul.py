@@ -68,27 +68,43 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # --------------------------------------------------------------------- packing
 
 
-def quantize_weight_int4(w: torch.Tensor, act_int8: bool = False) -> Int4Weight:
+def pack_int4(q4: torch.Tensor, scale: torch.Tensor) -> Int4Weight:
+    """{"w_p4", "s_lo", "s_hi16"} of int4 values q4 [..., in, out] (int, in
+    [-8, 7]) and their per-channel scales [..., 1, out], packed in halves."""
+    O = q4.shape[-1]
+    lo, hi = q4[..., : O // 2].to(torch.int8), q4[..., O // 2:].to(torch.int8)
+    # hi << 4 stays in int8 ([-128, 112]); lo + 8 is in [0, 15]
+    return {"w_p4": torch.bitwise_or(torch.bitwise_left_shift(hi, 4), lo + 8).contiguous(),
+            "s_lo": scale[..., : O // 2].contiguous(),
+            "s_hi16": (scale[..., O // 2:] / 16.0).contiguous()}
+
+
+def unpack_int4(q: Int4Weight) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of `pack_int4`: (int4 values int8 [..., in, out], scales fp32
+    [..., 1, out]), lossless."""
+    lo, hi = _unpack(q["w_p4"])
+    return (torch.cat([lo, hi], dim=-1).to(torch.int8),
+            torch.cat([q["s_lo"], q["s_hi16"] * 16.0], dim=-1))
+
+
+def quantize_weight_int4(w: torch.Tensor, act_int8: bool = False,
+                         absmax: Optional[torch.Tensor] = None) -> Int4Weight:
     """Symmetric per-output-channel int4 quantization of [..., in, out].
 
     Returns {"w_p4", "s_lo", "s_hi16"} in the JAX package's layout (see the
     module docstring); `act_int8` adds the "a8" marker of the W4A8 form.
-    `out` must be even. `torch.round` rounds half to even, like `jnp.round`."""
+    `out` must be even. `torch.round` rounds half to even, like `jnp.round`.
+    `absmax` [..., 1, out] replaces the columns' absmax over `in` (a
+    row-parallel shard passes the whole input dim's)."""
     wf = w.float()
     O = wf.shape[-1]
     if O % 2:
         raise ValueError(f"int4 packing needs an even out dim, got {O}")
-    absmax = wf.abs().amax(dim=-2, keepdim=True)  # [..., 1, out]
+    if absmax is None:
+        absmax = wf.abs().amax(dim=-2, keepdim=True)  # [..., 1, out]
     scale = torch.where(absmax > 0, absmax / 7.0, torch.ones_like(absmax))
     q4 = torch.clamp(torch.round(wf / scale), -8, 7).to(torch.int8)
-    lo, hi = q4[..., : O // 2], q4[..., O // 2:]
-    # hi << 4 stays in int8 ([-128, 112]); lo + 8 is in [0, 15]
-    w_p4 = torch.bitwise_or(torch.bitwise_left_shift(hi, 4), lo + 8)
-    out = {
-        "w_p4": w_p4.contiguous(),
-        "s_lo": scale[..., : O // 2].contiguous(),
-        "s_hi16": (scale[..., O // 2:] / 16.0).contiguous(),
-    }
+    out = pack_int4(q4, scale)
     if act_int8:
         out["a8"] = torch.zeros((), dtype=torch.int8, device=w.device)
     return out
@@ -112,10 +128,17 @@ def is_quantized_int4(w) -> bool:
     return isinstance(w, dict) and "w_p4" in w
 
 
-def quantize_activations_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row symmetric int8 activations: (x8 int8 [..., I], xs fp32 [..., 1])."""
+def quantize_activations_int8(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 activations: (x8 int8 [..., I], xs fp32 [..., 1]).
+    With a process `group` x holds this rank's columns of each row and the
+    row's absmax is the maximum over the group (the whole row's)."""
     xf = x.float()
-    xs = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    xs = absmax / 127.0
     xs = torch.where(xs > 0, xs, 1.0)
     x8 = torch.round(xf / xs).clamp_(-127, 127).to(torch.int8)
     return x8, xs
@@ -517,13 +540,14 @@ def _layer_slice(q: Int4Weight, layer: Optional[int]):
 
 def int4_matmul_2d(
     x: torch.Tensor, w_p4: torch.Tensor, s_lo: torch.Tensor, s_hi16: torch.Tensor,
-    a8: bool = False,
+    a8: bool = False, absmax_group=None,
 ) -> torch.Tensor:
     """x [..., I] @ one layer's packed weight [I, O/2] -> [..., O] in x.dtype.
 
     More than 256 flattened rows dequantize the weight and run a dense
     matmul; otherwise K2, or K4 when `a8` (activations quantized per row
-    first)."""
+    first, each row's absmax taken over `absmax_group` when x holds a
+    row-parallel shard of its columns)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.shape[0] > MAX_KERNEL_ROWS:
@@ -531,7 +555,7 @@ def int4_matmul_2d(
                                    dtype=x.dtype)
         out = x2 @ w
     elif a8:
-        x8, xs = quantize_activations_int8(x2)
+        x8, xs = quantize_activations_int8(x2, absmax_group)
         out = int4_matmul_w4a8(x8, xs, w_p4, s_lo, s_hi16, x.dtype)
     else:
         out = int4_matmul_w16(x2.contiguous(), w_p4, s_lo, s_hi16)

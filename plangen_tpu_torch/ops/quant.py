@@ -51,10 +51,13 @@ INT4_FUSED_GROUPS = (
 _ATTN_KEYS = ("q_proj", "k_proj", "v_proj", "o_proj", "qkv_proj", "k_v_proj")
 
 
-def quantize_weight(w: torch.Tensor) -> QuantWeight:
-    """Symmetric per-output-channel int8 quantization of [..., in, out]."""
+def quantize_weight(w: torch.Tensor, absmax: Optional[torch.Tensor] = None) -> QuantWeight:
+    """Symmetric per-output-channel int8 quantization of [..., in, out];
+    `absmax` [..., 1, out] replaces the columns' absmax over `in` (a
+    row-parallel shard passes the whole input dim's)."""
     wf = w.float()
-    absmax = wf.abs().amax(dim=-2, keepdim=True)  # [..., 1, out]
+    if absmax is None:
+        absmax = wf.abs().amax(dim=-2, keepdim=True)  # [..., 1, out]
     scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"w_q8": q, "scale": scale}
@@ -65,6 +68,10 @@ def dequantize_weight(q: QuantWeight, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 class _QuantLinear(nn.Module):
+    """`forward(x)` is `product(x)` (the quantized matmul, in x.dtype) plus
+    the bias; a row-parallel shard (`parallel/mesh.py`) adds the bias on
+    one rank only."""
+
     bias: Optional[torch.Tensor]
 
     def _init_bias(self, bias: Optional[torch.Tensor]) -> None:
@@ -72,6 +79,12 @@ class _QuantLinear(nn.Module):
 
     def _add_bias(self, out: torch.Tensor) -> torch.Tensor:
         return out if self.bias is None else out + self.bias
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._add_bias(self.product(x))
 
 
 class Int8Linear(_QuantLinear):
@@ -89,24 +102,29 @@ class Int8Linear(_QuantLinear):
                         if bias else None)
 
     @classmethod
-    def from_dense(cls, w_io: torch.Tensor, bias: Optional[torch.Tensor] = None):
-        """From a dense weight in the JAX layout [in, out]."""
+    def from_dense(cls, w_io: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                   absmax: Optional[torch.Tensor] = None):
+        """From a dense weight in the JAX layout [in, out] (`absmax`: as
+        `quantize_weight`'s)."""
         mod = cls(*w_io.shape, device=w_io.device)
-        q = quantize_weight(w_io)
+        q = quantize_weight(w_io, absmax)
         mod.w_q8.copy_(q["w_q8"])
         mod.scale.copy_(q["scale"])
         mod._init_bias(bias)
         return mod
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x: torch.Tensor) -> torch.Tensor:
         out = x @ self.w_q8.to(x.dtype)
         # the per-channel scale in fp32, as qmatmul does
-        return self._add_bias((out.float() * self.scale[0]).to(x.dtype))
+        return (out.float() * self.scale[0]).to(x.dtype)
 
 
 class Int4Linear(_QuantLinear):
     """y = x @ the packed int4 weight (+ bias), through `int4_matmul_2d`:
-    K2 (W4A16), or K4 (W4A8) when `a8`, at <= 256 rows."""
+    K2 (W4A16), or K4 (W4A8) when `a8`, at <= 256 rows; K4 takes each row's
+    absmax over `absmax_group` when set (a row-parallel shard)."""
+
+    absmax_group = None
 
     def __init__(self, in_features: int, out_features: int, a8: bool = False,
                  bias: bool = False, device=None, dtype=None):
@@ -124,18 +142,19 @@ class Int4Linear(_QuantLinear):
 
     @classmethod
     def from_dense(cls, w_io: torch.Tensor, a8: bool = False,
-                   bias: Optional[torch.Tensor] = None):
-        """From a dense weight in the JAX layout [in, out]."""
+                   bias: Optional[torch.Tensor] = None, absmax: Optional[torch.Tensor] = None):
+        """From a dense weight in the JAX layout [in, out] (`absmax`: as
+        `quantize_weight_int4`'s)."""
         mod = cls(*w_io.shape, a8=a8, device=w_io.device)
-        q = quantize_weight_int4(w_io)
+        q = quantize_weight_int4(w_io, absmax=absmax)
         for name in ("w_p4", "s_lo", "s_hi16"):
             getattr(mod, name).copy_(q[name])
         mod._init_bias(bias)
         return mod
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._add_bias(
-            int4_matmul_2d(x, self.w_p4, self.s_lo, self.s_hi16, a8=self.a8))
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        return int4_matmul_2d(x, self.w_p4, self.s_lo, self.s_hi16, a8=self.a8,
+                              absmax_group=self.absmax_group)
 
 
 # ------------------------------------------------------------- model surgery
@@ -228,27 +247,40 @@ def quantized_structure_(model: nn.Module, mode: str) -> nn.Module:
     return model
 
 
+def _quantized(dense: List[nn.Module], mode: str) -> _QuantLinear:
+    """The quantized module of one target's dense members (in output
+    order), in the JAX layout. Members split over ranks carry a `tp_split`
+    (`parallel/mesh.py::TPSplit`), whose `quantized` quantizes this rank's
+    shard with `quantize` below."""
+
+    def quantize(w_io: torch.Tensor, bias: Optional[torch.Tensor],
+                 absmax: Optional[torch.Tensor] = None) -> _QuantLinear:
+        if mode == "int8":
+            return Int8Linear.from_dense(w_io, bias=bias, absmax=absmax)
+        return Int4Linear.from_dense(w_io, a8=mode == "int4_a8", bias=bias, absmax=absmax)
+
+    split = getattr(dense[0], "tp_split", None)
+    if split is not None:
+        return split.quantized(dense, quantize)
+    # [out, in] weights -> one [in, sum(out)] weight in the JAX layout
+    w_io = torch.cat([d.weight for d in dense], dim=0).t()
+    return quantize(w_io, dense[0].bias if len(dense) == 1 else None)
+
+
 @torch.no_grad()
 def quantize_model_(model: nn.Module, mode: str) -> nn.Module:
     """Quantize `model` in place to `mode` ('int8', 'int8_kv', 'int4',
     'int4_a8'); the dense weights are freed as each module is replaced, so
     the model never holds both forms. 'int8_kv' keeps the weights dense
-    (its int8 KV cache is a decode setting). Returns `model`."""
+    (its int8 KV cache is a decode setting). A TP-split model is quantized
+    on each rank's shards (`_quantized`). Returns `model`."""
     _check_mode(mode)
     if quant_form(model) is not None:
         raise ValueError(f"the model is already {quant_form(model)}-quantized")
     if mode == "int8_kv":
         return model
     for parent, name, sources in targets(model, mode):
-        dense = [getattr(p, m) for p, m in sources]
-        # [out, in] weights -> one [in, sum(out)] weight in the JAX layout
-        w_io = torch.cat([d.weight for d in dense], dim=0).t()
-        bias = dense[0].bias if len(dense) == 1 else None
-        if mode == "int8":
-            mod = Int8Linear.from_dense(w_io, bias=bias)
-        else:
-            mod = Int4Linear.from_dense(w_io, a8=mode == "int4_a8", bias=bias)
-        del w_io, dense
+        mod = _quantized([getattr(p, m) for p, m in sources], mode)
         for p, m in sources:
             delattr(p, m)
         setattr(parent, name, mod)
@@ -268,7 +300,8 @@ def int4_view(model: nn.Module, a8: bool = False) -> nn.Module:
     """The int4 view of a dense `model` (module docstring): every module on
     the path from the root to an int4 target is copied with its own child
     dict, the target replaced there by an `Int4Linear` quantized from the
-    dense weight; every other module, with its parameters, is shared."""
+    dense weight (on each rank's shards when the model is TP-split); every
+    other module, with its parameters, is shared."""
     if quant_form(model) is not None:
         raise ValueError(f"the model is already {quant_form(model)}-quantized: "
                          "the int4 view is built from the dense model")
@@ -283,11 +316,9 @@ def int4_view(model: nn.Module, a8: bool = False) -> nn.Module:
             fresh[path] = parent._modules[name] = _fresh_copy(parent._modules[name])
         return fresh[path]
 
-    for parent, name, sources in targets(model, "int4_a8" if a8 else "int4"):
-        dense = [getattr(p, m) for p, m in sources]
-        w_io = torch.cat([d.weight for d in dense], dim=0).t()
-        bias = dense[0].bias if len(dense) == 1 else None
-        mod = Int4Linear.from_dense(w_io, a8=a8, bias=bias)
+    mode = "int4_a8" if a8 else "int4"
+    for parent, name, sources in targets(model, mode):
+        mod = _quantized([getattr(p, m) for p, m in sources], mode)
         target = in_view(names[id(parent)])
         for p, m in sources:
             delattr(in_view(names[id(p)]), m)

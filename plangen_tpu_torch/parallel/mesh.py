@@ -25,6 +25,18 @@ the mesh's product is the world size (JAX has one process drive many):
     every rank, so the sampling and the argmax see the full vocabulary.
     The collectives are c10d calls on the current stream, which a CUDA
     graph of a decode step captures.
+  * LoRA under TP: q/k/v's adapter `b` [r, out] is split with its
+    projection's heads and o_proj's `a` [in, r] with its input's; the
+    other factors stay whole (JAX replicates every adapter and lets XLA
+    make the gradients right; here `TPSplit` says which collectives do).
+  * The weight-quantized forms under TP: the packed weights are split, not
+    replicated as in JAX (replicating them would undo what TP is for), and
+    the function computed stays the unsplit model's. `shard_params` of a
+    quantized model cuts each rank's shard out of the whole quantized
+    buffers (`_take_shard`); a dense TP model quantized in place
+    (`ops/quant.py::quantize_model_`, `int4_view`) quantizes each rank's
+    shard, row splits with the whole input dim's absmax
+    (`TPSplit.quantized`); both give every rank the same bytes.
   * FSDP over "data" is FSDP2 (`fully_shard`): one unit per LLaMA layer
     and SigLIP block, the rest in the root. FSDP2 shards every parameter
     of a unit, so the port shards every tensor JAX does (those of
@@ -40,8 +52,8 @@ the mesh's product is the world size (JAX has one process drive many):
 `param_placement` is the pure rule (name, shape, tp size, fsdp size) that
 `shard_params` applies, so a test can hold it against JAX's
 `param_shardings` without processes. Not done, and raising
-`NotImplementedError`: LoRA adapters and the weight-quantized forms under
-TP, a head count that does not split over the TP axis.
+`NotImplementedError`: a head count that does not split over the TP axis,
+and FSDP together with a TP axis of more than one rank.
 """
 
 from __future__ import annotations
@@ -51,7 +63,7 @@ import functools
 import os
 import re
 import socket
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -63,23 +75,39 @@ from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 from torch.distributed.tensor.parallel import ParallelStyle, parallelize_module
 from torch.distributed.tensor.placement_types import _StridedShard
 
+from plangen_tpu_torch.ops.int4_matmul import pack_int4, unpack_int4
+from plangen_tpu_torch.ops.quant import Int8Linear, _QuantLinear
+
 AXES = ("data", "model")
 KINDS = ("vocab", "column", "row", "fsdp", "replicated")
 
-# parameter-name pattern -> the TP kind of its module (JAX's `_TP_RULES`)
+# parameter-name pattern -> (the TP kind of its module, the dim it splits)
+# (JAX's `_TP_RULES`); a weight is nn.Linear's [out, in]. The names of the
+# quantized modules' fused projections (`ops/quant.py`) match as well.
 _BLOCKS = r"^vision_model\.vision_tower\.blocks\.\d+\."
-_TP_RULES: Tuple[Tuple[str, str], ...] = (
-    (r"^language_model\.model\.embed_tokens\.weight$", "vocab"),
-    (r"^language_model\.lm_head\.weight$", "column"),
-    (r"\.self_attn\.(q_proj|k_proj|v_proj)\.weight$", "column"),
-    (r"\.self_attn\.o_proj\.weight$", "row"),
-    (r"\.mlp\.(gate_proj|up_proj)\.weight$", "column"),
-    (r"\.mlp\.down_proj\.weight$", "row"),
-    (_BLOCKS + r"(attn\.qkv|mlp\.fc1)\.(weight|bias)$", "column"),
-    (_BLOCKS + r"(attn\.proj|mlp\.fc2)\.weight$", "row"),
-    (r"^gen_head\.vision_head\.(weight|bias)$", "column"),
+_TP_RULES: Tuple[Tuple[str, str, int], ...] = (
+    (r"^language_model\.model\.embed_tokens\.weight$", "vocab", 0),
+    (r"^language_model\.lm_head\.weight$", "column", 0),
+    (r"\.self_attn\.(q_proj|k_proj|v_proj|qkv_proj|k_v_proj)\.weight$", "column", 0),
+    (r"\.self_attn\.o_proj\.weight$", "row", 1),
+    (r"\.mlp\.(gate_proj|up_proj|gate_up_proj)\.weight$", "column", 0),
+    (r"\.mlp\.down_proj\.weight$", "row", 1),
+    (_BLOCKS + r"(attn\.qkv|mlp\.fc1)\.(weight|bias)$", "column", 0),
+    (_BLOCKS + r"(attn\.proj|mlp\.fc2)\.weight$", "row", 1),
+    (r"^gen_head\.vision_head\.(weight|bias)$", "column", 0),
+    # the LoRA adapters (a [in, r], b [r, out]): q/k/v's b split with its
+    # projection's heads, o_proj's a with the heads of its input; the other
+    # factor of each pair stays whole
+    (r"\.self_attn\.lora\.(q_proj|k_proj|v_proj)\.b$", "column", 1),
+    (r"\.self_attn\.lora\.o_proj\.a$", "row", 0),
 )
 _GATHERED = ("language_model.lm_head", "gen_head.vision_head")  # logits, whole
+# the parts of a fused output, each split over the ranks as a layer of its own
+_PARTS = {"attn.qkv": 3, "qkv_proj": 3, "k_v_proj": 2, "gate_up_proj": 2}
+
+
+def _parts(module_name: str) -> int:
+    return next((n for suffix, n in _PARTS.items() if module_name.endswith(suffix)), 1)
 
 
 def mesh_dims(shape: Optional[Dict[str, int]], n: int) -> Dict[str, int]:
@@ -162,6 +190,17 @@ def create_mesh(shape: Optional[Dict[str, int]] = None, device=None) -> DeviceMe
 # ------------------------------------------------------------------- rules
 
 
+def _tp_rule(name: str, shape: Sequence[int], tp: int, parts: int = 1
+             ) -> Optional[Tuple[str, int]]:
+    """(kind, split dim) of the first TP rule that `name` matches, or None
+    when none does or its split dim (each of `parts` fused parts of it)
+    does not divide by `tp`."""
+    for pattern, kind, dim in _TP_RULES:
+        if re.search(pattern, name):
+            return (kind, dim) if shape[dim] % (tp * parts) == 0 else None
+    return None
+
+
 def param_placement(name: str, shape: Sequence[int], tp: Optional[int] = None,
                     fsdp: Optional[int] = None) -> str:
     """How `shard_params` places one parameter: "vocab", "column", "row"
@@ -169,13 +208,12 @@ def param_placement(name: str, shape: Sequence[int], tp: Optional[int] = None,
     `fsdp`) or "replicated". None leaves an axis out. A TP rule whose split
     dim does not divide by `tp` leaves the tensor replicated, as in JAX;
     under FSDP every parameter that no TP rule splits is sharded. (At size
-    1 a split tensor is whole on its one rank, as JAX's replicated one.)"""
-    if tp is not None:
-        for pattern, kind in _TP_RULES:
-            if re.search(pattern, name):
-                if shape[1 if kind == "row" else 0] % tp == 0:
-                    return kind
-                break
+    1 a split tensor is whole on its one rank, as JAX's replicated one.)
+    The LoRA adapters, which JAX keeps replicated, split as the module
+    docstring says."""
+    rule = None if tp is None else _tp_rule(name, shape, tp)
+    if rule is not None:
+        return rule[0]
     return "replicated" if fsdp is None else "fsdp"
 
 
@@ -301,63 +339,117 @@ def _local(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 # ------------------------------------------------------ the TP styles
 
 
-class _Split(ParallelStyle):
-    """One TP kind of `param_placement` as a `ParallelStyle`: the module's
-    parameters become DTensors placed over the TP mesh, and its forward
-    runs on each rank's local shards with explicit collectives (the
-    Megatron pattern), so that no DTensor reaches an op: DTensor's
+class TPSplit:
+    """How a module runs split over the TP group: its forward runs on the
+    rank's local shards with the collectives of its `param_placement` kind
+    (the Megatron pattern), so that no DTensor reaches an op: DTensor's
     dispatch of every op of an eager decode step cost ~1 s a step at
     Janus-Pro-1B width on the H100, its ops' sharding propagation being
     recomputed call by call.
 
       column    weight [out, in] and bias split along out (Shard(0); a
-                fused qkv per part, `_StridedShard(0, 3)`): the input's
-                gradient is summed over the ranks; the output is this
-                rank's columns, or all of them gathered (`gather`:
-                lm_head, vision_head)
+                fused output per part): the input's gradient is summed
+                over the ranks; the output is this rank's columns, or all
+                of them gathered (`gather`: lm_head, vision_head)
       row       weight split along in (Shard(1)), the input this rank's
                 columns; the partial products summed over the ranks, the
-                bias (whole on every rank) added by rank 0 inside its
-                matmul, so that one rank gives the unsplit layer's bits
+                bias (whole on every rank) added by rank 0 (inside its
+                matmul when dense), so that one rank gives the unsplit
+                layer's bits; K4 takes each row's absmax over the group
       vocab     the embedding's rows split (Shard(0)); each rank looks up
                 the ids it holds, zeros elsewhere, summed over the ranks
-    """
 
-    def __init__(self, kind: str, gather: bool = False, parts: int = 1):
-        super().__init__()
-        self.kind, self.gather, self.parts = kind, gather, parts
+    A LoRA pair (`models/llama.py::LoRAPair`) adds its delta to a split
+    projection's output: q/k/v's ("column") `a` whole, `b` this rank's
+    columns, the gradient of the [.., r] intermediate x @ a summed over the
+    ranks (so `a`'s gradient and the input's are whole on every rank);
+    o_proj's ("row") `a` this rank's rows, the [.., r] partial products
+    summed over the ranks before the whole `b` (r values a row where a
+    second all-reduce of the output would move `hidden`).
 
-    def _placement(self, pname: str):
+    The weight-quantized modules (`ops/quant.py`) hold their rank's shard
+    as plain buffers and run split the same way. `apply` sets the module's
+    forward and records the split on it as `tp_split`, whose `quantized`
+    `quantize_model_` calls to quantize a split layer."""
+
+    def __init__(self, kind: str, group, gather: bool = False):
+        self.kind, self.group, self.gather = kind, group, gather
+
+    def apply(self, module: nn.Module) -> nn.Module:
+        from plangen_tpu_torch.models.llama import LoRAPair
+
+        if isinstance(module, LoRAPair):
+            forward = {"column": _lora_column_forward, "row": _lora_row_forward}[self.kind]
+        else:
+            forward = {"column": _column_forward, "row": _row_forward,
+                       "vocab": _vocab_forward}[self.kind]
+        if self.kind == "row" and getattr(module, "a8", False):
+            module.absmax_group = self.group
+        module.forward = functools.partial(forward, module, self.group, self.gather)
+        module.tp_split = self
+        return module
+
+    @torch.no_grad()
+    def quantized(self, dense: List[nn.Module], quantize) -> nn.Module:
+        """The quantized module of a target's split dense members (in output
+        order, `ops/quant.py::_quantized`), run split: `quantize(w_io, bias,
+        absmax)` of this rank's shard in the JAX layout [in, out]. A column
+        split quantizes its own columns (a fused target each member's own,
+        in member order); a row split its rows, each column's absmax taken
+        over the whole input dim by a MAX over the group. So each rank
+        holds the bytes that `shard_params` cuts out of the model quantized
+        whole (`_take_shard`), and the group moves one [1, out] vector a
+        row split, where gathering the weights whole would move the
+        model."""
+        w_io = torch.cat([_local(d.weight) for d in dense], dim=0).t()
+        bias = _local(dense[0].bias) if len(dense) == 1 else None
+        absmax = None
         if self.kind == "row":
-            return Shard(1) if pname == "weight" else None  # the bias stays whole
-        return _StridedShard(0, split_factor=self.parts) if self.parts > 1 else Shard(0)
+            absmax = w_io.float().abs().amax(dim=-2, keepdim=True)
+            dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=self.group)
+        return self.apply(quantize(w_io, bias, absmax))
+
+
+class _Split(ParallelStyle):
+    """One module's `TPSplit` as a `ParallelStyle`: the parameters named in
+    `placements` become DTensors placed over the TP mesh (the others stay
+    whole on every rank), then the split forward."""
+
+    def __init__(self, kind: str, gather: bool = False):
+        super().__init__()
+        self.kind, self.gather = kind, gather
+        self.placements: Dict[str, object] = {}  # parameter name -> placement
 
     def _apply(self, module: nn.Module, device_mesh: DeviceMesh) -> nn.Module:
         for pname, param in list(module.named_parameters(recurse=False)):
-            placement = self._placement(pname)
+            placement = self.placements.get(pname)
             if placement is not None:
                 module.register_parameter(pname, nn.Parameter(
                     distribute_tensor(param.data, device_mesh, [placement]),
                     requires_grad=param.requires_grad))
-        group = device_mesh.get_group()
-        forward = {"column": _column_forward, "row": _row_forward,
-                   "vocab": _vocab_forward}[self.kind]
-        module.forward = functools.partial(forward, module, group, self.gather)
-        return module
+        return TPSplit(self.kind, device_mesh.get_group(), self.gather).apply(module)
 
 
 def _column_forward(mod: nn.Module, group, gather: bool, x: torch.Tensor) -> torch.Tensor:
-    y = F.linear(_grad_all_reduce(x, group), _local(mod.weight), _local(mod.bias))
+    x = _grad_all_reduce(x, group)
+    if isinstance(mod, _QuantLinear):
+        y = _QuantLinear.forward(mod, x)
+    else:
+        y = F.linear(x, _local(mod.weight), _local(mod.bias))
     return _all_gather_last(y, group) if gather else y
 
 
 def _row_forward(mod: nn.Module, group, gather: bool, x: torch.Tensor) -> torch.Tensor:
+    rank0 = dist.get_rank(group) == 0
+    if isinstance(mod, _QuantLinear):
+        y = mod.product(x)
+        return _all_reduce(mod._add_bias(y) if rank0 else y, group)
     bias = mod.bias
     if bias is not None and _differentiable(bias):
         # every rank's copy of the whole bias takes rank 0's gradient
         bias = _grad_all_reduce(bias, group)
-        bias = bias if dist.get_rank(group) == 0 else bias * 0
-    elif dist.get_rank(group) != 0:
+        bias = bias if rank0 else bias * 0
+    elif not rank0:
         bias = None
     return _all_reduce(F.linear(x, _local(mod.weight), bias), group)
 
@@ -370,27 +462,89 @@ def _vocab_forward(mod: nn.Module, group, gather: bool, ids: torch.Tensor) -> to
     return _all_reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)), group)
 
 
+def _lora_column_forward(mod: nn.Module, group, gather: bool, x: torch.Tensor,
+                         scaling: torch.Tensor) -> torch.Tensor:
+    return (_grad_all_reduce(x @ _local(mod.a), group) @ _local(mod.b)) * scaling
+
+
+def _lora_row_forward(mod: nn.Module, group, gather: bool, x: torch.Tensor,
+                      scaling: torch.Tensor) -> torch.Tensor:
+    return (_all_reduce(x @ _local(mod.a), group) @ _local(mod.b)) * scaling
+
+
 def _tp_styles(model: nn.Module, tp: int) -> Dict[str, ParallelStyle]:
     """{module name: style} for the modules `param_placement` splits."""
-    plan = {}
+    plan: Dict[str, _Split] = {}
     for name, p in model.named_parameters():
-        kind = param_placement(name, tuple(p.shape), tp)
-        mod = name.rsplit(".", 1)[0]
-        if kind in ("replicated", "fsdp") or mod in plan:
+        rule = _tp_rule(name, tuple(p.shape), tp)
+        if rule is None:
             continue
-        plan[mod] = _Split(kind, gather=mod in _GATHERED,
-                           parts=3 if mod.endswith("attn.qkv") else 1)
+        kind, dim = rule
+        mod, pname = name.rsplit(".", 1)
+        style = plan.setdefault(mod, _Split(kind, gather=mod in _GATHERED))
+        parts = _parts(mod)
+        style.placements[pname] = (_StridedShard(dim, split_factor=parts) if parts > 1
+                                   else Shard(dim))
     return plan
 
 
-def _check_tp(model: nn.Module, tp: int) -> None:
-    from plangen_tpu_torch.ops.quant import quant_form
+@torch.no_grad()
+def _take_shard(mod: nn.Module, kind: str, parts: int, rank: int, tp: int) -> None:
+    """Keep this rank's shard of a quantized module's buffers (`ops/quant.py`
+    layout, [in, out]): a row split its rows of the weight, the scales
+    whole; a column split its block of each part's columns. The int4 form
+    packs its outputs in halves (packed column j holds outputs j and j +
+    O/2), so the rank's columns are unpacked, taken and packed again in
+    their own halves: nibbles and scales are per column, so nothing is
+    lost, and the bytes are those `TPSplit.quantized` gives the rank's
+    dense shard."""
+    if kind == "row":
+        n = mod.in_features // tp
+        for name in ("w_q8", "w_p4"):
+            if hasattr(mod, name):
+                setattr(mod, name, getattr(mod, name)[rank * n:(rank + 1) * n].contiguous())
+        mod.in_features = n
+        return
+    width = mod.out_features // parts
+    n = width // tp
+    dev = mod.bias.device if mod.bias is not None else next(mod.buffers()).device
+    cols = torch.cat([torch.arange(k * width + rank * n, k * width + (rank + 1) * n, device=dev)
+                      for k in range(parts)])
+    if isinstance(mod, Int8Linear):
+        mod.w_q8, mod.scale = mod.w_q8[:, cols].contiguous(), mod.scale[:, cols].contiguous()
+    else:
+        if (n * parts) % 2:
+            raise ValueError(f"int4 packing needs an even local out dim, got {n * parts}")
+        q4, scale = unpack_int4({"w_p4": mod.w_p4, "s_lo": mod.s_lo, "s_hi16": mod.s_hi16})
+        packed = pack_int4(q4[:, cols], scale[:, cols])
+        mod.w_p4, mod.s_lo, mod.s_hi16 = packed["w_p4"], packed["s_lo"], packed["s_hi16"]
+    if mod.bias is not None:
+        mod.bias = mod.bias[cols].contiguous()
+    mod.out_features = n * parts
 
-    if quant_form(model) is not None:
+
+def _shard_quantized(model: nn.Module, tp_mesh: DeviceMesh) -> None:
+    """Split every quantized module (buffers, not parameters) that a TP
+    rule names: each rank keeps its shard as plain tensors, run by the
+    module's `TPSplit`; one whose dim does not divide stays whole."""
+    tp, rank, group = tp_mesh.size(), tp_mesh.get_local_rank(), tp_mesh.get_group()
+    for name, mod in model.named_modules():
+        if not isinstance(mod, _QuantLinear):
+            continue
+        parts = _parts(name)
+        rule = _tp_rule(name + ".weight", (mod.out_features, mod.in_features), tp, parts)
+        if rule is None:
+            continue
+        _take_shard(mod, rule[0], parts, rank, tp)
+        TPSplit(rule[0], group, name in _GATHERED).apply(mod)
+
+
+def _check_tp(model: nn.Module, tp: int, fsdp: bool = False) -> None:
+    if fsdp and tp > 1:
+        # on a 2-D placement an Adafactor step left optax by ~lr and
+        # `DTensor.full_tensor()` of SigLIP's fused qkv came out wrong
         raise NotImplementedError(
-            f"the {quant_form(model)} weight-quantized form under tensor parallelism")
-    if any(".lora." in name for name, _ in model.named_parameters()):
-        raise NotImplementedError("LoRA adapters under tensor parallelism (model > 1)")
+            f"FSDP together with a TP axis of {tp} (a data x model mesh with both split)")
     llama, vision = model.cfg.llama, model.cfg.vision
     for what, heads, dim in (("LLaMA", llama.num_heads, llama.q_dim),
                              ("LLaMA KV", llama.num_kv_heads, llama.kv_dim),
@@ -404,26 +558,54 @@ def shard_params(model: nn.Module, mesh, tp_axis: Optional[str] = "model",
                  fsdp_axis: Optional[str] = None,
                  param_dtype: Optional[torch.dtype] = None) -> nn.Module:
     """Place a `PlanGenModel` on the mesh, in place, as `param_placement`
-    says: TP styles over `tp_axis` (any size; None: no TP), then FSDP2 over
-    `fsdp_axis` (None: no FSDP), with `param_dtype` the compute dtype the
-    masters are cast to after each all-gather (None: the masters' own).
+    says: TP styles over `tp_axis` (any size; None: no TP; a quantized
+    model's quantized modules split as `_shard_quantized` says), then FSDP2
+    over `fsdp_axis` (None: no FSDP), with `param_dtype` the compute dtype
+    the masters are cast to after each all-gather (None: the masters' own).
     Returns the model."""
     if tp_axis is not None:
         tp = mesh[tp_axis].size()
-        _check_tp(model, tp)
+        _check_tp(model, tp, fsdp_axis is not None)
         parallelize_module(model, mesh[tp_axis], _tp_styles(model, tp))
+        _shard_quantized(model, mesh[tp_axis])
     if fsdp_axis is not None:
         policy = MixedPrecisionPolicy(param_dtype=param_dtype, reduce_dtype=torch.float32,
                                       cast_forward_inputs=False)
         units = list(model.language_model.model.layers)
         units += list(model.vision_model.vision_tower.blocks)
+        # FSDP2 takes no 0-d parameter: LoRA's frozen `lora_scaling` stays
+        # whole on every rank
+        scalars = {p for p in model.parameters() if p.dim() == 0}
         for unit in units + [model]:
-            fully_shard(unit, mesh=mesh[fsdp_axis], mp_policy=policy)
+            fully_shard(unit, mesh=mesh[fsdp_axis], mp_policy=policy, ignored_params=scalars)
             # a plain sum (the losses divide by the global count), by SUM
             # collectives, which gloo has too
             unit.set_gradient_divide_factor(1.0)
             unit.set_force_sum_reduction_for_comms(True)
     return model
+
+
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """`t` whole on every rank: a DTensor gathered (a collective: every rank
+    of its mesh calls it), a plain tensor as it is. A TP split per part
+    (`_StridedShard` on a 1-D mesh: SigLIP's fused qkv, each rank holding
+    its block of every part) is gathered part by part here, since not
+    every torch's `DTensor.full_tensor` takes that placement. A 2-D
+    placement (FSDP x TP, which `shard_params` refuses) raises
+    NotImplementedError: SigLIP's fused qkv came out wrong there."""
+    if not isinstance(t, DTensor):
+        return t
+    (placement, *more), mesh = t.placements, t.device_mesh
+    if more:
+        raise NotImplementedError(f"gathering a DTensor placed {t.placements} on a 2-D mesh")
+    if not isinstance(placement, _StridedShard):
+        return t.full_tensor()
+    local = t.to_local().contiguous()
+    parts = [torch.empty_like(local) for _ in range(mesh.size())]
+    dist.all_gather(parts, local, group=mesh.get_group())
+    blocks = [p.chunk(placement.split_factor, placement.dim) for p in parts]
+    return torch.cat([b[k] for k in range(placement.split_factor) for b in blocks],
+                     placement.dim)
 
 
 def is_sharded(model: nn.Module) -> bool:

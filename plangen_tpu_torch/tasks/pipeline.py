@@ -32,8 +32,11 @@ pipeline engages that form and the int8 cache, and any other mode
 A model that `parallel/mesh.py::shard_params` split over a TP axis serves
 `layout_to_image` and `plan` as the JAX pipeline serves TP-sharded params:
 each rank runs the same call with the same seeds and draws the same tokens
-(the logits are gathered whole on every rank). The weight-quantized forms
-under TP raise `NotImplementedError`; 'int8_kv' runs.
+(the logits are gathered whole on every rank). Every quantized form runs
+under TP: the pipeline quantizes each rank's shards in place
+(`ops/quant.py::quantize_model_`, or `int4_view` for 'auto'), and a model
+quantized before `shard_params` keeps its form, each rank holding its
+shard of the packed weights.
 
 `defer_fetch` (set by the server) leaves the pixels' copy to the host
 queued: `_detokenize` enqueues a non-blocking copy into pinned host memory
@@ -79,7 +82,6 @@ from plangen_tpu_torch.config import (
 from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.ops.quant import MODES, int4_view, quant_form, quantize_model_
 from plangen_tpu_torch.ops.sampling import Generators, mix_seed
-from plangen_tpu_torch.parallel.mesh import is_sharded
 from plangen_tpu_torch.runtime.fast_edit import (
     frozen_chunk_schedule, generate_image_tokens_fast_edit,
 )
@@ -199,9 +201,6 @@ class PlanGenPipeline:
         # the JAX config check's rules (speculative or jacobi with a
         # quantized form raise ValueError), before anything is quantized
         validate_config(PlanGenConfig(generation=gen))
-        if gen.quantize not in (None, "int8_kv") and is_sharded(model):
-            raise NotImplementedError(
-                f"the {gen.quantize} weight-quantized form under tensor parallelism")
         have = quant_form(model)
         if have is None:
             if gen.quantize == "auto":

@@ -32,6 +32,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from plangen_tpu_torch.parallel.mesh import full_tensor
 from plangen_tpu_torch.train.step import TrainState
 
 _FILE = "state.pt"
@@ -43,7 +44,7 @@ def _gathered(tree, lead: bool):
     if isinstance(tree, dict):
         return {k: _gathered(v, lead) for k, v in tree.items()}
     if isinstance(tree, DTensor):
-        full = tree.full_tensor()
+        full = full_tensor(tree)
         return full.cpu() if lead else None
     return tree.cpu() if lead and isinstance(tree, torch.Tensor) else tree
 

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import _StridedShard
 
 from plangen_tpu_torch.config import OptimConfig
 
@@ -124,8 +125,10 @@ def placed_like(grads: Grads, params: Dict[str, torch.Tensor]) -> Grads:
 
 def global_sq_norm(tensors) -> torch.Tensor:
     """The sum of squares over every element of the tensors, in their
-    dtype: a DTensor's shards are summed over the mesh dims that split it,
-    so each element counts once, and a replicated tensor counts once."""
+    dtype: a DTensor's shards are summed over the mesh dims (of more than
+    one rank) that split it, so each element counts once, and a replicated
+    tensor counts once. A DTensor whole on its ranks adds in the order of a
+    plain tensor, so that a world-1 mesh gives the unsplit model's bits."""
     total = None
     split: Dict[tuple, torch.Tensor] = {}  # the process groups that split a sum
     for t in tensors:
@@ -133,7 +136,7 @@ def global_sq_norm(tensors) -> torch.Tensor:
         if isinstance(t, DTensor):
             mesh = t.device_mesh
             key = tuple(mesh.get_group(d) for d, pl in enumerate(t.placements)
-                        if pl.is_shard())
+                        if pl.is_shard() and mesh.size(d) > 1)
             if key:
                 split[key] = s if key not in split else split[key] + s
                 continue
@@ -272,6 +275,65 @@ def _inverse(axes: Tuple[int, ...]) -> Tuple[int, ...]:
     return tuple(int(i) for i in np.argsort(axes))
 
 
+def _jax_dim(dim: int, axes: Tuple[int, ...], stacked: bool) -> int:
+    """The dim of a leaf in the JAX layout that a member's dim `dim` is."""
+    return (axes.index(dim) if axes else dim) + int(stacked)
+
+
+def _split_dims(p: torch.Tensor, axes, stacked: bool) -> Dict[int, list]:
+    """{dim of the JAX-layout leaf: the process groups of the mesh dims (of
+    more than one rank) that split it} for a member parameter; empty for a
+    plain tensor or a DTensor whole on its ranks. A parameter split over
+    two mesh dims (FSDP x TP) raises NotImplementedError: its steps left
+    optax's by ~lr."""
+    out: Dict[int, list] = {}
+    if isinstance(p, DTensor):
+        mesh = p.device_mesh
+        for i, pl in enumerate(p.placements):
+            if pl.is_shard() and mesh.size(i) > 1:
+                out.setdefault(_jax_dim(pl.dim, axes, stacked), []).append(mesh.get_group(i))
+    if sum(len(groups) for groups in out.values()) > 1:
+        raise NotImplementedError("Adafactor over a parameter split over two mesh dims "
+                                  "(FSDP x TP)")
+    return out
+
+
+def _mean(t: torch.Tensor, dims, groups, size: int, keepdim: bool = False) -> torch.Tensor:
+    """The mean of `t` (a rank's shard) over `dims` (None: every dim) whose
+    whole extent holds `size` elements: the local mean when no process
+    group splits them, else the local sum, summed over `groups`, over
+    `size` (a shard holds no padding, so none enters the mean)."""
+    if not groups:
+        return t.mean() if dims is None else t.mean(dim=dims, keepdim=keepdim)
+    total = t.sum() if dims is None else t.sum(dim=dims, keepdim=keepdim)
+    for group in groups:
+        dist.all_reduce(total, group=group)
+    return total / size
+
+
+def _state(local: torch.Tensor, like: torch.Tensor, axes, stacked: bool,
+           shape: Tuple[int, ...], drop: Optional[int] = None) -> torch.Tensor:
+    """A statistic of a JAX-layout leaf of global `shape` (less its dim
+    `drop`) as its member parameter `like` is placed: a DTensor whose dims
+    are split as the parameter's are and whole over a mesh dim that splits
+    the dropped dim (its mean was summed over those ranks); the local
+    tensor itself for a plain parameter."""
+    if not isinstance(like, DTensor):
+        return local
+    placements = []
+    for pl in like.placements:
+        j = _jax_dim(pl.dim, axes, stacked) if pl.is_shard() else None
+        if j is None or j == drop:
+            placements.append(Replicate() if j is not None else pl)
+            continue
+        j -= int(drop is not None and j > drop)
+        placements.append(_StridedShard(j, split_factor=pl.split_factor)
+                          if isinstance(pl, _StridedShard) else Shard(j))
+    shape = tuple(n for d, n in enumerate(shape) if d != drop)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, like.device_mesh, placements, shape=shape, stride=stride)
+
+
 class Adafactor(_Masked):
     """optax's clip_by_global_norm + adafactor(lr, multiply_by_parameter_scale
     =False, momentum=None, weight_decay_rate=wd * lr): the factored second
@@ -281,7 +343,15 @@ class Adafactor(_Masked):
     Every statistic is taken over the JAX package's leaf: a layer-stacked
     leaf's per-layer tensors are stacked in the JAX layout before the
     factored means and the block RMS (`_jax_leaves`), and the state is kept
-    in that layout."""
+    in that layout.
+
+    Over DTensor parameters (FSDP2 or TP) each rank works on its shards,
+    every layer's covering the same range: a mean over a dim that
+    the parameter's placement splits is the local sum, summed over the mesh
+    dims that split it, over the whole dim's size (`_mean`), so every rank
+    gets the unsplit statistic of its shard; `v_row`, `v_col` and `v` are
+    DTensors placed as the dims they keep (`_state`), so that the
+    checkpoint gathers them whole in the JAX layout."""
 
     DECAY_RATE = 0.8
     EPSILON = 1e-30
@@ -289,29 +359,30 @@ class Adafactor(_Masked):
 
     def __init__(self, cfg: OptimConfig, model: nn.Module, mask: Dict[str, bool]):
         super().__init__(cfg, model, mask)
-        if any(isinstance(p, DTensor) for p in self.params.values()):
-            raise NotImplementedError(
-                "Adafactor under FSDP or TP: its factored statistics span the JAX "
-                "package's layer-stacked leaf")
         self.weight_decay = cfg.adam_weight_decay * cfg.learning_rate
         self.leaves = _jax_leaves(model, self.params)
+        self.shapes: Dict[str, Tuple[int, ...]] = {}  # leaf key -> its whole shape
+        self.split: Dict[str, Dict[int, list]] = {}  # leaf key -> `_split_dims`
         self.v_row: Dict[str, torch.Tensor] = {}
         self.v_col: Dict[str, torch.Tensor] = {}
         self.v: Dict[str, torch.Tensor] = {}
         for key, (stacked, members) in self.leaves.items():
             name, axes = members[0]
             like = self.params[name]
-            shape = tuple(like.permute(axes).shape if axes else like.shape)
-            shape = (len(members),) + shape if stacked else shape
+            shape, local = (tuple(t.permute(axes).shape if axes else t.shape)
+                            for t in (like, _local(like)))
+            if stacked:
+                shape, local = (len(members),) + shape, (len(members),) + local
+            self.shapes[key], self.split[key] = shape, _split_dims(like, axes, stacked)
+            kw = dict(dtype=like.dtype, device=_local(like).device)
             dims = factored_dims(shape)
             if dims is None:
-                self.v[key] = torch.zeros(shape, dtype=like.dtype, device=like.device)
+                self.v[key] = _state(torch.zeros(local, **kw), like, axes, stacked, shape)
             else:
                 d1, d0 = dims
-                self.v_row[key] = torch.zeros(np.delete(shape, d0).tolist(), dtype=like.dtype,
-                                              device=like.device)
-                self.v_col[key] = torch.zeros(np.delete(shape, d1).tolist(), dtype=like.dtype,
-                                              device=like.device)
+                for state, drop in ((self.v_row, d0), (self.v_col, d1)):
+                    zeros = torch.zeros(np.delete(local, drop).tolist(), **kw)
+                    state[key] = _state(zeros, like, axes, stacked, shape, drop)
 
     @staticmethod
     def _to_jax(stacked: bool, members, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -328,7 +399,9 @@ class Adafactor(_Masked):
             u = self._leaf_update(key, self._to_jax(stacked, members, g), decay)
             # clip_by_block_rms over the whole leaf, then the learning rate
             d = u.dtype
-            rms = torch.sqrt(torch.mean(u * u)) / _in(self.CLIPPING_THRESHOLD, d)
+            groups = [gr for dim_groups in self.split[key].values() for gr in dim_groups]
+            mean_sq = _mean(u * u, None, groups, int(np.prod(self.shapes[key])))
+            rms = torch.sqrt(mean_sq) / _in(self.CLIPPING_THRESHOLD, d)
             u = u / torch.clamp(rms, min=_in(1.0, d))
             u = u * _in(lr, d)
             for i, (name, axes) in enumerate(members):
@@ -336,28 +409,31 @@ class Adafactor(_Masked):
                 ui = u[i] if stacked else u
                 ui = ui.permute(_inverse(axes)) if axes else ui
                 if self.weight_decay:
-                    ui = ui + _in(self.weight_decay, d) * p  # add_decayed_weights
+                    ui = ui + _in(self.weight_decay, d) * _local(p)  # add_decayed_weights
                 yield name, p, -ui
         self.count += 1
 
     def _leaf_update(self, key: str, grad: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
-        """scale_by_factored_rms on one leaf (JAX layout); advances its state."""
+        """scale_by_factored_rms on one leaf (JAX layout, this rank's shard);
+        advances its state."""
         dtype = grad.dtype
+        shape, split = self.shapes[key], self.split[key]
         grad_sqr = grad * grad + _in(self.EPSILON, dtype)
-        dims = factored_dims(grad.shape)
+        dims = factored_dims(shape)
         if dims is None:
-            v = self.v[key]
+            v = _local(self.v[key])
             v.copy_((decay * v.float() + (1.0 - decay) * grad_sqr.float()).to(dtype))
             return grad * v ** -0.5
         d1, d0 = dims
-        v_row, v_col = self.v_row[key], self.v_col[key]
-        v_row.copy_((decay * v_row.float()
-                     + (1.0 - decay) * grad_sqr.mean(dim=d0).float()).to(dtype))
-        v_col.copy_((decay * v_col.float()
-                     + (1.0 - decay) * grad_sqr.mean(dim=d1).float()).to(dtype))
+        v_row, v_col = _local(self.v_row[key]), _local(self.v_col[key])
+        v_row.copy_((decay * v_row.float() + (1.0 - decay) * _mean(
+            grad_sqr, d0, split.get(d0), shape[d0]).float()).to(dtype))
+        v_col.copy_((decay * v_col.float() + (1.0 - decay) * _mean(
+            grad_sqr, d1, split.get(d1), shape[d1]).float()).to(dtype))
         del grad_sqr
         reduced_d1 = d1 - 1 if d1 > d0 else d1
-        row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+        row_mean = _mean(v_row, reduced_d1, split.get(d1), shape[d1], keepdim=True)
+        row_factor = (v_row / row_mean) ** -0.5
         col_factor = v_col ** -0.5
         return grad * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
 

@@ -46,10 +46,12 @@ gathered to it (`train/checkpoint.py`). Without `fsdp` and with a mesh of
 one device the Trainer opens no process group and shards nothing.
 `train.fsdp_min_size` has no counterpart: FSDP2 shards every parameter.
 
-Not ported, and raising `NotImplementedError`: weights from an orbax
-`params_path` of the JAX package, `validate` on a mesh, and what
-`shard_params` and the optimizers refuse (LoRA or a quantized form under
-TP, Adafactor under FSDP or TP).
+On a mesh LoRA, Adafactor, accumulation and bf16 masters run as on one
+device (`parallel/mesh.py`, `train/optim.py`), and `validate` runs on every
+rank over an unsharded copy of the model (see `validate`). Not ported, and
+raising `NotImplementedError`: weights from an orbax `params_path` of the
+JAX package, a head count that does not split over the TP axis, and `fsdp`
+with a mesh whose "model" axis has more than one rank.
 """
 
 from __future__ import annotations
@@ -71,7 +73,9 @@ from plangen_tpu_torch.data.collate import collate_flows
 from plangen_tpu_torch.data.loader import BatchLoader, CombinedLoader, PrefetchLoader, infinite
 from plangen_tpu_torch.data.registry import get_dataset
 from plangen_tpu_torch.models.vlm import PlanGenModel
-from plangen_tpu_torch.parallel.mesh import batch_sharding, create_mesh, mesh_dims, shard_params
+from plangen_tpu_torch.parallel.mesh import (
+    batch_sharding, create_mesh, full_tensor, mesh_dims, shard_params,
+)
 from plangen_tpu_torch.tasks.processor import PlanGenProcessor
 from plangen_tpu_torch.train.checkpoint import PlanGenCheckpointer
 from plangen_tpu_torch.train.lora import add_lora, init_lora
@@ -260,23 +264,42 @@ class Trainer:
             self.ckpt.save(max_steps, self.state)
         return last_metrics
 
+    def _unsharded_model(self) -> PlanGenModel:
+        """A copy of the model on this rank's device with every parameter
+        whole (`full_tensor()` of each DTensor: a collective, every rank
+        calls it), in the masters' dtype, adapters included: a whole
+        model's bytes beside the rank's shards and optimizer state."""
+        from plangen_tpu_torch.train.lora import has_lora
+
+        state = {n: full_tensor(t).detach().clone() for n, t in self.model.state_dict().items()}
+        model = PlanGenModel(self.cfg.model, dtype=master_dtype(self.cfg.train), device="meta")
+        if has_lora(self.model):
+            add_lora(model, self.cfg.train.lora_rank, self.cfg.train.lora_alpha)
+        model.load_state_dict(state, strict=True, assign=True)
+        return model.to(self.device)
+
     def validate(self, step: int, model: Optional[PlanGenModel] = None,
                  max_len: Optional[int] = None) -> None:
         """Run the evaluation harness on `train.test_data` for `max_len`
         (default `train.val_max_len`) batches with the trainer's model;
         layout and image metrics go to the training log under `val/` keys.
         The model is left in training mode; a `generation.quantize` form
-        that rewrites weights in place (int8, int4, int4_a8) runs on a copy."""
+        that rewrites weights in place (int8, int4, int4_a8) runs on a copy.
+
+        On a mesh every rank builds an unsharded copy of the model
+        (`_unsharded_model`), validates the same data on it and frees it, as
+        every JAX process validates the sharded params; the lead alone logs
+        the `val/` metrics and writes under `<output_dir>/val`, the other
+        ranks under `<output_dir>/val_rank<r>`."""
         from plangen_tpu_torch.ops.quant import MODES
         from plangen_tpu_torch.tasks.eval import run_validation
 
-        if self.mesh is not None:
-            raise NotImplementedError("validate on a mesh: run_validation takes an "
-                                      "unsharded model")
-
         td = self.cfg.train.test_data
-        model = self.model if model is None else model
-        if self.cfg.generation.quantize in MODES and self.cfg.generation.quantize != "int8_kv":
+        val_dir = "val" if self.is_lead else f"val_rank{dist.get_rank()}"
+        own = model is None and self.mesh is not None
+        model = self._unsharded_model() if own else self.model if model is None else model
+        if not own and self.cfg.generation.quantize in MODES \
+                and self.cfg.generation.quantize != "int8_kv":
             model = copy.deepcopy(model)
         was_training = model.training
         try:
@@ -285,12 +308,13 @@ class Trainer:
                 task_type=td.task_type,
                 data_name=td.data_name,
                 max_len=self.cfg.train.val_max_len if max_len is None else max_len,
-                output_dir=os.path.join(self.cfg.train.output_dir, "val"),
+                output_dir=os.path.join(self.cfg.train.output_dir, val_dir),
                 batch_size=td.batch_size,
                 model=model,
                 global_step=step,
-                metrics_cb=lambda agg: self.logger.log(
-                    step, {f"val/{k}": v for k, v in agg.items()}),
+                metrics_cb=(lambda agg: self.logger.log(
+                    step, {f"val/{k}": v for k, v in agg.items()})) if self.is_lead
+                else (lambda agg: None),
                 device=self.device,
             )
         finally:

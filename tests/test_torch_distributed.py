@@ -18,11 +18,16 @@ sample is the same image and prompt, so any rows are the same batch):
     by which Adam's update can move a parameter whose gradient's sign a
     rounding flips);
   * the checkpoint, gathered to the lead, restores into the tp 2 Trainer
-    and into a one-process Trainer with parameters equal to the ranks'.
+    and into a one-process Trainer with parameters equal to the ranks';
+  * `validate` on the FSDP mesh (`plan` on the toy data, one batch): every
+    rank validates an unsharded copy of the model, the lead alone logs the
+    `val/` metrics; the layouts and metrics equal those of a one-process
+    Trainer restored from the ranks' checkpoint.
 """
 
 from __future__ import annotations
 
+import json
 import multiprocessing
 import queue
 import socket
@@ -51,6 +56,9 @@ def toy_config(out_dir, bs=BS, **train):
         "train.checkpointing_steps": STEPS,
         "train.num_workers": 0,
         "train.prefetch_depth": 0,
+        "train.test_data": FlowConfig("plan", "toy", 2),
+        "train.val_max_len": 1,
+        "generation.max_new_text_tokens": 4,
         **{f"train.{k}": v for k, v in train.items()},
     })
 
@@ -120,6 +128,8 @@ def _rank_main(rank, world, port, out_dir, results):
         t.fit(max_steps=STEPS)
         out = {"losses": losses, "fetched": fetched, "params": full_params(t.model),
                "mesh": tuple(t.mesh.shape)}
+        t.validate(STEPS)
+        out["val_sharded"] = any(hasattr(p, "full_tensor") for p in t.model.parameters())
         tp = Trainer(toy_config(out_dir, mesh_shape={"data": 1, "model": 2}), device="cpu")
         out["tp_resumed"] = tp.maybe_resume()
         out["tp_params"] = full_params(tp.model)
@@ -166,20 +176,32 @@ def spawn(world, out_dir, timeout=SPAWN_TIMEOUT):
     return out
 
 
-def test_two_rank_trainer_matches_one_process(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """(the run directory, {rank: result}) of the one spawn."""
+    run = tmp_path_factory.mktemp("two_ranks") / "run"
+    return run, spawn(2, run)
+
+
+def val_tree(root) -> dict:
+    """{relative path: bytes} of a validation output tree."""
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file()}
+
+
+def test_two_rank_trainer_matches_one_process(two_ranks, tmp_path, monkeypatch):
     from plangen_tpu_torch.train.trainer import Trainer
 
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", fake_tensorboard())
-    run = tmp_path / "run"
-    ranks = spawn(2, run)
+    run, ranks = two_ranks
     assert ranks[0]["mesh"] == (2, 1)
 
     # each rank loads its own stride of each flow's shuffled dataset
     assert len(ranks[0]["fetched"]) == len(ranks[1]["fetched"]) == 3 * BS * STEPS
     assert not set(ranks[0]["fetched"]) & set(ranks[1]["fetched"])
 
-    # one writer
-    lines = (run / "metrics.jsonl").read_text().splitlines()
+    # one writer (the step metrics; validation's line is checked below)
+    lines = [x for x in (run / "metrics.jsonl").read_text().splitlines() if "val/" not in x]
     assert len(lines) == 1 and '"step": 1' in lines[0]
     one = Trainer(toy_config(tmp_path / "one", bs=2 * BS), device="cpu")
     n_trainable = sum(one.mask.values())
@@ -209,3 +231,34 @@ def test_two_rank_trainer_matches_one_process(tmp_path, monkeypatch):
     assert back.maybe_resume() == STEPS and back.mesh is None
     for name, p in full_params(back.model).items():
         np.testing.assert_array_equal(p, ranks[0]["params"][name], err_msg=name)
+
+
+def test_two_rank_trainer_validate_matches_one_process(two_ranks, tmp_path, monkeypatch):
+    """`validate` on the FSDP mesh: the model stays sharded, each rank
+    writes its own tree (the lead `val`, rank 1 `val_rank1`), the lead alone
+    logs `val/` metrics, and the layout files and metrics equal a one-process
+    Trainer's `validate` on the ranks' checkpoint."""
+    import shutil
+
+    from plangen_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", fake_tensorboard())
+    run, ranks = two_ranks
+    assert all(rank["val_sharded"] for rank in ranks.values())
+    val = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()
+           if "val/" in x]
+    assert len(val) == 1 and val[0]["step"] == STEPS and "val/miou" in val[0]
+    got = val_tree(run / "val")
+    assert any(k.endswith("_layout.json") for k in got)
+    assert val_tree(run / "val_rank1") == got
+
+    one_dir = tmp_path / "one"
+    shutil.copytree(run / "checkpoints", one_dir / "checkpoints")
+    one = Trainer(toy_config(one_dir), device="cpu")
+    assert one.maybe_resume() == STEPS and one.mesh is None
+    one.validate(STEPS)
+    assert val_tree(one_dir / "val") == got
+    want = [json.loads(x) for x in (one_dir / "metrics.jsonl").read_text().splitlines()]
+    assert len(want) == 1
+    assert {k: v for k, v in val[0].items() if k.startswith("val/")} == \
+        {k: v for k, v in want[0].items() if k.startswith("val/")}

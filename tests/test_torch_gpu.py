@@ -1531,3 +1531,93 @@ def test_tp_sharded_graph_equals_eager_and_the_unsharded_model(cuda, world1_nccl
         assert torch.equal(tokens, want), eager
         assert counts == want_counts
     assert want_counts[1 if q8 else 0] == n * cfg.llama.num_layers
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4", "int4_a8"])
+def test_quantized_tp_graph_equals_eager_and_the_unsharded_model(cuda, world1_nccl, mode):
+    """A bf16 model split over the world-1 "model" axis, then quantized on
+    its shards (`quantize_model_` of a TP model): the captured image step
+    replays its eager loop's tokens bit for bit, both equal the unsharded
+    quantized model's with the same kernel launches (K2 on the tensor
+    cores, K4, K1-q8), and the quantized model split by `shard_params`
+    holds the same bytes."""
+    import copy
+
+    from plangen_tpu_torch.parallel import mesh as pm
+
+    cfg, dense = _graph_model(cuda)
+    model = quantize_model_(copy.deepcopy(dense), mode)
+    tp_model = quantize_model_(pm.shard_params(copy.deepcopy(dense), world1_nccl,
+                                               tp_axis="model"), mode)
+    split = pm.shard_params(copy.deepcopy(model), world1_nccl, tp_axis="model")
+    bufs, split_bufs = dict(tp_model.named_buffers()), dict(split.named_buffers())
+    assert sorted(bufs) == sorted(split_bufs)
+    assert all(torch.equal(bufs[n], split_bufs[n]) for n in bufs)
+    n = 16
+    embeds, mask = _graph_prompt(cuda, cfg, n)
+
+    def run(m, eager):
+        before = _loop_counts()
+        tokens = generate_image_tokens(m, cfg, embeds, mask, generator=None, cfg_weight=5.0,
+                                       temperature=0.0, num_tokens=n, quantized_cache=True,
+                                       eager=eager)
+        torch.cuda.synchronize()
+        return tokens.cpu(), tuple(a - b for a, b in zip(_loop_counts(), before))
+
+    want, want_counts = run(model, eager=False)
+    for eager in (True, False):
+        tokens, counts = run(tp_model, eager)
+        assert torch.equal(tokens, want), eager
+        assert counts == want_counts
+    k2, k2_tc, k4 = want_counts[2:]
+    # every decode step's projections and head; the prefill's projections
+    # too (4 rows x 12 positions: the kernel's <= 256 rows)
+    matmuls = n * (4 * cfg.llama.num_layers + 1) + 4 * cfg.llama.num_layers
+    assert want_counts[1] == n * cfg.llama.num_layers
+    assert (k2, k2_tc, k4) == {"int8": (0, 0, 0), "int4": (matmuls, matmuls, 0),
+                               "int4_a8": (0, 0, matmuls)}[mode]
+
+
+def test_adafactor_fsdp_steps_over_nccl_equal_the_plain_steps(cuda, world1_nccl):
+    """Two stage3 Adafactor steps (fp32 masters, bf16 compute as the
+    Trainer runs them, K3) under FSDP2 over the world-1 NCCL group equal
+    the plain steps bit for bit: the losses, every weight, and the factored
+    statistics."""
+    from plangen_tpu_torch.config import OptimConfig, TrainConfig
+    from plangen_tpu_torch.parallel import mesh as pm
+    from plangen_tpu_torch.train.optim import make_optimizer, trainable_mask
+    from plangen_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = _train_config()
+    tcfg = TrainConfig(use_flash_attention=True,
+                       optim=OptimConfig(optimizer="adafactor", learning_rate=1e-3))
+    flows = ((0, "uni"), (1, "mmu"), (2, "plan"))
+    results = {}
+    for fsdp in (False, True):
+        model = init_params(PlanGenModel(cfg, dtype=torch.float32, device=cuda),
+                            torch.Generator(device=cuda).manual_seed(0))
+        if fsdp:
+            for name, trainable in trainable_mask(model, "stage3").items():
+                model.get_parameter(name).requires_grad_(trainable)
+            pm.shard_params(model, world1_nccl, tp_axis=None, fsdp_axis="data",
+                            param_dtype=torch.bfloat16)
+        opt, mask = make_optimizer(tcfg.optim, model, "stage3")
+        step = make_train_step(cfg, tcfg, 2, flows, compute_dtype=torch.bfloat16,
+                               trainable_mask=mask)
+        state = init_train_state(model, opt)
+        losses = []
+        for _ in range(2):
+            state, metrics = step(state, _train_batches(cfg, cuda))
+            losses.append({k: float(v) for k, v in metrics.items()})
+        with torch.no_grad():
+            weights = {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).cpu()
+                       for n, p in model.named_parameters()}
+            stats = {f"{kind}/{k}": (t.full_tensor() if hasattr(t, "full_tensor") else t).cpu()
+                     for kind in ("v_row", "v_col", "v") for k, t in getattr(opt, kind).items()}
+        assert opt.v_row  # 256-wide matrices factor
+        results[fsdp] = (losses, weights, stats)
+    assert pm.is_sharded(model)
+    assert results[True][0] == results[False][0]
+    for i in (1, 2):
+        for k, w in results[False][i].items():
+            assert torch.equal(results[True][i][k], w), k
