@@ -246,9 +246,18 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      the logits of 32 teacher-forced steps within `TP2_LOGIT_TOL` of
      the unsharded model's, and a row split's product within `ROW_TOL` of
      the unsplit layer's, a planted fault beyond `ROW_PLANTED_MIN`
-     (`row_witness`). Run it alone from the root with `python3 -c "import
+     (`row_witness`); (h) (last) FSDP x TP: four ranks on the one card
+     over gloo, mesh data 2 x model 2, `fsdp=True`, the phase-9 Trainer
+     (stage3, AdamW, fp32 masters, bf16 compute) at Janus-Pro-1B width cut
+     to FSDP_TP_LAYERS, 2 steps: every parameter gathered right after
+     `shard_params` bitwise equal to the seeded weights on every rank, 8
+     heads a rank, K3's launches the code's count each step (no plain
+     call), the losses within FSDP_TP_LOSS_RTOL and every parameter within
+     FSDP_TP_PARAM_TOL lr x steps of one plain Trainer's same steps on the
+     global batch. Run it alone from the root with `python3 -c "import
      torch, chip_smoke as cs; cs.phase_header(torch); cs.phase_build();
-     cs.phase_parallel(torch, torch.device('cuda:0'))"`.
+     cs.phase_parallel(torch, torch.device('cuda:0'))"`, (h) alone with
+     `cs.phase_fsdp_tp(torch, torch.device('cuda:0'))` after the build.
 
 The last two lines are a JSON object describing the kernels (each with its
 launches on the main path, error, time, plain time, the one-call
@@ -2459,6 +2468,24 @@ TP2_LOGIT_TOL = {"int4": 5e-2, "int4_a8": 1e-1}
 # alone (the group MAX left out) beyond ROW_PLANTED_MIN (~8e-3 on the CPU)
 ROW_TOL = 1e-5
 ROW_PLANTED_MIN = 1e-3
+# (h) FSDP x TP: four ranks on the one card over gloo, mesh data 2 x model 2,
+# the phase-9 Trainer at Janus-Pro-1B width cut in depth to FSDP_TP_LAYERS
+# (LLaMA layers, SigLIP blocks); each rank's flows take the recipe's batch,
+# the plain Trainer twice that (the global batch)
+FSDP_TP_MESH = {"data": 2, "model": 2}
+FSDP_TP_LAYERS = (2, 2)
+FSDP_TP_STEPS = 2
+FSDP_TP_TIMEOUT_S = 300.0
+# (h) the ranks' losses against the plain Trainer's, relative: bf16 compute,
+# each data shard's rows and each TP partial sum rounded to bf16 (8 bits,
+# 0.4 %) apart from the plain run's, a few roundings deep at this depth
+FSDP_TP_LOSS_RTOL = 1e-2
+# (h) the parameters after the steps against the plain Trainer's, in units of
+# lr x steps: Adam moves a parameter by at most ~lr a step (at step 2
+# |m / sqrt(v)| <= 1.0013 with the bias corrections, by Cauchy-Schwarz), so
+# a gradient whose sign a rounding flips parts the runs by up to 2 lr a step;
+# 1 % over that for that slack and the weight decay
+FSDP_TP_PARAM_TOL = 2.02
 
 
 def _free_port() -> int:
@@ -2687,6 +2714,186 @@ def phase_tp2_one_card(torch, pipe, cfg) -> dict:
         f"({int((got[0] != want).sum())} of {want.size} differ)")
     check(same, f"[15e] TP = 2 tokens {got[0].tolist()} against {want.tolist()}")
     return dict(seconds=seconds, steps=TP2_STEPS, tokens_equal=same)
+
+
+def fsdp_tp_model_cfg():
+    """Janus-Pro-1B's widths (hidden 2048, 16 heads x 128, vocab 102400,
+    SigLIP 1024 / 16 heads) at the depth of FSDP_TP_LAYERS."""
+    import dataclasses
+
+    from plangen_tpu_torch.config import PlanGenModelConfig
+
+    base = PlanGenModelConfig()
+    layers, blocks = FSDP_TP_LAYERS
+    return dataclasses.replace(base, llama=dataclasses.replace(base.llama, num_layers=layers),
+                               vision=dataclasses.replace(base.vision, layers=blocks))
+
+
+def fsdp_tp_rank(rank: int, port: int, inputs: dict, results) -> None:
+    """[15h] one of four ranks on the one card over gloo: the phase-9
+    Trainer with `fsdp=True` on the data 2 x model 2 mesh. Right after
+    `shard_params` every parameter gathered against the seeded weights,
+    each rank's local heads; FSDP_TP_STEPS steps (K3 counted by
+    `trainer_steps`); then every parameter gathered, compared on rank 0
+    with the plain Trainer's (saved by the parent)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from plangen_tpu_torch.convert.from_jax import init_params
+        from plangen_tpu_torch.models.vlm import PlanGenModel
+        from plangen_tpu_torch.parallel import mesh as pm
+
+        t0 = time.perf_counter()
+
+        def stage(what):
+            log(f"[15h] rank {rank}: {what} at {time.perf_counter() - t0:.1f} s")
+
+        dev = torch.device("cuda:0")
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        pm.init_distributed(f"localhost:{port}", 4, rank, device="cpu")  # gloo
+        model_cfg = fsdp_tp_model_cfg()
+        trainer, loader, built = options_trainer(
+            torch, dev, {"fsdp": True, "mesh_shape": FSDP_TP_MESH}, model_cfg=model_cfg)
+        stage(f"Trainer built in {built:.1f} s")
+        # the weights the Trainer seeds, drawn again on this rank
+        seeded = PlanGenModel(model_cfg, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            init_params(seeded, torch.Generator(device=dev).manual_seed(trainer.cfg.train.seed))
+            unequal = [n for n, p in trainer.model.named_parameters()
+                       if not torch.equal(pm.full_tensor(p), seeded.get_parameter(n))]
+        del seeded
+        torch.cuda.empty_cache()
+        kinds = pm.param_shardings(trainer.model, tp=FSDP_TP_MESH["model"],
+                                   fsdp=FSDP_TP_MESH["data"])
+        layer = trainer.model.language_model.model.layers[0]
+        block = trainer.model.vision_model.vision_tower.blocks[0]
+        heads = {"llama": pm._local(layer.self_attn.q_proj.weight).shape[0]
+                 // model_cfg.llama.head_dim,
+                 "siglip": pm._local(block.attn.qkv.weight).shape[0] // 3 // block.attn.head_dim}
+        stage(f"every parameter gathered against the seeded weights: {len(unequal)} differ; "
+              f"local heads {heads}")
+        losses, seconds, peak, launches = trainer_steps(torch, "15h", f"rank {rank}", trainer,
+                                                        loader, FSDP_TP_STEPS)
+        stage(f"{FSDP_TP_STEPS} steps")
+        plain = torch.load(inputs["plain"], map_location="cpu", mmap=True,
+                           weights_only=True) if rank == 0 else None
+        diffs = {}
+        with torch.no_grad():
+            for n, p in trainer.model.named_parameters():
+                whole = pm.full_tensor(p)
+                if plain is not None:
+                    want = plain[n].to(dev)
+                    diffs[n] = float((whole.float() - want.float()).abs().max())
+        stage("every parameter gathered after the steps")
+        results.put((rank, dict(
+            unequal_after_shard=unequal, heads=heads, losses=losses, seconds=seconds,
+            peak_gib=peak, launches=launches, built_s=built, diffs=diffs,
+            tp_split=sum(k in ("vocab", "column", "row") for k in kinds.values()),
+            fsdp=sum(k == "fsdp" for k in kinds.values()))))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_fsdp_tp(torch, dev) -> dict:
+    """[15h] FSDP x TP: the phase-9 Trainer (stage3, AdamW, fp32 masters,
+    bf16 compute) at Janus-Pro-1B width, depth cut to FSDP_TP_LAYERS, on a
+    data 2 x model 2 mesh with `fsdp=True`: four ranks on the one card over
+    gloo with CUDA tensors (NCCL refuses two ranks on one device), against
+    one plain Trainer on the card taking the same steps on the global
+    batch."""
+    import multiprocessing
+    import queue
+    import tempfile
+
+    from plangen_tpu_torch.config import FlowConfig, PlanGenModelConfig
+
+    model_cfg, full = fsdp_tp_model_cfg(), PlanGenModelConfig()
+    log(f"[15h] depth cut to {model_cfg.llama.num_layers} LLaMA layers (of "
+        f"{full.llama.num_layers}) and {model_cfg.vision.layers} SigLIP blocks (of "
+        f"{full.vision.layers}) for the smoke's time limit; widths Janus-Pro-1B's")
+    dp = FSDP_TP_MESH["data"]
+    flows = tuple(FlowConfig(t, "toy", dp * b) for t, b in TRAIN_OPTION_FLOWS)
+    plain_trainer, loader, built = options_trainer(torch, dev, {"train_data": flows},
+                                                   model_cfg=model_cfg)
+    losses, seconds, peak, _ = trainer_steps(torch, "15h", "plain", plain_trainer, loader,
+                                             FSDP_TP_STEPS)
+    lr = plain_trainer.cfg.train.optim.learning_rate
+    tmp = tempfile.TemporaryDirectory(prefix="plangen_fsdp_tp_")
+    path = str(pathlib.Path(tmp.name) / "plain.pt")
+    torch.save({n: p.detach().cpu() for n, p in plain_trainer.model.named_parameters()}, path)
+    log(f"[15h] plain Trainer (global batch {[f.batch_size for f in flows]}): built in "
+        f"{built:.1f} s, steps {[round(x, 3) for x in seconds]} s, peak {peak:.2f} GiB")
+    drop_trainer(torch, plain_trainer)
+    del plain_trainer
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=fsdp_tp_rank, args=(r, port, {"plain": path}, results))
+             for r in range(4)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, res = results.get(timeout=FSDP_TP_TIMEOUT_S)
+            got[rank] = res
+    except queue.Empty:
+        got["timeout"] = f"no result within {FSDP_TP_TIMEOUT_S} s"
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        tmp.cleanup()
+    wall = time.perf_counter() - t0
+    errors = {r: v for r, v in got.items() if isinstance(v, str)}
+    check(not errors, "[15h] four ranks over gloo on the one card: " + "; ".join(
+        f"rank {r}: {v.strip().splitlines()[-1]}" for r, v in errors.items()))
+    want_heads = {"llama": model_cfg.llama.num_heads // FSDP_TP_MESH["model"],
+                  "siglip": model_cfg.vision.heads // FSDP_TP_MESH["model"]}
+    for r, res in sorted(got.items()):
+        check(not res["unequal_after_shard"], f"[15h] rank {r}: right after shard_params "
+              f"{res['unequal_after_shard'][:5]} differ from the seeded weights")
+        check(res["heads"] == want_heads, f"[15h] rank {r}: local heads {res['heads']}")
+        for step, (a, b) in enumerate(zip(res["losses"], losses)):
+            for k, v in b.items():
+                check(abs(a[k] - v) <= FSDP_TP_LOSS_RTOL * abs(v),
+                      f"[15h] rank {r} step {step} {k}: {a[k]} against plain {v}")
+        log(f"[15h] rank {r}: built in {res['built_s']:.1f} s, steps "
+            f"{[round(x, 3) for x in res['seconds']]} s, peak {res['peak_gib']:.2f} GiB, local "
+            f"heads {res['heads']}, losses {[round(x['loss'], 6) for x in res['losses']]} "
+            f"(plain {[round(x['loss'], 6) for x in losses]})")
+    diffs = got[0]["diffs"]
+    diff, limit = max(diffs.values()), FSDP_TP_PARAM_TOL * lr * FSDP_TP_STEPS
+    n_equal = sum(d == 0.0 for d in diffs.values())
+    loss_gap = max(abs(res["losses"][i][k] - losses[i][k]) / abs(losses[i][k])
+                   for res in got.values() for i in range(FSDP_TP_STEPS) for k in losses[i])
+    log(f"[15h] FSDP x TP over four gloo ranks on cuda:0 ({got[0]['tp_split']} parameters "
+        f"TP-split, {got[0]['fsdp']} FSDP-sharded), {FSDP_TP_STEPS} steps in {wall:.1f} s "
+        f"(the processes' start, build and steps): every parameter gathered right after "
+        f"shard_params bitwise equal to the seeded weights on every rank; losses within "
+        f"{loss_gap:.3e} (relative) of the plain Trainer's; after the steps the parameters "
+        f"within {diff:.3e} (limit {FSDP_TP_PARAM_TOL} lr x steps = {limit:.3e}: a "
+        f"rounding-level gradient may take either sign; {n_equal} of {len(diffs)} tensors "
+        "bitwise equal)")
+    check(diff <= limit, f"[15h] the parameters differ from the plain Trainer's by {diff}")
+    return dict(seconds=wall, losses={r: res["losses"] for r, res in got.items()},
+                plain_losses=losses, param_max_abs_diff=diff, loss_max_rel_gap=loss_gap,
+                peak_gib={r: res["peak_gib"] for r, res in got.items()},
+                s_step={r: res["seconds"] for r, res in got.items()},
+                k3_launches={r: {k: v for k, v in res["launches"].items()
+                                 if k.startswith("flash")} for r, res in got.items()})
 
 
 def quantized_launches(cfg, quantize, n_rows: int, prompt_len: int) -> dict:
@@ -3237,9 +3444,11 @@ def phase_parallel(torch, dev) -> dict:
         took("b, c")
         options = phase_parallel_options(torch, dev, mesh, launches)
         took("f (training options)")
+        fsdp_tp = phase_fsdp_tp(torch, dev)
+        took("h")
         log("[15] " + json.dumps(dict(decode_turns=rows, quantized=quantized, tp2=tp2,
                                       tp2_quantized=tp2_quantized, train=train,
-                                      options=options)))
+                                      options=options, fsdp_tp=fsdp_tp)))
     finally:
         dist.destroy_process_group()
     log(f"[15] {nvidia_smi_line()}")

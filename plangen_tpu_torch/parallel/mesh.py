@@ -25,6 +25,13 @@ the mesh's product is the world size (JAX has one process drive many):
     every rank, so the sampling and the argmax see the full vocabulary.
     The collectives are c10d calls on the current stream, which a CUDA
     graph of a decode step captures.
+  * Heads that do not split: where a tower's head count (LLaMA's query or
+    KV heads, SigLIP's heads) does not divide by the TP size, that tower's
+    attention (q/k/v/o and their LoRA adapters, or SigLIP's qkv/proj)
+    stays whole on every rank and runs unsplit, with no collective; its
+    MLP, the embedding and the heads still split. JAX splits such a
+    projection by its dim and lets GSPMD reshard at the head reshape; the
+    port's split forwards need whole heads on a rank (`whole_attention`).
   * LoRA under TP: q/k/v's adapter `b` [r, out] is split with its
     projection's heads and o_proj's `a` [in, r] with its input's; the
     other factors stay whole (JAX replicates every adapter and lets XLA
@@ -38,22 +45,24 @@ the mesh's product is the world size (JAX has one process drive many):
     shard, row splits with the whole input dim's absmax
     (`TPSplit.quantized`); both give every rank the same bytes.
   * FSDP over "data" is FSDP2 (`fully_shard`): one unit per LLaMA layer
-    and SigLIP block, the rest in the root. FSDP2 shards every parameter
-    of a unit, so the port shards every tensor JAX does (those of
-    `fsdp_min_size` elements or more) and the small ones too; which dim it
-    splits does not change the numbers. `MixedPrecisionPolicy` casts the
-    masters to the compute dtype after the all-gather and reduces the
-    gradients in fp32, summed over the data group (the losses divide by
-    the global token count, `train/loss.py`).
+    and SigLIP block, the rest in the root. As in JAX, a parameter takes a
+    TP placement or an FSDP one, never both: FSDP2 shards every parameter
+    that no TP rule splits (those JAX shards, of `fsdp_min_size` elements
+    or more, and the small ones too; which dim it splits does not change
+    the numbers) and ignores the TP-split ones, which stay whole over
+    "data" (`fsdp_ignored`: the train step casts them to the compute dtype
+    and sums their gradients over the data group itself). So every
+    parameter is a DTensor over one mesh dim, on a 2-D mesh too.
+    `MixedPrecisionPolicy` casts the masters to the compute dtype after
+    the all-gather and reduces the gradients in fp32, summed over the data
+    group (the losses divide by the global token count, `train/loss.py`).
   * The batch: each data shard of the mesh takes its contiguous slice of
     the global batch's rows (`batch_sharding`, `shard_rows`); ranks that
     differ only in their "model" coordinate take the same rows.
 
 `param_placement` is the pure rule (name, shape, tp size, fsdp size) that
 `shard_params` applies, so a test can hold it against JAX's
-`param_shardings` without processes. Not done, and raising
-`NotImplementedError`: a head count that does not split over the TP axis,
-and FSDP together with a TP axis of more than one rank.
+`param_shardings` without processes.
 """
 
 from __future__ import annotations
@@ -63,7 +72,7 @@ import functools
 import os
 import re
 import socket
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -81,25 +90,29 @@ from plangen_tpu_torch.ops.quant import Int8Linear, _QuantLinear
 AXES = ("data", "model")
 KINDS = ("vocab", "column", "row", "fsdp", "replicated")
 
-# parameter-name pattern -> (the TP kind of its module, the dim it splits)
-# (JAX's `_TP_RULES`); a weight is nn.Linear's [out, in]. The names of the
-# quantized modules' fused projections (`ops/quant.py`) match as well.
+# parameter-name pattern -> (the TP kind of its module, the dim it splits,
+# the tower whose head count must split for the rule to apply: its
+# attention's projections) (JAX's `_TP_RULES`); a weight is nn.Linear's
+# [out, in]. The names of the quantized modules' fused projections
+# (`ops/quant.py`) match as well.
 _BLOCKS = r"^vision_model\.vision_tower\.blocks\.\d+\."
-_TP_RULES: Tuple[Tuple[str, str, int], ...] = (
-    (r"^language_model\.model\.embed_tokens\.weight$", "vocab", 0),
-    (r"^language_model\.lm_head\.weight$", "column", 0),
-    (r"\.self_attn\.(q_proj|k_proj|v_proj|qkv_proj|k_v_proj)\.weight$", "column", 0),
-    (r"\.self_attn\.o_proj\.weight$", "row", 1),
-    (r"\.mlp\.(gate_proj|up_proj|gate_up_proj)\.weight$", "column", 0),
-    (r"\.mlp\.down_proj\.weight$", "row", 1),
-    (_BLOCKS + r"(attn\.qkv|mlp\.fc1)\.(weight|bias)$", "column", 0),
-    (_BLOCKS + r"(attn\.proj|mlp\.fc2)\.weight$", "row", 1),
-    (r"^gen_head\.vision_head\.(weight|bias)$", "column", 0),
+_TP_RULES: Tuple[Tuple[str, str, int, Optional[str]], ...] = (
+    (r"^language_model\.model\.embed_tokens\.weight$", "vocab", 0, None),
+    (r"^language_model\.lm_head\.weight$", "column", 0, None),
+    (r"\.self_attn\.(q_proj|k_proj|v_proj|qkv_proj|k_v_proj)\.weight$", "column", 0, "llama"),
+    (r"\.self_attn\.o_proj\.weight$", "row", 1, "llama"),
+    (r"\.mlp\.(gate_proj|up_proj|gate_up_proj)\.weight$", "column", 0, None),
+    (r"\.mlp\.down_proj\.weight$", "row", 1, None),
+    (_BLOCKS + r"attn\.qkv\.(weight|bias)$", "column", 0, "siglip"),
+    (_BLOCKS + r"mlp\.fc1\.(weight|bias)$", "column", 0, None),
+    (_BLOCKS + r"attn\.proj\.weight$", "row", 1, "siglip"),
+    (_BLOCKS + r"mlp\.fc2\.weight$", "row", 1, None),
+    (r"^gen_head\.vision_head\.(weight|bias)$", "column", 0, None),
     # the LoRA adapters (a [in, r], b [r, out]): q/k/v's b split with its
     # projection's heads, o_proj's a with the heads of its input; the other
     # factor of each pair stays whole
-    (r"\.self_attn\.lora\.(q_proj|k_proj|v_proj)\.b$", "column", 1),
-    (r"\.self_attn\.lora\.o_proj\.a$", "row", 0),
+    (r"\.self_attn\.lora\.(q_proj|k_proj|v_proj)\.b$", "column", 1, "llama"),
+    (r"\.self_attn\.lora\.o_proj\.a$", "row", 0, "llama"),
 )
 _GATHERED = ("language_model.lm_head", "gen_head.vision_head")  # logits, whole
 # the parts of a fused output, each split over the ranks as a layer of its own
@@ -190,28 +203,41 @@ def create_mesh(shape: Optional[Dict[str, int]] = None, device=None) -> DeviceMe
 # ------------------------------------------------------------------- rules
 
 
-def _tp_rule(name: str, shape: Sequence[int], tp: int, parts: int = 1
-             ) -> Optional[Tuple[str, int]]:
+def whole_attention(cfg, tp: int) -> FrozenSet[str]:
+    """The towers ("llama", "siglip") of a `PlanGenModelConfig` whose
+    attention stays whole over a TP axis of size `tp`: their head count
+    (LLaMA's query or KV heads) does not divide by it."""
+    llama, vision = cfg.llama, cfg.vision
+    return frozenset(tower for tower, heads in (
+        ("llama", (llama.num_heads, llama.num_kv_heads)), ("siglip", (vision.heads,)))
+        if any(h % tp for h in heads))
+
+
+def _tp_rule(name: str, shape: Sequence[int], tp: int, parts: int = 1,
+             whole: FrozenSet[str] = frozenset()) -> Optional[Tuple[str, int]]:
     """(kind, split dim) of the first TP rule that `name` matches, or None
-    when none does or its split dim (each of `parts` fused parts of it)
-    does not divide by `tp`."""
-    for pattern, kind, dim in _TP_RULES:
+    when none does, its split dim (each of `parts` fused parts of it) does
+    not divide by `tp`, or it splits the attention of a tower in `whole`."""
+    for pattern, kind, dim, tower in _TP_RULES:
         if re.search(pattern, name):
-            return (kind, dim) if shape[dim] % (tp * parts) == 0 else None
+            if tower in whole or shape[dim] % (tp * parts):
+                return None
+            return kind, dim
     return None
 
 
 def param_placement(name: str, shape: Sequence[int], tp: Optional[int] = None,
-                    fsdp: Optional[int] = None) -> str:
+                    fsdp: Optional[int] = None, whole: FrozenSet[str] = frozenset()) -> str:
     """How `shard_params` places one parameter: "vocab", "column", "row"
     (TP over an axis of size `tp`), "fsdp" (FSDP2 over an axis of size
     `fsdp`) or "replicated". None leaves an axis out. A TP rule whose split
-    dim does not divide by `tp` leaves the tensor replicated, as in JAX;
-    under FSDP every parameter that no TP rule splits is sharded. (At size
-    1 a split tensor is whole on its one rank, as JAX's replicated one.)
-    The LoRA adapters, which JAX keeps replicated, split as the module
-    docstring says."""
-    rule = None if tp is None else _tp_rule(name, shape, tp)
+    dim does not divide by `tp` leaves the tensor replicated, as in JAX, and
+    so does the attention of a tower in `whole` (`whole_attention`), unlike
+    JAX; a TP-split parameter takes its TP placement only, as in JAX, and
+    under FSDP every other parameter is sharded. (At size 1 a split tensor
+    is whole on its one rank, as JAX's replicated one.) The LoRA adapters,
+    which JAX keeps replicated, split as the module docstring says."""
+    rule = None if tp is None else _tp_rule(name, shape, tp, whole=whole)
     if rule is not None:
         return rule[0]
     return "replicated" if fsdp is None else "fsdp"
@@ -220,7 +246,8 @@ def param_placement(name: str, shape: Sequence[int], tp: Optional[int] = None,
 def param_shardings(model: nn.Module, tp: Optional[int] = None,
                      fsdp: Optional[int] = None) -> Dict[str, str]:
     """{parameter name: `param_placement`} over a model's parameters."""
-    return {name: param_placement(name, tuple(p.shape), tp, fsdp)
+    whole = frozenset() if tp is None else whole_attention(model.cfg, tp)
+    return {name: param_placement(name, tuple(p.shape), tp, fsdp, whole)
             for name, p in model.named_parameters()}
 
 
@@ -475,8 +502,9 @@ def _lora_row_forward(mod: nn.Module, group, gather: bool, x: torch.Tensor,
 def _tp_styles(model: nn.Module, tp: int) -> Dict[str, ParallelStyle]:
     """{module name: style} for the modules `param_placement` splits."""
     plan: Dict[str, _Split] = {}
+    whole = whole_attention(model.cfg, tp)
     for name, p in model.named_parameters():
-        rule = _tp_rule(name, tuple(p.shape), tp)
+        rule = _tp_rule(name, tuple(p.shape), tp, whole=whole)
         if rule is None:
             continue
         kind, dim = rule
@@ -528,30 +556,17 @@ def _shard_quantized(model: nn.Module, tp_mesh: DeviceMesh) -> None:
     rule names: each rank keeps its shard as plain tensors, run by the
     module's `TPSplit`; one whose dim does not divide stays whole."""
     tp, rank, group = tp_mesh.size(), tp_mesh.get_local_rank(), tp_mesh.get_group()
+    whole = whole_attention(model.cfg, tp)
     for name, mod in model.named_modules():
         if not isinstance(mod, _QuantLinear):
             continue
         parts = _parts(name)
-        rule = _tp_rule(name + ".weight", (mod.out_features, mod.in_features), tp, parts)
+        rule = _tp_rule(name + ".weight", (mod.out_features, mod.in_features), tp, parts,
+                        whole)
         if rule is None:
             continue
         _take_shard(mod, rule[0], parts, rank, tp)
         TPSplit(rule[0], group, name in _GATHERED).apply(mod)
-
-
-def _check_tp(model: nn.Module, tp: int, fsdp: bool = False) -> None:
-    if fsdp and tp > 1:
-        # on a 2-D placement an Adafactor step left optax by ~lr and
-        # `DTensor.full_tensor()` of SigLIP's fused qkv came out wrong
-        raise NotImplementedError(
-            f"FSDP together with a TP axis of {tp} (a data x model mesh with both split)")
-    llama, vision = model.cfg.llama, model.cfg.vision
-    for what, heads, dim in (("LLaMA", llama.num_heads, llama.q_dim),
-                             ("LLaMA KV", llama.num_kv_heads, llama.kv_dim),
-                             ("SigLIP", vision.heads, 3 * vision.width)):
-        if dim % tp == 0 and heads % tp:
-            raise NotImplementedError(
-                f"{what} heads {heads} do not split over a TP axis of {tp}")
 
 
 def shard_params(model: nn.Module, mesh, tp_axis: Optional[str] = "model",
@@ -560,12 +575,11 @@ def shard_params(model: nn.Module, mesh, tp_axis: Optional[str] = "model",
     """Place a `PlanGenModel` on the mesh, in place, as `param_placement`
     says: TP styles over `tp_axis` (any size; None: no TP; a quantized
     model's quantized modules split as `_shard_quantized` says), then FSDP2
-    over `fsdp_axis` (None: no FSDP), with `param_dtype` the compute dtype
-    the masters are cast to after each all-gather (None: the masters' own).
-    Returns the model."""
+    over `fsdp_axis` (None: no FSDP) of every parameter TP left whole, with
+    `param_dtype` the compute dtype the masters are cast to after each
+    all-gather (None: the masters' own). Returns the model."""
     if tp_axis is not None:
         tp = mesh[tp_axis].size()
-        _check_tp(model, tp, fsdp_axis is not None)
         parallelize_module(model, mesh[tp_axis], _tp_styles(model, tp))
         _shard_quantized(model, mesh[tp_axis])
     if fsdp_axis is not None:
@@ -573,39 +587,101 @@ def shard_params(model: nn.Module, mesh, tp_axis: Optional[str] = "model",
                                       cast_forward_inputs=False)
         units = list(model.language_model.model.layers)
         units += list(model.vision_model.vision_tower.blocks)
-        # FSDP2 takes no 0-d parameter: LoRA's frozen `lora_scaling` stays
-        # whole on every rank
-        scalars = {p for p in model.parameters() if p.dim() == 0}
+        # FSDP2 takes no 0-d parameter (LoRA's frozen `lora_scaling`), and
+        # a TP-split parameter keeps its TP placement alone, as in JAX
+        ignored = {n for n, p in model.named_parameters()
+                   if p.dim() == 0 or isinstance(p, DTensor)}
+        params = {model.get_parameter(n) for n in ignored}
         for unit in units + [model]:
-            fully_shard(unit, mesh=mesh[fsdp_axis], mp_policy=policy, ignored_params=scalars)
+            fully_shard(unit, mesh=mesh[fsdp_axis], mp_policy=policy, ignored_params=params)
             # a plain sum (the losses divide by the global count), by SUM
             # collectives, which gloo has too
             unit.set_gradient_divide_factor(1.0)
             unit.set_force_sum_reduction_for_comms(True)
+        model.fsdp_ignored = frozenset(ignored)
     return model
+
+
+def fsdp_ignored(model: nn.Module) -> FrozenSet[str]:
+    """The names of the parameters that FSDP2 does not manage in a model
+    `shard_params` placed with FSDP (the TP-split ones and the 0-d ones):
+    whole over the data axis, so the train step casts them to the compute
+    dtype and sums their gradients over the data group. Empty without
+    FSDP."""
+    return getattr(model, "fsdp_ignored", frozenset())
+
+
+def split_dim(placement) -> Optional[int]:
+    """The tensor dim a DTensor placement splits (`Shard`, or the per-part
+    `_StridedShard`, which not every torch counts as a `Shard`), else
+    None."""
+    return placement.dim if isinstance(placement, (Shard, _StridedShard)) else None
+
+
+def _chunk_sizes(extent: int, n: int) -> List[int]:
+    """The sizes of `torch.chunk(extent, n)`'s pieces, empty ones included:
+    how a `Shard` placement splits a dim over n ranks."""
+    size = -(-extent // n)
+    return [max(0, min(size, extent - i * size)) for i in range(n)]
+
+
+def _pieces(placement, extent: int, n: int) -> Tuple[int, List[int]]:
+    """(parts, the size of each rank's piece of one part) of a dim of
+    `extent` that `placement` splits over n ranks: a per-part split
+    (`_StridedShard`) cuts each of its parts apart."""
+    parts = placement.split_factor if isinstance(placement, _StridedShard) else 1
+    return parts, _chunk_sizes(extent // parts, n)
 
 
 def full_tensor(t: torch.Tensor) -> torch.Tensor:
     """`t` whole on every rank: a DTensor gathered (a collective: every rank
-    of its mesh calls it), a plain tensor as it is. A TP split per part
-    (`_StridedShard` on a 1-D mesh: SigLIP's fused qkv, each rank holding
-    its block of every part) is gathered part by part here, since not
-    every torch's `DTensor.full_tensor` takes that placement. A 2-D
-    placement (FSDP x TP, which `shard_params` refuses) raises
-    NotImplementedError: SigLIP's fused qkv came out wrong there."""
+    of its mesh calls it), a plain tensor as it is. The gather is c10d's
+    `all_gather`, mesh dim by mesh dim from the last, a per-part split
+    (`_StridedShard`: SigLIP's fused qkv, each rank holding its block of
+    every part) part by part, an uneven `Shard` padded to its first piece:
+    DTensor's own `full_tensor` (functional collectives) crashed over gloo
+    with CUDA tensors (torch 2.11, four ranks on one card), and not every
+    torch's takes the per-part placement."""
     if not isinstance(t, DTensor):
         return t
-    (placement, *more), mesh = t.placements, t.device_mesh
-    if more:
-        raise NotImplementedError(f"gathering a DTensor placed {t.placements} on a 2-D mesh")
-    if not isinstance(placement, _StridedShard):
-        return t.full_tensor()
-    local = t.to_local().contiguous()
-    parts = [torch.empty_like(local) for _ in range(mesh.size())]
-    dist.all_gather(parts, local, group=mesh.get_group())
-    blocks = [p.chunk(placement.split_factor, placement.dim) for p in parts]
-    return torch.cat([b[k] for k in range(placement.split_factor) for b in blocks],
-                     placement.dim)
+    mesh, local = t.device_mesh, t.to_local()
+    extents = [list(t.shape)]  # each dim's extent before mesh dim d splits it
+    for d, placement in enumerate(t.placements):
+        extent, dim = list(extents[-1]), split_dim(placement)
+        if dim is not None:
+            parts, sizes = _pieces(placement, extent[dim], mesh.size(d))
+            extent[dim] = parts * sizes[mesh.get_local_rank(d)]
+        extents.append(extent)
+    for d in reversed(range(mesh.ndim)):
+        placement, dim = t.placements[d], split_dim(t.placements[d])
+        if dim is None:
+            continue
+        parts, sizes = _pieces(placement, extents[d][dim], mesh.size(d))
+        pad = [0, 0] * (local.dim() - dim - 1) + [0, parts * sizes[0] - local.shape[dim]]
+        padded = F.pad(local, pad).contiguous()
+        gathered = [torch.empty_like(padded) for _ in sizes]
+        dist.all_gather(gathered, padded, group=mesh.get_group(d))
+        blocks = [g.narrow(dim, 0, parts * n).chunk(parts, dim) for g, n in zip(gathered, sizes)]
+        local = torch.cat([b[k] for k in range(parts) for b in blocks], dim)
+    return local
+
+
+def distribute_like(whole: torch.Tensor, like: DTensor) -> DTensor:
+    """`whole` (the same on every rank) placed as the DTensor `like` is
+    (the inverse of `full_tensor`): each rank cuts its own shard, a
+    per-part split part by part, with no collective."""
+    mesh, local = like.device_mesh, whole.to(like.device, like.dtype)
+    for d, placement in enumerate(like.placements):
+        dim = split_dim(placement)
+        if dim is None:
+            continue
+        parts, sizes = _pieces(placement, local.shape[dim], mesh.size(d))
+        rank = mesh.get_local_rank(d)
+        start = sum(sizes[:rank])
+        local = torch.cat([part.narrow(dim, start, sizes[rank])
+                           for part in local.chunk(parts, dim)], dim)
+    return DTensor.from_local(local.contiguous(), mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
 
 
 def is_sharded(model: nn.Module) -> bool:

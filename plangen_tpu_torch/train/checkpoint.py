@@ -15,10 +15,11 @@ port's weight artifact (`convert/params.py`) under
 With a process `group` (a Trainer on a mesh) every rank takes part and the
 checkpoint is the same `state.pt` a one-device run writes: each sharded
 tensor (a DTensor of TP or FSDP2: parameters, AdamW moments, the
-accumulated gradient) is gathered whole, tensor by tensor, to the CPU of
-rank 0, which alone writes, then all ranks wait for it. `restore` loads
-such a file into any mesh, or none: each rank takes its shard of every
-tensor its live state holds sharded.
+accumulated gradient; on a data x model mesh each over one of its dims) is
+gathered whole, tensor by tensor, to the CPU of rank 0, which alone writes,
+then all ranks wait for it. `restore` loads such a file into any mesh, or
+none: each rank takes its shard of every tensor its live state holds
+sharded.
 """
 
 from __future__ import annotations
@@ -30,9 +31,9 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor
 
-from plangen_tpu_torch.parallel.mesh import full_tensor
+from plangen_tpu_torch.parallel.mesh import distribute_like, full_tensor
 from plangen_tpu_torch.train.step import TrainState
 
 _FILE = "state.pt"
@@ -51,13 +52,12 @@ def _gathered(tree, lead: bool):
 
 def _sharded_like(live, saved):
     """`saved` (whole tensors) with each tensor that `live` holds as a
-    DTensor distributed as it is (a collective over its mesh)."""
+    DTensor placed as it is (`distribute_like`: each rank cuts its shard)."""
     if isinstance(saved, dict):
         live = live if isinstance(live, dict) else {}
         return {k: _sharded_like(live.get(k), v) for k, v in saved.items()}
     if isinstance(live, DTensor):
-        return distribute_tensor(saved.to(live.device, live.dtype), live.device_mesh,
-                                 live.placements)
+        return distribute_like(saved, live)
     return saved
 
 

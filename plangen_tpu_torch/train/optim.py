@@ -41,6 +41,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.placement_types import _StridedShard
 
 from plangen_tpu_torch.config import OptimConfig
+from plangen_tpu_torch.parallel.mesh import split_dim
 
 _LORA = ".lora."  # the adapters' names: ...self_attn.lora.<target>.{a, b}
 TUNING_MODES: Dict[str, Callable[[str], bool]] = {
@@ -136,7 +137,7 @@ def global_sq_norm(tensors) -> torch.Tensor:
         if isinstance(t, DTensor):
             mesh = t.device_mesh
             key = tuple(mesh.get_group(d) for d, pl in enumerate(t.placements)
-                        if pl.is_shard() and mesh.size(d) > 1)
+                        if split_dim(pl) is not None and mesh.size(d) > 1)
             if key:
                 split[key] = s if key not in split else split[key] + s
                 continue
@@ -281,20 +282,15 @@ def _jax_dim(dim: int, axes: Tuple[int, ...], stacked: bool) -> int:
 
 
 def _split_dims(p: torch.Tensor, axes, stacked: bool) -> Dict[int, list]:
-    """{dim of the JAX-layout leaf: the process groups of the mesh dims (of
-    more than one rank) that split it} for a member parameter; empty for a
-    plain tensor or a DTensor whole on its ranks. A parameter split over
-    two mesh dims (FSDP x TP) raises NotImplementedError: its steps left
-    optax's by ~lr."""
+    """{dim of the JAX-layout leaf: the process groups of every mesh dim (of
+    more than one rank) that splits it} for a member parameter; empty for a
+    plain tensor or a DTensor whole on its ranks."""
     out: Dict[int, list] = {}
     if isinstance(p, DTensor):
         mesh = p.device_mesh
         for i, pl in enumerate(p.placements):
-            if pl.is_shard() and mesh.size(i) > 1:
+            if split_dim(pl) is not None and mesh.size(i) > 1:
                 out.setdefault(_jax_dim(pl.dim, axes, stacked), []).append(mesh.get_group(i))
-    if sum(len(groups) for groups in out.values()) > 1:
-        raise NotImplementedError("Adafactor over a parameter split over two mesh dims "
-                                  "(FSDP x TP)")
     return out
 
 
@@ -322,7 +318,7 @@ def _state(local: torch.Tensor, like: torch.Tensor, axes, stacked: bool,
         return local
     placements = []
     for pl in like.placements:
-        j = _jax_dim(pl.dim, axes, stacked) if pl.is_shard() else None
+        j = _jax_dim(pl.dim, axes, stacked) if split_dim(pl) is not None else None
         if j is None or j == drop:
             placements.append(Replicate() if j is not None else pl)
             continue

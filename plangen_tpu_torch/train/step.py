@@ -15,7 +15,9 @@ frozen ones detached first (the JAX package's `_cast` after
 no frozen module does weight-gradient work. Under FSDP2
 (`parallel/mesh.py::shard_params`) the model's `MixedPrecisionPolicy` makes
 the same cast after each all-gather, and frozen parameters take no
-gradient because they do not require one (the Trainer sets that).
+gradient because they do not require one (the Trainer sets that); the
+parameters FSDP2 ignores (the TP-split ones on a data x model mesh,
+`fsdp_ignored`) are cast here as without FSDP.
 
 `gradient_checkpointing` rematerializes every LLaMA layer and SigLIP block
 by `remat_policy` (`ops/remat.py`), `fused_lm_ce` takes the lm_head CE in
@@ -36,6 +38,7 @@ from torch.distributed.tensor import DTensor
 from plangen_tpu_torch.config import PlanGenModelConfig, TrainConfig
 from plangen_tpu_torch.models.vlm import PlanGenModel
 from plangen_tpu_torch.ops.remat import policy_name
+from plangen_tpu_torch.parallel.mesh import fsdp_ignored
 from plangen_tpu_torch.train.loss import mmu_loss, plan_loss, t2i_loss
 
 Batches = Dict[int, Dict[str, torch.Tensor]]
@@ -110,10 +113,12 @@ def make_loss_fn(
         return total, loss_dict
 
     def loss_fn(model: PlanGenModel, batches: Batches):
-        if isinstance(model, FSDPModule):  # FSDP2 gathers and casts
-            return model(run, batches)
+        fsdp = isinstance(model, FSDPModule)  # FSDP2 gathers and casts its own
+        ignored = fsdp_ignored(model)
         params = {}
         for name, p in model.named_parameters():
+            if fsdp and name not in ignored:
+                continue
             if trainable_mask is not None and not trainable_mask[name]:
                 p = p.detach()
             params[name] = p.to(compute_dtype) if p.is_floating_point() else p
@@ -136,8 +141,9 @@ def make_train_step(
 
     Under a data `group` each rank's batches are its rows of the global
     batch: the gradients are summed over the group (by FSDP2's
-    reduce-scatter, or here by one all-reduce per dtype), as are the
-    metrics, so every rank reports the global-batch losses."""
+    reduce-scatter, or here by one all-reduce per dtype: every gradient
+    without FSDP, those of `fsdp_ignored` with it), as are the metrics, so
+    every rank reports the global-batch losses."""
     loss_fn = make_loss_fn(model_cfg, train_cfg, pad_id, flows, compute_dtype,
                            trainable_mask=trainable_mask, group=group)
 
@@ -146,8 +152,9 @@ def make_train_step(
         model.zero_grad(set_to_none=True)
         loss, loss_dict = loss_fn(model, batches)
         loss.backward()
-        if group is not None and not isinstance(model, FSDPModule):
-            sum_gradients(model, group)
+        if group is not None:
+            sum_gradients(model, group, fsdp_ignored(model)
+                          if isinstance(model, FSDPModule) else None)
         state.opt.step({n: p.grad for n, p in model.named_parameters()})
         model.zero_grad(set_to_none=True)
         state.step += 1
@@ -176,10 +183,14 @@ def sum_over(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
 
 
 @torch.no_grad()
-def sum_gradients(model: nn.Module, group) -> None:
-    """Sum every gradient over the data group in place (data parallelism
-    without FSDP; a TP-split gradient is summed shard by shard)."""
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+def sum_gradients(model: nn.Module, group, names=None) -> None:
+    """Sum every gradient (or those of the parameters in `names`) over the
+    data group in place (data parallelism without FSDP, or the parameters
+    FSDP2 ignores; a TP-split gradient is summed shard by shard)."""
+    grads = [p.grad for n, p in model.named_parameters()
+             if p.grad is not None and (names is None or n in names)]
+    if not grads:
+        return
     for g, total in zip(grads, sum_over(grads, group)):
         (g.to_local() if isinstance(g, DTensor) else g).copy_(total)
 

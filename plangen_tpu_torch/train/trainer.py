@@ -33,7 +33,9 @@ metrics logged under `val/` keys.
 On a mesh (`parallel/mesh.py`): `train.mesh_shape` is resolved over the
 process group's world (one process a device; -1 takes the ranks left, and
 JAX's "needs N devices" assertion holds), and `train.fsdp` shards over its
-"data" axis with FSDP2 whatever the axis size. Then, as in JAX: the mesh,
+"data" axis with FSDP2 whatever the axis size (with a "model" axis of more
+than one rank too: a TP-split parameter then keeps its TP placement alone,
+as in JAX). Then, as in JAX: the mesh,
 the model, LoRA, `shard_params` (TP over "model" when it is larger than 1,
 the frozen parameters set not to require a gradient under FSDP), and only
 then the optimizer, so that it holds the sharded parameters. The flow
@@ -48,10 +50,10 @@ one device the Trainer opens no process group and shards nothing.
 
 On a mesh LoRA, Adafactor, accumulation and bf16 masters run as on one
 device (`parallel/mesh.py`, `train/optim.py`), and `validate` runs on every
-rank over an unsharded copy of the model (see `validate`). Not ported, and
-raising `NotImplementedError`: weights from an orbax `params_path` of the
-JAX package, a head count that does not split over the TP axis, and `fsdp`
-with a mesh whose "model" axis has more than one rank.
+rank over an unsharded copy of the model (see `validate`); a tower whose
+head count does not split over the "model" axis keeps its attention whole
+(`parallel/mesh.py`). Not ported, and raising `NotImplementedError`:
+weights from an orbax `params_path` of the JAX package.
 """
 
 from __future__ import annotations

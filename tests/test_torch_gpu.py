@@ -1621,3 +1621,124 @@ def test_adafactor_fsdp_steps_over_nccl_equal_the_plain_steps(cuda, world1_nccl)
     for i in (1, 2):
         for k, w in results[False][i].items():
             assert torch.equal(results[True][i][k], w), k
+
+
+# ------------------------ FSDP x TP: four gloo ranks with CUDA tensors
+
+FSDP_TP_TIMEOUT_S = 240.0
+
+
+def _fsdp_tp_config():
+    """`_train_config` with LLaMA's KV heads split over tp 2 too."""
+    cfg = _train_config()
+    return dataclasses.replace(cfg, llama=dataclasses.replace(cfg.llama, num_kv_heads=2))
+
+
+def _fsdp_tp_rank(rank: int, port: int, results) -> None:
+    """One of four ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    device): one stage3 AdamW step (fp32 compute, K3) on a data 2 x model 2
+    mesh with FSDP over "data", this data shard's rows of the global batch."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        from plangen_tpu_torch.config import TrainConfig
+        from plangen_tpu_torch.ops import flash_attention as fa
+        from plangen_tpu_torch.parallel import mesh as pm
+        from plangen_tpu_torch.train.optim import make_optimizer, trainable_mask
+        from plangen_tpu_torch.train.step import init_train_state, make_train_step
+
+        dev = torch.device("cuda:0")
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        pm.init_distributed(f"localhost:{port}", 4, rank, device="cpu")
+        mesh = pm.create_mesh({"data": 2, "model": 2}, device="cuda")
+        cfg, tcfg = _fsdp_tp_config(), TrainConfig(use_flash_attention=True)
+        model = init_params(PlanGenModel(cfg, dtype=torch.float32, device=dev),
+                            torch.Generator(device=dev).manual_seed(0))
+        for name, trainable in trainable_mask(model, "stage3").items():
+            model.get_parameter(name).requires_grad_(trainable)
+        pm.shard_params(model, mesh, tp_axis="model", fsdp_axis="data")
+        opt, mask = make_optimizer(tcfg.optim, model, "stage3")
+        step = make_train_step(cfg, tcfg, 2, ((0, "uni"), (1, "mmu"), (2, "plan")),
+                               compute_dtype=torch.float32, trainable_mask=mask,
+                               group=mesh["data"].get_group())
+        batches = {f: {k: pm.shard_rows(v, mesh) for k, v in b.items()}
+                   for f, b in _train_batches(cfg, dev, B=4).items()}
+        before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
+                  fa.flash_attention_reference.calls)
+        _, metrics = step(init_train_state(model, opt), batches)
+        calls = tuple(a - b for a, b in zip((fa.flash_attention_fwd.launches,
+                                              fa.flash_attention_bwd.launches,
+                                              fa.flash_attention_reference.calls), before))
+        with torch.no_grad():
+            # numpy: a tensor in the queue would live in this process's shared memory
+            weights = {n: pm.full_tensor(p).cpu().numpy() for n, p in model.named_parameters()}
+        results.put((rank, ({k: float(v) for k, v in metrics.items()}, weights, calls)))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_fsdp_tp_step_over_four_gloo_ranks_equals_the_plain_step(cuda):
+    """One stage3 AdamW step (fp32 compute) on a data 2 x model 2 mesh with
+    FSDP over "data", four gloo ranks sharing cuda:0, equals the plain step
+    on the global batch: the losses on every rank, and every weight to
+    Adam's 2 lr (a rounding-level gradient may take either sign). Each rank
+    runs K3 forward and backward at its H/tp heads, no plain call."""
+    import multiprocessing
+    import queue
+    import socket
+
+    from plangen_tpu_torch.config import TrainConfig
+    from plangen_tpu_torch.train.optim import make_optimizer
+    from plangen_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg, tcfg = _fsdp_tp_config(), TrainConfig(use_flash_attention=True)
+    model = init_params(PlanGenModel(cfg, dtype=torch.float32, device=cuda),
+                        torch.Generator(device=cuda).manual_seed(0))
+    opt, mask = make_optimizer(tcfg.optim, model, "stage3")
+    step = make_train_step(cfg, tcfg, 2, ((0, "uni"), (1, "mmu"), (2, "plan")),
+                           compute_dtype=torch.float32, trainable_mask=mask)
+    _, metrics = step(init_train_state(model, opt), _train_batches(cfg, cuda, B=4))
+    want = {k: float(v) for k, v in metrics.items()}
+    weights = {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}
+    del model, opt
+    torch.cuda.empty_cache()
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_fsdp_tp_rank, args=(r, port, results)) for r in range(4)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, res = results.get(timeout=FSDP_TP_TIMEOUT_S)
+            assert not isinstance(res, str), f"rank {rank} failed:\n{res}"
+            got[rank] = res
+    except queue.Empty:
+        pytest.fail(f"four ranks: no result within {FSDP_TP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    attentions = cfg.vision.layers + 3 * cfg.llama.num_layers  # SigLIP and each flow's LLaMA
+    lr = tcfg.optim.learning_rate
+    for rank, (metrics, got_weights, calls) in got.items():
+        assert calls == (attentions, attentions, 0), f"rank {rank}: K3 calls {calls}"
+        for k, v in want.items():
+            np.testing.assert_allclose(metrics[k], v, rtol=1e-5, err_msg=f"rank {rank} {k}")
+        assert sorted(got_weights) == sorted(weights)
+        for k, w in weights.items():
+            np.testing.assert_allclose(got_weights[k], w, rtol=0, atol=2 * lr,
+                                       err_msg=f"rank {rank} weight {k}")

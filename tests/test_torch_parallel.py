@@ -1,17 +1,21 @@
 """Parallelism of the port (`plangen_tpu_torch/parallel/mesh.py`) against
 the JAX package's mesh, on the CPU.
 
-In this process: the mesh dims against JAX's `create_mesh`, each parameter's
-placement against JAX's `param_shardings` on the conftest's 8-device mesh,
-and the combinations left unported raising. Then one spawn of 2 gloo ranks
-and one of 4 (data 2 x model 2), each joined under a timeout and killed on
-expiry, run:
+In this process: the mesh dims against JAX's `create_mesh`, and each
+parameter's placement against JAX's `param_shardings` on the conftest's
+8-device mesh (TP, FSDP, and both on a data x model mesh). Then one spawn of
+2 gloo ranks and one of 4 (data 2 x model 2, and data 1 x model 4 over the
+same ranks), each joined under a timeout and killed on expiry, run:
 
   * one AdamW step (stage3, fp32, the clip active) on `uni` + `mmu` + `plan`
     flows whose data shards hold different numbers of valid tokens, under
-    dp 2, FSDP 2, tp 2 and 2 x 2, held against JAX's `make_train_step` on
+    dp 2, FSDP 2, tp 2, dp 2 x tp 2, FSDP 2 x tp 2 and tp 4 (SigLIP's 2
+    heads whole on every rank), held against JAX's `make_train_step` on
     the global batch: the loss on every rank and every parameter, rtol 1e-5
-    (fp32 on both sides; only the summation order differs);
+    (fp32 on both sides; only the summation order differs); right after
+    `shard_params`, every parameter gathered equals the weights it split
+    bit for bit, and the sum of squares over the shards (the clip's norm)
+    equals the whole model's;
   * greedy and temperature-1 `generate_image_tokens` under tp 2 and 2 x 2
     (the batch's rows split over "data", a generator per row), held
     against JAX's single-device tokens (greedy) and the port's unsharded
@@ -19,9 +23,16 @@ expiry, run:
     160 steps, as JAX's `test_growing_cache_under_dp_and_tp`;
   * the int8 KV cache under tp 2 against the port's unsharded int8 run;
   * LoRA ('lora' under FSDP 2, 'lora_tokens' under tp 2 and dp 2 x tp 2)
-    and Adafactor (stage3 under FSDP 2, tp 2 and dp 2 x tp 2, on
-    `tiny_af`, whose 128-wide matrices factor) train steps against JAX's
-    (optax's) step on the global batch, as the AdamW step;
+    and Adafactor (stage3 under FSDP 2, tp 2, dp 2 x tp 2 and FSDP 2 x
+    tp 2, on `tiny_af`, whose 128-wide matrices factor) train steps against
+    JAX's (optax's) step on the global batch, as the AdamW step;
+  * under FSDP 2 x tp 2, the checkpoint gathered after the step: restored
+    into one process it equals the sharded model, restored onto the mesh
+    it equals the saved state, optimizer state included;
+  * under tp 4, `tiny_7b`'s greedy tokens (its 6 heads whole on every
+    rank) against JAX's;
+  * the Trainer with `fsdp` on the data 2 x model 2 mesh: a step, then
+    `validate` on every rank against a one-process Trainer's;
   * the weight-quantized forms under tp 2: a TP-split dense model
     quantized in place and a quantized model split by `shard_params` hold
     the same bytes on every rank, and greedy int8 / int4 / int4_a8
@@ -39,11 +50,13 @@ import multiprocessing
 import os
 import pickle
 import queue
+import re
 import socket
 import tempfile
 import traceback
 
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -79,6 +92,8 @@ TRAIN_CASES = {  # name: (mesh shape, fsdp, world); stage3, AdamW, tiny
     "fsdp2": ({"data": 2, "model": 1}, True, 2),
     "tp2": ({"data": 1, "model": 2}, False, 2),
     "dp2_tp2": ({"data": 2, "model": 2}, False, 4),
+    "fsdp2_tp2": ({"data": 2, "model": 2}, True, 4),
+    "tp4": ({"data": 1, "model": 4}, False, 4),  # SigLIP's 2 heads stay whole
 }
 OPTION_CASES = {  # name: (mesh shape, fsdp, world, model, tuning mode, optimizer)
     "lora_fsdp2": ({"data": 2, "model": 1}, True, 2, "tiny", "lora", "adamw"),
@@ -89,7 +104,10 @@ OPTION_CASES = {  # name: (mesh shape, fsdp, world, model, tuning mode, optimize
     "adafactor_tp2": ({"data": 1, "model": 2}, False, 2, "tiny_af", "stage3", "adafactor"),
     "adafactor_dp2_tp2": ({"data": 2, "model": 2}, False, 4, "tiny_af", "stage3",
                           "adafactor"),
+    "adafactor_fsdp2_tp2": ({"data": 2, "model": 2}, True, 4, "tiny_af", "stage3",
+                            "adafactor"),
 }
+CHECKPOINT_CASES = ("fsdp2_tp2", "adafactor_fsdp2_tp2")  # saved, then restored
 
 
 # ------------------------------------------------------------ shared data
@@ -194,7 +212,7 @@ def row_generators(rows, seed=11):
     return [torch.Generator().manual_seed(seed + r) for r in rows]
 
 
-def decode(model, ids, steps, temperature, quantized=False, rows=None):
+def decode(model, ids, steps, temperature, quantized=False, rows=None, cfg=TINY):
     """The port's image decode of prompt `ids` (2B rows, cond/uncond
     pairs); `rows` are the global indices of the B rows it holds."""
     from plangen_tpu_torch.runtime.generate import generate_image_tokens
@@ -205,7 +223,7 @@ def decode(model, ids, steps, temperature, quantized=False, rows=None):
         embeds = model.embed_text(ids)
     mask = torch.ones((ids.shape[0], ids.shape[1] + steps), dtype=torch.int32)
     gens = row_generators(rows) if temperature else None
-    return generate_image_tokens(model, TINY, embeds, mask, gens, 5.0, temperature,
+    return generate_image_tokens(model, cfg, embeds, mask, gens, 5.0, temperature,
                                  num_tokens=steps, quantized_cache=quantized)
 
 
@@ -219,13 +237,13 @@ def _case(name):
     return OPTION_CASES[name]
 
 
-def _train_case(name, inputs):
+def _sharded_state(name, inputs, mesh):
+    """The case's model (its weights, adapters under LoRA) placed on `mesh`
+    as the case says, and its train state."""
     from plangen_tpu_torch.train import optim as toptim
     from plangen_tpu_torch.train import step as tstep
 
     shape, fsdp, _, model_name, mode, optimizer = _case(name)
-    tcfg, batches = TCFGS[optimizer], inputs["batches"]
-    mesh = pm.create_mesh(shape, device="cpu")
     model = build_model(inputs["weights"][model_name], model_name)
     if mode.startswith("lora"):
         with_lora(model, inputs["lora"])
@@ -235,16 +253,70 @@ def _train_case(name, inputs):
             model.get_parameter(pname).requires_grad_(trainable)
     pm.shard_params(model, mesh, tp_axis="model" if shape["model"] > 1 else None,
                     fsdp_axis="data" if fsdp else None)
-    opt, mask = toptim.make_optimizer(tcfg.optim, model, mode)
+    opt, mask = toptim.make_optimizer(TCFGS[optimizer].optim, model, mode)
+    return tstep.init_train_state(model, opt), mask
+
+
+def _train_case(name, inputs, directory):
+    """One step of the case; right after `shard_params` the gathered
+    parameters against the weights and the sum of squares over the shards;
+    for `CHECKPOINT_CASES` the checkpoint after the step."""
+    from plangen_tpu_torch.train import optim as toptim
+    from plangen_tpu_torch.train import step as tstep
+
+    shape, fsdp, _, model_name, mode, optimizer = _case(name)
+    tcfg, batches = TCFGS[optimizer], inputs["batches"]
+    mesh = pm.create_mesh(shape, device="cpu")
+    state, mask = _sharded_state(name, inputs, mesh)
+    sd = inputs["weights"][model_name]
+    placed = {n: pm.full_tensor(p).detach().numpy() for n, p in state.model.named_parameters()}
+    unequal = [n for n, w in sd.items() if n in placed and not np.array_equal(placed[n], w)]
+    sq = (float(toptim.global_sq_norm([p.detach() for p in state.model.parameters()])),
+          sum(float(np.sum(v.astype(np.float64) ** 2)) for v in placed.values()))
     group = mesh["data"].get_group() if shape["data"] > 1 else None
     step = tstep.make_train_step(CONFIGS[model_name], tcfg, PAD, FLOWS,
                                  compute_dtype=torch.float32, trainable_mask=mask, group=group)
-    state = tstep.init_train_state(model, opt)
     local = {f: {k: pm.shard_rows(torch.from_numpy(np.array(v)), mesh) for k, v in b.items()}
              for f, b in batches.items()}
     state, metrics = step(state, local)
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "params": full_params(model)}
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "params": full_params(state.model), "unequal_after_shard": unequal,
+           "sq_after_shard": sq}
+    if name in CHECKPOINT_CASES:
+        out["checkpoint"] = _checkpoint_case(name, inputs, mesh, state, directory)
+    return out
+
+
+def _checkpoint_case(name, inputs, mesh, state, directory):
+    """Save `state` (gathered to rank 0), restore it into a fresh state on
+    the same mesh; the restored model and optimizer state gathered against
+    the saved file (the names that differ), and the saved model (rank 0)."""
+    import torch.distributed as dist
+
+    from plangen_tpu_torch.train import checkpoint as tckpt
+
+    ckpt = tckpt.PlanGenCheckpointer(os.path.join(directory, name), group=dist.group.WORLD)
+    ckpt.save(1, state)
+    fresh, _ = _sharded_state(name, inputs, mesh)
+    ckpt.restore(fresh)
+    saved = torch.load(os.path.join(directory, name, "1", "state.pt"), weights_only=True)
+    restored = tckpt._gathered({"model": fresh.model.state_dict(),
+                                "optimizer": fresh.opt.state_dict()}, True)
+
+    def unequal(a, b, prefix=""):
+        if isinstance(a, dict):
+            keys = sorted(set(a) | set(b))
+            return [n for k in keys for n in unequal(a.get(k), b.get(k), f"{prefix}{k}.")]
+        if isinstance(a, torch.Tensor):
+            same = isinstance(b, torch.Tensor) and a.shape == b.shape and torch.equal(a, b)
+        else:
+            same = a == b
+        return [] if same else [prefix]
+
+    return {"restore_unequal": unequal(restored, {"model": saved["model"],
+                                                  "optimizer": saved["optimizer"]}),
+            "saved_model": ({k: v.numpy() for k, v in saved["model"].items()}
+                            if dist.get_rank() == 0 else None)}
 
 
 def _decode_case(shape, sd, ids, world):
@@ -290,21 +362,88 @@ def _quantized_case(sd, ids):
     return out
 
 
+def _tp4_case(sd, ids):
+    """Under tp 4 (`tiny_7b`'s 6 heads do not split over 4): greedy tokens,
+    and the widths of layer 0's q_proj and MLP on this rank."""
+    mesh = pm.create_mesh({"data": 1, "model": 4}, device="cpu")
+    model = pm.shard_params(build_model(sd, "tiny_7b"), mesh, tp_axis="model")
+    layer = model.language_model.model.layers[0]
+    return {"tokens": decode(model, ids, GREEDY_STEPS, 0.0, cfg=CONFIGS["tiny_7b"]).numpy(),
+            "local_out": {k: pm._local(m.weight).shape[0] for k, m in
+                          (("q_proj", layer.self_attn.q_proj), ("up_proj", layer.mlp.up_proj))}}
+
+
+def _placements_case():
+    """`full_tensor` and `distribute_like` against DTensor's own placing on
+    the data 2 x model 2 mesh: uneven, per-part and 2-D placements; the
+    cases that differ."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    mesh = pm.create_mesh({"data": 2, "model": 2}, device="cpu")
+    x = torch.arange(84, dtype=torch.float32).reshape(12, 7)
+    cases = [(mesh["data"], [Shard(0)]), (mesh["model"], [Shard(1)]),
+             (mesh, [Shard(0), Shard(1)]), (mesh, [Shard(1), Shard(1)]),
+             (mesh, [Replicate(), Shard(0)])]
+    bad = []
+    for m, placements in cases:
+        d = distribute_tensor(x, m, placements)
+        if not torch.equal(pm.full_tensor(d), x) or \
+                not torch.equal(pm.distribute_like(x, d).to_local(), d.to_local()):
+            bad.append(str(placements))
+    rank = mesh["model"].get_local_rank()  # q, k and v each split, as SigLIP's qkv
+    local = torch.cat([part.chunk(2)[rank] for part in x.chunk(3)])
+    d = DTensor.from_local(local, mesh["model"], [_StridedShard(0, split_factor=3)],
+                           run_check=False, shape=x.shape, stride=x.stride())
+    if not torch.equal(pm.full_tensor(d), x) or \
+            not torch.equal(pm.distribute_like(x, d).to_local(), local):
+        bad.append("per part")
+    return bad
+
+
+def _trainer_case(directory):
+    """The Trainer with `fsdp` on the data 2 x model 2 mesh (tiny, the toy
+    data of `tests/test_torch_distributed.py`): one step, then `validate`
+    on every rank; this rank's validation tree."""
+    import sys
+
+    import torch.distributed as dist
+
+    from plangen_tpu_torch.train.trainer import Trainer
+    from tests.test_torch_distributed import fake_tensorboard, toy_config, val_tree
+
+    sys.modules["torch.utils.tensorboard"] = fake_tensorboard()
+    out_dir = os.path.join(directory, "trainer")
+    t = Trainer(toy_config(out_dir, fsdp=True, mesh_shape={"data": 2, "model": 2}),
+                device="cpu")
+    t.fit(max_steps=1)
+    t.validate(1)
+    rank = dist.get_rank()
+    return {"mesh": tuple(t.mesh.shape), "params": full_params(t.model),
+            "fsdp_ignored": sorted(pm.fsdp_ignored(t.model)),
+            "val": val_tree(Path(out_dir) / ("val" if rank == 0 else f"val_rank{rank}"))}
+
+
 def _rank_main(rank, world, port, inputs, results):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
+        directory = os.path.dirname(inputs)
         with open(inputs, "rb") as f:
             inputs = pickle.load(f)
         sd, ids = inputs["weights"]["tiny"], inputs["ids"]
         pm.init_distributed(f"localhost:{port}", world, rank, device="cpu")
-        out = {name: _train_case(name, inputs)
+        out = {name: _train_case(name, inputs, directory)
                for name in (*TRAIN_CASES, *OPTION_CASES) if _case(name)[2] == world}
         shape = {"data": 1, "model": 2} if world == 2 else {"data": 2, "model": 2}
         out["decode"] = _decode_case(shape, sd, ids, world)
         if world == 2:
             out["quantized"] = _quantized_case(sd, ids)
+        else:
+            out["tp4_7b"] = _tp4_case(inputs["weights"]["tiny_7b"], ids)
+            out["trainer"] = _trainer_case(directory)
+            out["placements"] = _placements_case()
         results.put((rank, out))
     except BaseException:
         results.put((rank, traceback.format_exc()))
@@ -419,11 +558,11 @@ def _jax_step(model: str = "tiny", mode: str = "stage3", optimizer: str = "adamw
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_greedy_tokens(mode=None):
-    """JAX's greedy tokens on its tree, or on its `mode`-quantized tree over
-    the int8 cache, the int4 matmuls through the JAX package's own XLA
-    references (its Pallas kernel wants O/2 % 128 == 0, which tiny's
-    projections are not)."""
+def _jax_greedy_tokens(mode=None, name="tiny"):
+    """JAX's greedy tokens on its tree (of model `name`), or on its
+    `mode`-quantized tree over the int8 cache, the int4 matmuls through the
+    JAX package's own XLA references (its Pallas kernel wants O/2 % 128 ==
+    0, which tiny's projections are not)."""
     from unittest import mock
 
     import jax
@@ -434,7 +573,7 @@ def _jax_greedy_tokens(mode=None):
     from plangen_tpu.ops import quant as jquant
     from plangen_tpu.runtime.generate import generate_image_tokens
 
-    params = _jax_params()
+    params = _jax_params(name)
     ids = jnp.asarray(decode_inputs())
     embeds = jvlm.embed_text(params, ids).astype(jnp.float32)
     if mode == "int8":
@@ -451,7 +590,8 @@ def _jax_greedy_tokens(mode=None):
 
     mask = jnp.ones((ids.shape[0], ids.shape[1] + GREEDY_STEPS), dtype=jnp.int32)
     with mock.patch.object(jint4, "int4_matmul", through_reference):
-        out = generate_image_tokens(params, TINY, embeds, mask, rng=jax.random.PRNGKey(0),
+        out = generate_image_tokens(params, CONFIGS[name], embeds, mask,
+                                    rng=jax.random.PRNGKey(0),
                                     cfg_weight=jnp.float32(5.0), temperature=jnp.float32(0.0),
                                     num_tokens=GREEDY_STEPS, quantized_cache=mode is not None)
     return np.asarray(out.tokens)
@@ -459,7 +599,7 @@ def _jax_greedy_tokens(mode=None):
 
 @functools.lru_cache(maxsize=None)
 def _spawned(world):
-    return spawn(world, {"weights": {"tiny": weights(), "tiny_af": weights("tiny_af")},
+    return spawn(world, {"weights": {name: weights(name) for name in CONFIGS},
                          "lora": lora_adapters(), "batches": make_global_batches(TINY),
                          "ids": decode_inputs()})
 
@@ -529,29 +669,61 @@ def _jax_kinds(name, tp, fsdp):
     return out
 
 
+_ATTENTION = re.compile(r"\.self_attn\.|\.attn\.(qkv|proj)\.")
+
+
 @pytest.mark.parametrize("name", ["tiny", "tiny_7b"])
-@pytest.mark.parametrize("tp,fsdp", [(2, False), (4, False), (1, True)],
-                         ids=["tp2", "tp4", "fsdp_min_size_1000"])
+@pytest.mark.parametrize("tp,fsdp", [(2, False), (4, False), (1, True), (2, True)],
+                         ids=["tp2", "tp4", "fsdp_min_size_1000", "tp2_fsdp"])
 def test_param_placements_match_jax(name, tp, fsdp):
     """Every parameter of the port takes JAX's placement: the TP kinds
     exactly (a column-parallel layer's bias is split with its output, where
     JAX keeps it whole and lets XLA slice it); under FSDP every tensor JAX
-    shards is sharded (FSDP2 shards the small ones too)."""
+    shards is sharded (FSDP2 shards the small ones too), and on a data x
+    model mesh a TP-split tensor takes its TP placement alone, as in JAX.
+
+    One departure: where a tower's heads do not split over the TP axis
+    (`tiny_7b`'s 6 LLaMA heads and both configs' 2 SigLIP heads over tp 4), the
+    port keeps that tower's attention projections whole on every rank,
+    where JAX splits them by their dim (GSPMD reshards at the head
+    reshape)."""
     want = _jax_kinds(name, tp, fsdp)
     model = PlanGenModel(CONFIGS[name], dtype=torch.float32, device="meta")
-    got = pm.param_shardings(model, tp=tp if tp > 1 else None, fsdp=8 if fsdp else None)
+    got = pm.param_shardings(model, tp=tp if tp > 1 else None,
+                             fsdp=8 // tp if fsdp else None)
+    whole = pm.whole_attention(CONFIGS[name], tp)
+    assert whole == ({"siglip"} | ({"llama"} if name == "tiny_7b" else set())
+                     if tp == 4 else set())
     assert sorted(got) == sorted(want)
+    split = 0
     for pname, kind in got.items():
-        if fsdp:
-            assert kind == "fsdp", pname
+        tower = "siglip" if pname.startswith("vision_model") else "llama"
+        if tower in whole and _ATTENTION.search(pname):
+            assert want[pname] in ("column", "row", "replicated"), pname
+            assert kind == ("fsdp" if fsdp else "replicated"), pname
+        elif kind in ("fsdp", "replicated") and want[pname] in ("fsdp", "replicated"):
+            # FSDP2 shards what JAX leaves whole under fsdp_min_size
+            assert kind == ("fsdp" if fsdp else want[pname]), pname
         elif pname.endswith(".bias") and kind == "column":
-            assert want[pname] == "replicated", pname
+            assert want[pname] in ("fsdp", "replicated"), pname
+            split += 1
         else:
             assert kind == want[pname], pname
-    if not fsdp:
-        assert {"vocab", "column", "row", "replicated"} <= set(got.values())
+            split += kind in ("vocab", "column", "row")
+    if tp > 1:
+        assert {"vocab", "column", "row"} <= set(got.values())
         # lm_head [V, H] and the 7B-shaped MLP split where their dims divide
         assert got["language_model.lm_head.weight"] == "column"
+        assert split > 0
+    if tp > 1 and fsdp:
+        assert "fsdp" in set(got.values())
+    for tower in whole:  # the attention whole, the MLP split
+        prefix, attn, mlp = {
+            "siglip": ("vision_model.vision_tower.blocks.0.", "attn.qkv", "mlp.fc1"),
+            "llama": ("language_model.model.layers.0.", "self_attn.q_proj", "mlp.up_proj"),
+        }[tower]
+        assert got[prefix + attn + ".weight"] == ("fsdp" if fsdp else "replicated")
+        assert got[prefix + mlp + ".weight"] == "column"
 
 
 @pytest.fixture
@@ -564,33 +736,15 @@ def world1_mesh():
     dist.destroy_process_group()
 
 
-def test_unported_combinations_raise():
-    """A head count that does not split over the TP axis raises
-    NotImplementedError naming itself (LoRA and the quantized forms under
-    TP and Adafactor under FSDP, which raised here before, now run: the
-    spawned tests below hold them against JAX)."""
-    with pytest.raises(NotImplementedError, match="heads 6 do not split over a TP axis of 4"):
-        pm._check_tp(PlanGenModel(CONFIGS["tiny_7b"], device="meta"), 4)
-
-
-@pytest.mark.parametrize("tp", [2, 4])
-def test_fsdp_with_tp_raises(tp):
-    """FSDP with a TP axis of more than one rank (a 2-D placement, whose
-    gathered SigLIP qkv and Adafactor steps came out wrong) raises
-    NotImplementedError before `shard_params` places anything; FSDP over a
-    TP axis of one rank passes the check."""
-    with pytest.raises(NotImplementedError, match=f"FSDP together with a TP axis of {tp}"):
-        pm._check_tp(PlanGenModel(TINY, device="meta"), tp, fsdp=True)
-    pm._check_tp(PlanGenModel(TINY, device="meta"), 1, fsdp=True)
-
-
 @pytest.mark.parametrize("tp", [2, 4])
 def test_lora_placements(tp):
     """With adapters every base parameter keeps JAX's placement; JAX
     replicates every adapter (and lets XLA make its gradient whole), the
     port splits q/k/v's b [r, out] by columns with its projection and
     o_proj's a [in, r] by rows with its input, and keeps the other factor
-    and the scaling whole. The spawned LoRA steps hold the numbers."""
+    and the scaling whole. (Over tp 4 SigLIP's 2 heads keep its attention
+    whole, as `test_param_placements_match_jax` documents.) The spawned
+    LoRA steps hold the numbers."""
     from plangen_tpu_torch.train.lora import add_lora
 
     want = _jax_kinds("tiny", tp, False)
@@ -606,6 +760,9 @@ def test_lora_placements(tp):
             target = name.split(".")[-2]
             assert kind == ({"b": "column", "a": "row"}[name[-1]] if target in split
                             else "replicated"), name
+        elif name.startswith("vision_model") and _ATTENTION.search(name) and tp == 4:
+            # SigLIP's 2 heads do not split over 4: its attention stays whole
+            assert kind == "replicated", name
         else:
             assert kind == want[name] or (name.endswith(".bias") and kind == "column"), name
 
@@ -636,7 +793,8 @@ def test_kernel_wrappers_refuse_a_dtensor(world1_mesh):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_train_step_on_a_mesh_matches_jax_global_batch(world):
-    """dp 2, FSDP 2 and tp 2 on 2 ranks, 2 x 2 on 4: the loss and every
+    """dp 2, FSDP 2 and tp 2 on 2 ranks; dp 2 x tp 2, FSDP 2 x tp 2 and tp 4
+    (SigLIP's 2 heads whole on every rank) on 4: the loss and every
     parameter after the step, on every rank (the replicated copies too),
     equal JAX's step on the global batch."""
     want_metrics, want_params = _jax_step()
@@ -678,9 +836,10 @@ def test_tp_decode_matches_jax_and_the_unsharded_port(world):
 @pytest.mark.parametrize("world", [2, 4])
 def test_option_train_steps_on_a_mesh_match_jax_global_batch(world):
     """LoRA ('lora' under FSDP 2, 'lora_tokens' under tp 2 and dp 2 x
-    tp 2) and Adafactor (stage3 on tiny_af under FSDP 2, tp 2 and dp 2 x
-    tp 2): the loss and every parameter after the step, adapters included,
-    on every rank, equal JAX's (optax's) step on the global batch.
+    tp 2) and Adafactor (stage3 on tiny_af under FSDP 2, tp 2, dp 2 x tp 2
+    and FSDP 2 x tp 2): the loss and every parameter after the step,
+    adapters included, on every rank, equal JAX's (optax's) step on the
+    global batch.
 
     One slice is held to its bound instead: the key third of SigLIP's
     fused qkv bias. The softmax ignores a constant added to every key, so
@@ -690,7 +849,7 @@ def test_option_train_steps_on_a_mesh_match_jax_global_batch(world):
     differ by up to 2 lr there."""
     results = _spawned(world)
     cases = [n for n, c in OPTION_CASES.items() if c[2] == world]
-    assert len(cases) == (4 if world == 2 else 2)
+    assert len(cases) == (4 if world == 2 else 3)
     for name in cases:
         _, _, _, model, mode, optimizer = OPTION_CASES[name]
         want_metrics, want_params = _jax_step(model, mode, optimizer)
@@ -712,6 +871,92 @@ def test_option_train_steps_on_a_mesh_match_jax_global_batch(world):
                                                err_msg=msg + " (keys)")
                     continue
                 np.testing.assert_allclose(p, want, err_msg=msg, **TOL)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_parameters_gathered_right_after_sharding_equal_the_weights(world):
+    """Right after `shard_params`, on every rank of every train case (TP,
+    FSDP, both on a data x model mesh, tp 4), each parameter gathered whole
+    (`full_tensor`: SigLIP's fused qkv weight and bias part by part) equals
+    the weights it split bit for bit, and the sum of squares over the
+    shards (`global_sq_norm`, the clip's norm) equals the whole model's:
+    every element counts once, a per-part split's too. On 4 ranks
+    `full_tensor` and `distribute_like` also undo and redo DTensor's own
+    placing on the 2-D mesh (uneven, per-part and 2-D placements)."""
+    results = _spawned(world)
+    if world == 4:
+        assert all(res["placements"] == [] for res in results.values()), results[0]["placements"]
+    cases = [n for n in (*TRAIN_CASES, *OPTION_CASES) if _case(n)[2] == world]
+    for name in cases:
+        qkv = [k for k in weights(_case(name)[3]) if k.endswith(("attn.qkv.weight",
+                                                                 "attn.qkv.bias"))]
+        for rank, res in results.items():
+            got = res[name]
+            assert got["unequal_after_shard"] == [], f"{name} rank {rank}"
+            assert qkv and set(qkv) <= set(got["params"]), name
+            shards, whole = got["sq_after_shard"]
+            np.testing.assert_allclose(shards, whole, rtol=1e-5, err_msg=f"{name} rank {rank}")
+
+
+def test_fsdp_tp_checkpoint_restores_in_one_process_and_on_the_mesh():
+    """Under FSDP 2 x tp 2 (AdamW on tiny, Adafactor on tiny_af), the
+    checkpoint saved after the step: restored into one process (a strict
+    `load_state_dict`) the model equals the sharded model on every rank,
+    bit for bit; restored onto the same mesh (`distribute_like`), the
+    model and the optimizer state gathered equal the saved file."""
+    results = _spawned(4)
+    for name in CHECKPOINT_CASES:
+        saved = results[0][name]["checkpoint"]["saved_model"]
+        model = build_model(saved, _case(name)[3])
+        one = {n: p.detach().numpy() for n, p in model.named_parameters()}
+        for rank, res in results.items():
+            assert res[name]["checkpoint"]["restore_unequal"] == [], f"{name} rank {rank}"
+            assert sorted(res[name]["params"]) == sorted(one), name
+            for pname, p in res[name]["params"].items():
+                np.testing.assert_array_equal(p, one[pname], err_msg=f"{name} rank {rank}: {pname}")
+
+
+def test_fsdp_tp_trainer_validates_as_one_process(tmp_path, monkeypatch):
+    """`Trainer` with `train.fsdp` on a data 2 x model 2 mesh (tiny, toy
+    data): one step, then `validate` on every rank over an unsharded copy;
+    the TP-split parameters are those FSDP2 leaves to TP, every rank holds
+    the same parameters, and every rank's validation tree equals a
+    one-process Trainer's `validate` on those parameters."""
+    import sys
+
+    from plangen_tpu_torch.train.trainer import Trainer
+    from tests.test_torch_distributed import fake_tensorboard, toy_config, val_tree
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", fake_tensorboard())
+    results = _spawned(4)
+    lead = results[0]["trainer"]
+    assert lead["mesh"] == (2, 2)
+    split = {n for n, k in pm.param_shardings(build_model(weights()), tp=2, fsdp=2).items()
+             if k in ("vocab", "column", "row")}
+    assert split and set(lead["fsdp_ignored"]) == split
+    one = Trainer(toy_config(tmp_path), model=build_model(lead["params"]), device="cpu")
+    one.validate(1)
+    want = val_tree(tmp_path / "val")
+    assert any(k.endswith("_layout.json") for k in want)
+    for rank, res in results.items():
+        assert res["trainer"]["val"] == want, f"rank {rank}"
+        for name, p in res["trainer"]["params"].items():
+            np.testing.assert_array_equal(p, lead["params"][name], err_msg=f"rank {rank}: {name}")
+
+
+def test_tp4_heads_that_do_not_split_stay_whole_and_match_jax():
+    """Over tp 4, `tiny_7b`'s 6 heads do not split: its attention stays
+    whole on every rank (q_proj's 96 outputs) while its MLP splits (224 / 4
+    of up_proj's), and its greedy tokens equal JAX's on every rank. (The
+    tiny step over tp 4, SigLIP's 2 heads whole, is held against JAX's in
+    `test_train_step_on_a_mesh_matches_jax_global_batch[4]`.)"""
+    results = _spawned(4)
+    cfg = CONFIGS["tiny_7b"].llama
+    want = _jax_greedy_tokens(name="tiny_7b")
+    for rank, res in results.items():
+        got = res["tp4_7b"]
+        assert got["local_out"] == {"q_proj": cfg.q_dim, "up_proj": cfg.intermediate_size // 4}
+        np.testing.assert_array_equal(got["tokens"], want, err_msg=f"rank {rank}")
 
 
 def _forced_logit_gaps(model, tokens) -> list:
