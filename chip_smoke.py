@@ -249,12 +249,14 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      (`row_witness`); (h) (last) FSDP x TP: four ranks on the one card
      over gloo, mesh data 2 x model 2, `fsdp=True`, the phase-9 Trainer
      (stage3, AdamW, fp32 masters, bf16 compute) at Janus-Pro-1B width cut
-     to FSDP_TP_LAYERS, 2 steps: every parameter gathered right after
-     `shard_params` bitwise equal to the seeded weights on every rank, 8
-     heads a rank, K3's launches the code's count each step (no plain
-     call), the losses within FSDP_TP_LOSS_RTOL and every parameter within
-     FSDP_TP_PARAM_TOL lr x steps of one plain Trainer's same steps on the
-     global batch. Run it alone from the root with `python3 -c "import
+     to FSDP_TP_LAYERS, under gradient_checkpointing, 2 steps: every
+     parameter gathered right after `shard_params` bitwise equal to the
+     seeded weights on every rank, 8 heads a rank, K3's launches the
+     code's count each step (no plain call), against one plain Trainer's
+     same steps on the global batch the losses within FSDP_TP_LOSS_RTOL,
+     AdamW's first moment after step 1 (linear in the gradient) within
+     FSDP_TP_MU_RTOL at the median tensor, every parameter within FSDP_TP_PARAM_TOL lr x steps
+     (a bound on the steps). Run it alone from the root with `python3 -c "import
      torch, chip_smoke as cs; cs.phase_header(torch); cs.phase_build();
      cs.phase_parallel(torch, torch.device('cuda:0'))"`, (h) alone with
      `cs.phase_fsdp_tp(torch, torch.device('cuda:0'))` after the build.
@@ -2470,8 +2472,10 @@ ROW_TOL = 1e-5
 ROW_PLANTED_MIN = 1e-3
 # (h) FSDP x TP: four ranks on the one card over gloo, mesh data 2 x model 2,
 # the phase-9 Trainer at Janus-Pro-1B width cut in depth to FSDP_TP_LAYERS
-# (LLaMA layers, SigLIP blocks); each rank's flows take the recipe's batch,
-# the plain Trainer twice that (the global batch)
+# (LLaMA layers, SigLIP blocks) under gradient_checkpointing, as the 7B
+# recipe trains (each FSDP2 unit's recompute must run on the bf16 casts of
+# the TP-split parameters FSDP2 ignores); each rank's flows take the
+# recipe's batch, the plain Trainer twice that (the global batch)
 FSDP_TP_MESH = {"data": 2, "model": 2}
 FSDP_TP_LAYERS = (2, 2)
 FSDP_TP_STEPS = 2
@@ -2484,8 +2488,20 @@ FSDP_TP_LOSS_RTOL = 1e-2
 # lr x steps: Adam moves a parameter by at most ~lr a step (at step 2
 # |m / sqrt(v)| <= 1.0013 with the bias corrections, by Cauchy-Schwarz), so
 # a gradient whose sign a rounding flips parts the runs by up to 2 lr a step;
-# 1 % over that for that slack and the weight decay
+# 1 % over that for that slack and the weight decay. This bounds the steps
+# only: Adam's update does not change with the gradient's scale, so no limit
+# on the parameters sees a gradient left unsummed over "data" (about half
+# the sum); FSDP_TP_MU_RTOL does
 FSDP_TP_PARAM_TOL = 2.02
+# (h) AdamW's first moment after step 1 (a tenth of the clipped gradient)
+# against the plain Trainer's, each trainable tensor's gap in L2 norm
+# relative to the plain one's, their median: bf16 compute on each data
+# shard's rows and each TP partial sum rounds apart from the plain run, a
+# few tensors far apart (the image-generation aligner's biases 0.27, the
+# whole model as one vector 0.148, on the H100), the median tensor 1.2e-2;
+# with the TP-split gradients left unsummed over "data" (planted) it read
+# 0.40, the clip's norm carrying the fault into every tensor
+FSDP_TP_MU_RTOL = 5e-2
 
 
 def _free_port() -> int:
@@ -2496,18 +2512,22 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def trainer_steps(torch, tag: str, what: str, trainer, loader, steps: int):
-    """`steps` of the trainer's own step on its batches, K3 counted each
-    step (forward and backward = `n_attention_calls`, all on the tensor
-    cores, no plain call): (losses, seconds, peak GiB, launches)."""
+def trainer_steps(torch, tag: str, what: str, trainer, loader, steps: int, first: int = 0):
+    """`steps` of the trainer's own step on its batches (logged from step
+    `first`), K3 counted each step (forward and backward =
+    `n_attention_calls`, the forward twice under gradient_checkpointing,
+    all on the tensor cores, no plain call): (losses, seconds, peak GiB,
+    launches)."""
     import math
 
     n_calls = n_attention_calls(trainer)
+    if trainer.cfg.train.gradient_checkpointing:  # the recompute runs the forward again
+        n_calls = (2 * n_calls[0], n_calls[1])
     counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     reset_counters(counters)
     losses, seconds = [], []
-    for step in range(steps):
+    for step in range(first, first + steps):
         before = k3_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2729,13 +2749,25 @@ def fsdp_tp_model_cfg():
                                vision=dataclasses.replace(base.vision, layers=blocks))
 
 
+def fsdp_tp_steps(torch, what: str, trainer, loader, gather):
+    """[15h] FSDP_TP_STEPS of `trainer_steps`, AdamW's first moment taken
+    after the first (each tensor through `gather`): (losses, seconds, peak
+    GiB, launches, {name: first moment})."""
+    losses, seconds, peak, launches = trainer_steps(torch, "15h", what, trainer, loader, 1)
+    mu = {n: gather(m) for n, m in trainer.state.opt.mu.items()}
+    more = trainer_steps(torch, "15h", what, trainer, loader, FSDP_TP_STEPS - 1, first=1)
+    return (losses + more[0], seconds + more[1], max(peak, more[2]),
+            {k: v + more[3][k] for k, v in launches.items()}, mu)
+
+
 def fsdp_tp_rank(rank: int, port: int, inputs: dict, results) -> None:
     """[15h] one of four ranks on the one card over gloo: the phase-9
     Trainer with `fsdp=True` on the data 2 x model 2 mesh. Right after
     `shard_params` every parameter gathered against the seeded weights,
     each rank's local heads; FSDP_TP_STEPS steps (K3 counted by
-    `trainer_steps`); then every parameter gathered, compared on rank 0
-    with the plain Trainer's (saved by the parent)."""
+    `trainer_steps`), AdamW's first moment gathered after the first;
+    then every parameter gathered; both compared on rank 0 with the plain
+    Trainer's (saved by the parent)."""
     import traceback
 
     import torch
@@ -2758,7 +2790,8 @@ def fsdp_tp_rank(rank: int, port: int, inputs: dict, results) -> None:
         pm.init_distributed(f"localhost:{port}", 4, rank, device="cpu")  # gloo
         model_cfg = fsdp_tp_model_cfg()
         trainer, loader, built = options_trainer(
-            torch, dev, {"fsdp": True, "mesh_shape": FSDP_TP_MESH}, model_cfg=model_cfg)
+            torch, dev, {"fsdp": True, "mesh_shape": FSDP_TP_MESH,
+                         "gradient_checkpointing": True}, model_cfg=model_cfg)
         stage(f"Trainer built in {built:.1f} s")
         # the weights the Trainer seeds, drawn again on this rank
         seeded = PlanGenModel(model_cfg, dtype=torch.float32, device=dev)
@@ -2777,22 +2810,25 @@ def fsdp_tp_rank(rank: int, port: int, inputs: dict, results) -> None:
                  "siglip": pm._local(block.attn.qkv.weight).shape[0] // 3 // block.attn.head_dim}
         stage(f"every parameter gathered against the seeded weights: {len(unequal)} differ; "
               f"local heads {heads}")
-        losses, seconds, peak, launches = trainer_steps(torch, "15h", f"rank {rank}", trainer,
-                                                        loader, FSDP_TP_STEPS)
+        keep = (lambda m: m.cpu()) if rank == 0 else (lambda m: None)  # a collective
+        losses, seconds, peak, launches, mu = fsdp_tp_steps(
+            torch, f"rank {rank}", trainer, loader, lambda m: keep(pm.full_tensor(m)))
         stage(f"{FSDP_TP_STEPS} steps")
         plain = torch.load(inputs["plain"], map_location="cpu", mmap=True,
                            weights_only=True) if rank == 0 else None
-        diffs = {}
+        diffs, mu_gaps = {}, {}
         with torch.no_grad():
             for n, p in trainer.model.named_parameters():
                 whole = pm.full_tensor(p)
                 if plain is not None:
-                    want = plain[n].to(dev)
-                    diffs[n] = float((whole.float() - want.float()).abs().max())
+                    diffs[n] = float((whole - plain["params"][n].to(dev)).abs().max())
+            for n, m in mu.items() if plain is not None else ():
+                want = plain["mu"][n]
+                mu_gaps[n] = (float((m - want).norm()), float(want.norm()))
         stage("every parameter gathered after the steps")
         results.put((rank, dict(
             unequal_after_shard=unequal, heads=heads, losses=losses, seconds=seconds,
-            peak_gib=peak, launches=launches, built_s=built, diffs=diffs,
+            peak_gib=peak, launches=launches, built_s=built, diffs=diffs, mu_gaps=mu_gaps,
             tp_split=sum(k in ("vocab", "column", "row") for k in kinds.values()),
             fsdp=sum(k == "fsdp" for k in kinds.values()))))
     except BaseException:
@@ -2804,11 +2840,12 @@ def fsdp_tp_rank(rank: int, port: int, inputs: dict, results) -> None:
 
 def phase_fsdp_tp(torch, dev) -> dict:
     """[15h] FSDP x TP: the phase-9 Trainer (stage3, AdamW, fp32 masters,
-    bf16 compute) at Janus-Pro-1B width, depth cut to FSDP_TP_LAYERS, on a
-    data 2 x model 2 mesh with `fsdp=True`: four ranks on the one card over
-    gloo with CUDA tensors (NCCL refuses two ranks on one device), against
-    one plain Trainer on the card taking the same steps on the global
-    batch."""
+    bf16 compute) at Janus-Pro-1B width, depth cut to FSDP_TP_LAYERS, under
+    gradient_checkpointing, on a data 2 x model 2 mesh with `fsdp=True`:
+    four ranks on the one card over gloo with CUDA tensors (NCCL refuses
+    two ranks on one device), against one plain Trainer on the card taking
+    the same steps on the global batch."""
+    import math
     import multiprocessing
     import queue
     import tempfile
@@ -2821,14 +2858,15 @@ def phase_fsdp_tp(torch, dev) -> dict:
         f"{full.vision.layers}) for the smoke's time limit; widths Janus-Pro-1B's")
     dp = FSDP_TP_MESH["data"]
     flows = tuple(FlowConfig(t, "toy", dp * b) for t, b in TRAIN_OPTION_FLOWS)
-    plain_trainer, loader, built = options_trainer(torch, dev, {"train_data": flows},
-                                                   model_cfg=model_cfg)
-    losses, seconds, peak, _ = trainer_steps(torch, "15h", "plain", plain_trainer, loader,
-                                             FSDP_TP_STEPS)
+    plain_trainer, loader, built = options_trainer(
+        torch, dev, {"train_data": flows, "gradient_checkpointing": True}, model_cfg=model_cfg)
+    losses, seconds, peak, _, mu = fsdp_tp_steps(torch, "plain", plain_trainer, loader,
+                                                 lambda m: m.cpu())
     lr = plain_trainer.cfg.train.optim.learning_rate
     tmp = tempfile.TemporaryDirectory(prefix="plangen_fsdp_tp_")
     path = str(pathlib.Path(tmp.name) / "plain.pt")
-    torch.save({n: p.detach().cpu() for n, p in plain_trainer.model.named_parameters()}, path)
+    torch.save({"params": {n: p.detach().cpu()
+                           for n, p in plain_trainer.model.named_parameters()}, "mu": mu}, path)
     log(f"[15h] plain Trainer (global batch {[f.batch_size for f in flows]}): built in "
         f"{built:.1f} s, steps {[round(x, 3) for x in seconds]} s, peak {peak:.2f} GiB")
     drop_trainer(torch, plain_trainer)
@@ -2863,6 +2901,30 @@ def phase_fsdp_tp(torch, dev) -> dict:
     want_heads = {"llama": model_cfg.llama.num_heads // FSDP_TP_MESH["model"],
                   "siglip": model_cfg.vision.heads // FSDP_TP_MESH["model"]}
     for r, res in sorted(got.items()):
+        log(f"[15h] rank {r}: built in {res['built_s']:.1f} s, steps "
+            f"{[round(x, 3) for x in res['seconds']]} s, peak {res['peak_gib']:.2f} GiB, local "
+            f"heads {res['heads']}, losses {[round(x['loss'], 6) for x in res['losses']]} "
+            f"(plain {[round(x['loss'], 6) for x in losses]})")
+    diffs, mu_gaps = got[0]["diffs"], got[0]["mu_gaps"]
+    diff, limit = max(diffs.values()), FSDP_TP_PARAM_TOL * lr * FSDP_TP_STEPS
+    n_equal = sum(d == 0.0 for d in diffs.values())
+    per_tensor = sorted((g / w if w else (math.inf if g else 0.0), n)
+                        for n, (g, w) in mu_gaps.items())
+    mu_gap = per_tensor[len(per_tensor) // 2][0]  # the median tensor's
+    whole = (sum(g * g for g, _ in mu_gaps.values())
+             / sum(w * w for _, w in mu_gaps.values())) ** 0.5
+    loss_gap = max(abs(res["losses"][i][k] - losses[i][k]) / abs(losses[i][k])
+                   for res in got.values() for i in range(FSDP_TP_STEPS) for k in losses[i])
+    log(f"[15h] FSDP x TP over four gloo ranks on cuda:0 ({got[0]['tp_split']} parameters "
+        f"TP-split, {got[0]['fsdp']} FSDP-sharded), {FSDP_TP_STEPS} steps under remat in "
+        f"{wall:.1f} s (the processes' start, build and steps); against the plain Trainer: "
+        f"losses within {loss_gap:.3e} (relative, limit {FSDP_TP_LOSS_RTOL}); AdamW's first "
+        f"moment after step 1 within {mu_gap:.3e} at the median tensor (relative L2, limit "
+        f"{FSDP_TP_MU_RTOL}; worst {per_tensor[-1][0]:.3e} at {per_tensor[-1][1]}, the model "
+        f"as one vector {whole:.3e}); the "
+        f"parameters within {diff:.3e} (limit {FSDP_TP_PARAM_TOL} lr x steps = {limit:.3e}, "
+        f"a bound on the steps; {n_equal} of {len(diffs)} tensors bitwise equal)")
+    for r, res in sorted(got.items()):
         check(not res["unequal_after_shard"], f"[15h] rank {r}: right after shard_params "
               f"{res['unequal_after_shard'][:5]} differ from the seeded weights")
         check(res["heads"] == want_heads, f"[15h] rank {r}: local heads {res['heads']}")
@@ -2870,26 +2932,12 @@ def phase_fsdp_tp(torch, dev) -> dict:
             for k, v in b.items():
                 check(abs(a[k] - v) <= FSDP_TP_LOSS_RTOL * abs(v),
                       f"[15h] rank {r} step {step} {k}: {a[k]} against plain {v}")
-        log(f"[15h] rank {r}: built in {res['built_s']:.1f} s, steps "
-            f"{[round(x, 3) for x in res['seconds']]} s, peak {res['peak_gib']:.2f} GiB, local "
-            f"heads {res['heads']}, losses {[round(x['loss'], 6) for x in res['losses']]} "
-            f"(plain {[round(x['loss'], 6) for x in losses]})")
-    diffs = got[0]["diffs"]
-    diff, limit = max(diffs.values()), FSDP_TP_PARAM_TOL * lr * FSDP_TP_STEPS
-    n_equal = sum(d == 0.0 for d in diffs.values())
-    loss_gap = max(abs(res["losses"][i][k] - losses[i][k]) / abs(losses[i][k])
-                   for res in got.values() for i in range(FSDP_TP_STEPS) for k in losses[i])
-    log(f"[15h] FSDP x TP over four gloo ranks on cuda:0 ({got[0]['tp_split']} parameters "
-        f"TP-split, {got[0]['fsdp']} FSDP-sharded), {FSDP_TP_STEPS} steps in {wall:.1f} s "
-        f"(the processes' start, build and steps): every parameter gathered right after "
-        f"shard_params bitwise equal to the seeded weights on every rank; losses within "
-        f"{loss_gap:.3e} (relative) of the plain Trainer's; after the steps the parameters "
-        f"within {diff:.3e} (limit {FSDP_TP_PARAM_TOL} lr x steps = {limit:.3e}: a "
-        f"rounding-level gradient may take either sign; {n_equal} of {len(diffs)} tensors "
-        "bitwise equal)")
+    check(mu_gap <= FSDP_TP_MU_RTOL, f"[15h] AdamW's first moment differs from the plain "
+          f"Trainer's by {mu_gap:.3e} at the median tensor (relative L2)")
     check(diff <= limit, f"[15h] the parameters differ from the plain Trainer's by {diff}")
     return dict(seconds=wall, losses={r: res["losses"] for r, res in got.items()},
                 plain_losses=losses, param_max_abs_diff=diff, loss_max_rel_gap=loss_gap,
+                mu_median_rel_gap=mu_gap, mu_max_rel_gap=per_tensor[-1][0],
                 peak_gib={r: res["peak_gib"] for r, res in got.items()},
                 s_step={r: res["seconds"] for r, res in got.items()},
                 k3_launches={r: {k: v for k, v in res["launches"].items()

@@ -17,9 +17,10 @@ non-reentrant form), where the JAX package wraps its layer-scan body in
 The module's parameters reach the checkpointed function as an argument and
 go back in through `torch.func.functional_call` at the recompute: the train
 step swaps the compute copy into the model only for the forward, so a
-recompute that read the module's attributes would see the masters. An
-FSDP2 unit (`parallel/mesh.py`) is checkpointed as it is: its own hooks
-gather and cast its parameters at the forward and at the recompute.
+recompute that read the module's attributes would see the masters. Of an
+FSDP2 unit (`parallel/mesh.py`) only the parameters FSDP2 ignores (the
+TP-split ones on a data x model mesh, `unit.fsdp_ignored`) go in so: its
+own hooks gather and cast the others at the forward and at the recompute.
 
 The flash-attention kernel (`ops/flash_attention.py`) is an
 `autograd.Function` around an extension call, which no policy can save: its
@@ -70,9 +71,10 @@ def remat_call(module: nn.Module, remat: Remat, *args):
     if saved is not None:
         kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                  sorted(saved, key=str))
-    if isinstance(module, FSDPModule):
-        # FSDP2 all-gathers the unit's parameters in its own pre-forward
-        # hook, at the forward and again at the recompute
-        return checkpoint(module, *args, use_reentrant=False, **kwargs)
     params = dict(module.named_parameters())
+    if isinstance(module, FSDPModule):
+        # FSDP2 all-gathers the parameters it manages in its own pre-forward
+        # hook, at the forward and again at the recompute
+        ignored = getattr(module, "fsdp_ignored", frozenset())
+        params = {n: p for n, p in params.items() if n in ignored}
     return checkpoint(_functional, module, params, *args, use_reentrant=False, **kwargs)

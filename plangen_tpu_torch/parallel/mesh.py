@@ -51,7 +51,9 @@ the mesh's product is the world size (JAX has one process drive many):
     or more, and the small ones too; which dim it splits does not change
     the numbers) and ignores the TP-split ones, which stay whole over
     "data" (`fsdp_ignored`: the train step casts them to the compute dtype
-    and sums their gradients over the data group itself). So every
+    and sums their gradients over the data group itself, and a
+    rematerialized unit takes their casts at the recompute too,
+    `ops/remat.py`). So every
     parameter is a DTensor over one mesh dim, on a 2-D mesh too.
     `MixedPrecisionPolicy` casts the masters to the compute dtype after
     the all-gather and reduces the gradients in fp32, summed over the data
@@ -589,26 +591,26 @@ def shard_params(model: nn.Module, mesh, tp_axis: Optional[str] = "model",
         units += list(model.vision_model.vision_tower.blocks)
         # FSDP2 takes no 0-d parameter (LoRA's frozen `lora_scaling`), and
         # a TP-split parameter keeps its TP placement alone, as in JAX
-        ignored = {n for n, p in model.named_parameters()
-                   if p.dim() == 0 or isinstance(p, DTensor)}
-        params = {model.get_parameter(n) for n in ignored}
+        ignored = {id(p) for p in model.parameters() if p.dim() == 0 or isinstance(p, DTensor)}
+        params = [p for p in model.parameters() if id(p) in ignored]
         for unit in units + [model]:
-            fully_shard(unit, mesh=mesh[fsdp_axis], mp_policy=policy, ignored_params=params)
+            fully_shard(unit, mesh=mesh[fsdp_axis], mp_policy=policy, ignored_params=set(params))
             # a plain sum (the losses divide by the global count), by SUM
             # collectives, which gloo has too
             unit.set_gradient_divide_factor(1.0)
             unit.set_force_sum_reduction_for_comms(True)
-        model.fsdp_ignored = frozenset(ignored)
+            unit.fsdp_ignored = frozenset(n for n, p in unit.named_parameters()
+                                          if id(p) in ignored)
     return model
 
 
-def fsdp_ignored(model: nn.Module) -> FrozenSet[str]:
-    """The names of the parameters that FSDP2 does not manage in a model
-    `shard_params` placed with FSDP (the TP-split ones and the 0-d ones):
-    whole over the data axis, so the train step casts them to the compute
-    dtype and sums their gradients over the data group. Empty without
-    FSDP."""
-    return getattr(model, "fsdp_ignored", frozenset())
+def fsdp_ignored(module: nn.Module) -> FrozenSet[str]:
+    """The names (relative to `module`) of the parameters that FSDP2 does
+    not manage in a model `shard_params` placed with FSDP, or in one of its
+    units (the TP-split ones and the 0-d ones): whole over the data axis, so
+    the train step casts them to the compute dtype and sums their gradients
+    over the data group. Empty without FSDP."""
+    return getattr(module, "fsdp_ignored", frozenset())
 
 
 def split_dim(placement) -> Optional[int]:
@@ -633,50 +635,48 @@ def _pieces(placement, extent: int, n: int) -> Tuple[int, List[int]]:
     return parts, _chunk_sizes(extent // parts, n)
 
 
+def _mesh_dim(t: DTensor):
+    """(the placement, its 1-D mesh) of a DTensor `shard_params` made: each
+    lies over one mesh dim, "model" (TP) or "data" (FSDP2)."""
+    if t.device_mesh.ndim != 1:
+        raise ValueError(f"a DTensor over {t.device_mesh.ndim} mesh dims: shard_params "
+                         "places each over one")
+    return t.placements[0], t.device_mesh
+
+
 def full_tensor(t: torch.Tensor) -> torch.Tensor:
     """`t` whole on every rank: a DTensor gathered (a collective: every rank
     of its mesh calls it), a plain tensor as it is. The gather is c10d's
-    `all_gather`, mesh dim by mesh dim from the last, a per-part split
-    (`_StridedShard`: SigLIP's fused qkv, each rank holding its block of
-    every part) part by part, an uneven `Shard` padded to its first piece:
-    DTensor's own `full_tensor` (functional collectives) crashed over gloo
-    with CUDA tensors (torch 2.11, four ranks on one card), and not every
-    torch's takes the per-part placement."""
+    `all_gather`, a per-part split (`_StridedShard`: SigLIP's fused qkv,
+    each rank holding its block of every part) part by part, an uneven
+    `Shard` padded to its first piece: DTensor's own `full_tensor`
+    (functional collectives) crashed over gloo with CUDA tensors (torch
+    2.11, four ranks on one card), and not every torch's takes the per-part
+    placement."""
     if not isinstance(t, DTensor):
         return t
-    mesh, local = t.device_mesh, t.to_local()
-    extents = [list(t.shape)]  # each dim's extent before mesh dim d splits it
-    for d, placement in enumerate(t.placements):
-        extent, dim = list(extents[-1]), split_dim(placement)
-        if dim is not None:
-            parts, sizes = _pieces(placement, extent[dim], mesh.size(d))
-            extent[dim] = parts * sizes[mesh.get_local_rank(d)]
-        extents.append(extent)
-    for d in reversed(range(mesh.ndim)):
-        placement, dim = t.placements[d], split_dim(t.placements[d])
-        if dim is None:
-            continue
-        parts, sizes = _pieces(placement, extents[d][dim], mesh.size(d))
-        pad = [0, 0] * (local.dim() - dim - 1) + [0, parts * sizes[0] - local.shape[dim]]
-        padded = F.pad(local, pad).contiguous()
-        gathered = [torch.empty_like(padded) for _ in sizes]
-        dist.all_gather(gathered, padded, group=mesh.get_group(d))
-        blocks = [g.narrow(dim, 0, parts * n).chunk(parts, dim) for g, n in zip(gathered, sizes)]
-        local = torch.cat([b[k] for k in range(parts) for b in blocks], dim)
-    return local
+    (placement, mesh), local = _mesh_dim(t), t.to_local()
+    dim = split_dim(placement)
+    if dim is None:
+        return local
+    parts, sizes = _pieces(placement, t.shape[dim], mesh.size())
+    pad = [0, 0] * (local.dim() - dim - 1) + [0, parts * sizes[0] - local.shape[dim]]
+    padded = F.pad(local, pad).contiguous()
+    gathered = [torch.empty_like(padded) for _ in sizes]
+    dist.all_gather(gathered, padded, group=mesh.get_group())
+    blocks = [g.narrow(dim, 0, parts * n).chunk(parts, dim) for g, n in zip(gathered, sizes)]
+    return torch.cat([b[k] for k in range(parts) for b in blocks], dim)
 
 
 def distribute_like(whole: torch.Tensor, like: DTensor) -> DTensor:
     """`whole` (the same on every rank) placed as the DTensor `like` is
     (the inverse of `full_tensor`): each rank cuts its own shard, a
     per-part split part by part, with no collective."""
-    mesh, local = like.device_mesh, whole.to(like.device, like.dtype)
-    for d, placement in enumerate(like.placements):
-        dim = split_dim(placement)
-        if dim is None:
-            continue
-        parts, sizes = _pieces(placement, local.shape[dim], mesh.size(d))
-        rank = mesh.get_local_rank(d)
+    (placement, mesh), local = _mesh_dim(like), whole.to(like.device, like.dtype)
+    dim = split_dim(placement)
+    if dim is not None:
+        parts, sizes = _pieces(placement, local.shape[dim], mesh.size())
+        rank = mesh.get_local_rank()
         start = sum(sizes[:rank])
         local = torch.cat([part.narrow(dim, start, sizes[rank])
                            for part in local.chunk(parts, dim)], dim)

@@ -108,6 +108,7 @@ OPTION_CASES = {  # name: (mesh shape, fsdp, world, model, tuning mode, optimize
                             "adafactor"),
 }
 CHECKPOINT_CASES = ("fsdp2_tp2", "adafactor_fsdp2_tp2")  # saved, then restored
+REMAT_CASES = ("fsdp2_tp2",)  # under gradient_checkpointing
 
 
 # ------------------------------------------------------------ shared data
@@ -237,9 +238,10 @@ def _case(name):
     return OPTION_CASES[name]
 
 
-def _sharded_state(name, inputs, mesh):
+def _sharded_state(name, inputs, mesh, compute_dtype=torch.float32):
     """The case's model (its weights, adapters under LoRA) placed on `mesh`
-    as the case says, and its train state."""
+    as the case says, FSDP2 casting to `compute_dtype`, and its train
+    state."""
     from plangen_tpu_torch.train import optim as toptim
     from plangen_tpu_torch.train import step as tstep
 
@@ -252,7 +254,7 @@ def _sharded_state(name, inputs, mesh):
         for pname, trainable in mask.items():
             model.get_parameter(pname).requires_grad_(trainable)
     pm.shard_params(model, mesh, tp_axis="model" if shape["model"] > 1 else None,
-                    fsdp_axis="data" if fsdp else None)
+                    fsdp_axis="data" if fsdp else None, param_dtype=compute_dtype)
     opt, mask = toptim.make_optimizer(TCFGS[optimizer].optim, model, mode)
     return tstep.init_train_state(model, opt), mask
 
@@ -266,6 +268,7 @@ def _train_case(name, inputs, directory):
 
     shape, fsdp, _, model_name, mode, optimizer = _case(name)
     tcfg, batches = TCFGS[optimizer], inputs["batches"]
+    tcfg = replace(tcfg, gradient_checkpointing=name in REMAT_CASES)
     mesh = pm.create_mesh(shape, device="cpu")
     state, mask = _sharded_state(name, inputs, mesh)
     sd = inputs["weights"][model_name]
@@ -284,6 +287,28 @@ def _train_case(name, inputs, directory):
            "sq_after_shard": sq}
     if name in CHECKPOINT_CASES:
         out["checkpoint"] = _checkpoint_case(name, inputs, mesh, state, directory)
+    return out
+
+
+def _remat_bf16_case(inputs):
+    """`fsdp2_tp2`'s step with fp32 masters and bf16 compute, without and
+    with gradient_checkpointing (the recompute must see the bf16 casts of
+    the TP-split parameters, as the forward did): each run's parameters
+    and AdamW first moments after the step, gathered."""
+    from plangen_tpu_torch.train import step as tstep
+
+    mesh = pm.create_mesh(TRAIN_CASES["fsdp2_tp2"][0], device="cpu")
+    local = {f: {k: pm.shard_rows(torch.from_numpy(np.array(v)), mesh) for k, v in b.items()}
+             for f, b in inputs["batches"].items()}
+    out = []
+    for remat in (False, True):
+        state, mask = _sharded_state("fsdp2_tp2", inputs, mesh, torch.bfloat16)
+        step = tstep.make_train_step(TINY, replace(TCFG, gradient_checkpointing=remat), PAD,
+                                     FLOWS, compute_dtype=torch.bfloat16, trainable_mask=mask,
+                                     group=mesh["data"].get_group())
+        state, _ = step(state, local)
+        out.append({"params": full_params(state.model),
+                    "mu": {n: pm.full_tensor(m).numpy() for n, m in state.opt.mu.items()}})
     return out
 
 
@@ -374,18 +399,23 @@ def _tp4_case(sd, ids):
 
 
 def _placements_case():
-    """`full_tensor` and `distribute_like` against DTensor's own placing on
-    the data 2 x model 2 mesh: uneven, per-part and 2-D placements; the
-    cases that differ."""
+    """`full_tensor` and `distribute_like` against DTensor's own placing
+    over each dim of the data 2 x model 2 mesh (`shard_params` places every
+    DTensor over one): even, uneven, replicated and per-part placements,
+    and a DTensor over both dims refused; the cases that differ."""
     from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.placement_types import _StridedShard
 
     mesh = pm.create_mesh({"data": 2, "model": 2}, device="cpu")
     x = torch.arange(84, dtype=torch.float32).reshape(12, 7)
     cases = [(mesh["data"], [Shard(0)]), (mesh["model"], [Shard(1)]),
-             (mesh, [Shard(0), Shard(1)]), (mesh, [Shard(1), Shard(1)]),
-             (mesh, [Replicate(), Shard(0)])]
+             (mesh["data"], [Replicate()])]
     bad = []
+    try:
+        pm.full_tensor(distribute_tensor(x, mesh, [Shard(0), Shard(1)]))
+        bad.append("2-D gathered")
+    except ValueError:
+        pass
     for m, placements in cases:
         d = distribute_tensor(x, m, placements)
         if not torch.equal(pm.full_tensor(d), x) or \
@@ -444,6 +474,7 @@ def _rank_main(rank, world, port, inputs, results):
             out["tp4_7b"] = _tp4_case(inputs["weights"]["tiny_7b"], ids)
             out["trainer"] = _trainer_case(directory)
             out["placements"] = _placements_case()
+            out["remat_bf16"] = _remat_bf16_case(inputs)
         results.put((rank, out))
     except BaseException:
         results.put((rank, traceback.format_exc()))
@@ -882,7 +913,8 @@ def test_parameters_gathered_right_after_sharding_equal_the_weights(world):
     shards (`global_sq_norm`, the clip's norm) equals the whole model's:
     every element counts once, a per-part split's too. On 4 ranks
     `full_tensor` and `distribute_like` also undo and redo DTensor's own
-    placing on the 2-D mesh (uneven, per-part and 2-D placements)."""
+    placing over each dim of the 2-D mesh (uneven, replicated and per-part
+    placements) and refuse a DTensor over both."""
     results = _spawned(world)
     if world == 4:
         assert all(res["placements"] == [] for res in results.values()), results[0]["placements"]
@@ -942,6 +974,23 @@ def test_fsdp_tp_trainer_validates_as_one_process(tmp_path, monkeypatch):
         assert res["trainer"]["val"] == want, f"rank {rank}"
         for name, p in res["trainer"]["params"].items():
             np.testing.assert_array_equal(p, lead["params"][name], err_msg=f"rank {rank}: {name}")
+
+
+def test_fsdp_tp_remat_in_bf16_equals_the_step_without_remat():
+    """Under FSDP 2 x tp 2 with fp32 masters and bf16 compute, a step under
+    gradient_checkpointing equals the step without, bit for bit, on every
+    rank: the recompute of each FSDP2 unit runs on the bf16 casts of its
+    TP-split parameters (which FSDP2 ignores), as the forward did. (The
+    fp32 step under remat is held against JAX's in
+    `test_train_step_on_a_mesh_matches_jax_global_batch[4]`.)"""
+    results = _spawned(4)
+    for rank, res in results.items():
+        plain, remat = res["remat_bf16"]
+        for what in ("params", "mu"):
+            assert sorted(remat[what]) == sorted(plain[what])
+            for name, want in plain[what].items():
+                np.testing.assert_array_equal(remat[what][name], want,
+                                              err_msg=f"rank {rank} {what} {name}")
 
 
 def test_tp4_heads_that_do_not_split_stay_whole_and_match_jax():
