@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Run plangen_tpu_torch's layout-to-image, text, editing, training,
-serving and evaluation paths, the opt-in decoders, the weight artifacts and
-the parallel path (on a world-1 mesh) once on one NVIDIA card.
+"""Run plangen_tpu_torch's layout-to-image (bf16, every quantized form and
+`kv_a8`), text, editing, training, serving and evaluation paths, the
+opt-in decoders, the weight artifacts and the parallel path (on a world-1
+mesh) once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -211,6 +212,22 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      False); cs.phase_decoders(torch, p, c); d =
      pathlib.Path(tempfile.mkdtemp()); cs.write_checkpoint(torch, p.model,
      d); del p; cs.phase_artifacts(torch, dev, d)"`.
+  16. `kv_a8` (run after phase 7): K1-a8, the s8 x s8 decode attention over
+     the int8 cache, against its plain version on phase 6's cache, mask
+     and q_pos, bf16 and fp32 queries: max abs err, the probability codes
+     that differ from the plain version's (at most A8_MAX_CODE_SHARE of
+     the nonzero ones, one step each; a row within A8_RTOL, plus the
+     largest v_scale for each code that differs), two calls bitwise equal,
+     device times in turns beside K1-q8's at the same q_pos and the bound
+     (K1-q8's bytes); then a fresh seeded model quantized to `int8`:
+     `layout_to_image` x4 with and without `kv_a8` in turns int8, kv_a8,
+     kv_a8, int8 on the graph (13,824 K1-a8 launches a kv_a8 call, no K1-q8,
+     no plain call; tokens equal to the mode's first call; s/call, peak),
+     and the kv_a8 loop's first A8_EAGER_STEPS steps eagerly against the
+     graph, bitwise. Alone from the root: `python3 -c "import torch,
+     chip_smoke as cs; cs.phase_header(torch); cs.phase_build(); dev =
+     torch.device('cuda:0'); cs.phase_k1_a8_vs_plain(torch, 390, dev);
+     cs.phase_kv_a8(torch, dev)"`.
   15. parallelism (`parallel/mesh.py`; run after phase 12, before 10):
      (a) `init_distributed` opens a world-1 NCCL group on cuda:0 and
      `create_mesh` a 1 x 1 mesh; (d) the phase-4 model (a fresh seeded
@@ -222,8 +239,9 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      over gloo with CUDA tensors (NCCL refuses two ranks on one device):
      the seeded model in fp32, TP 2, 32 eager steps, the ranks' tokens
      equal to each other and to the unsharded fp32 model's; (b) the
-     phase-9 Trainer plain, then with `fsdp=True` on the 1 x 1 mesh, 3
-     steps each from the same seed (K3 96 forward and 96 backward a step,
+     phase-9 Trainer at 1B width cut to PARALLEL_TRAIN_LAYERS (4 LLaMA
+     layers, 4 SigLIP blocks) plain, then with `fsdp=True` on the 1 x 1
+     mesh, 3 steps each from the same seed (K3 16 forward and 16 backward a step,
      no plain call; s/step, peak) and a fourth under the profiler (device
      busy, kernels by group), then the losses and every parameter against
      plain; (c) the FSDP run's checkpoint (gathered, written by the lead)
@@ -233,6 +251,8 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      the TP model quantized on its shards against the unsharded quantized
      model (tokens bitwise equal, launches the code's on both, s/call),
      the quantized model split by `shard_params` holding the same bytes;
+     `int8` also with `kv_a8` on both models (K1-a8 at the rank's heads,
+     tokens bitwise equal);
      and (after c) a LoRA step (`lora_tokens`, r 256) with the model split
      over the world-1 "model" axis, and 3 Adafactor steps under FSDP, each
      bitwise equal to plain (losses and every parameter), then the FSDP
@@ -283,7 +303,8 @@ import time
 PEAK_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KERNEL_SHAPE = dict(L=24, B=8, S=1024, H=16, D=128)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
-KERNEL_SOURCES = ("prefix_decode_attention", "int4_matmul", "flash_attention")
+KERNEL_SOURCES = ("prefix_decode_attention", "prefix_decode_attention_a8", "int4_matmul",
+                  "flash_attention")
 # (name, I, O) of the int4 matmuls of a Janus-Pro-1B decode step
 INT4_SHAPES = (("qkv_proj", 2048, 6144), ("o_proj", 2048, 2048),
                ("gate_up_proj", 2048, 11264), ("down_proj", 5632, 2048),
@@ -581,7 +602,7 @@ def phase_kernel_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE,
 
 
 def build_pipeline(torch, dev, output_uint8: bool, model=None, cfg=None,
-                   quantize=None):
+                   quantize=None, kv_a8: bool = False):
     from plangen_tpu_torch.config import GenerationConfig, PlanGenModelConfig
     from plangen_tpu_torch.text.tokenizer import ByteFallbackTokenizer
     from plangen_tpu_torch.convert import init_params
@@ -591,7 +612,7 @@ def build_pipeline(torch, dev, output_uint8: bool, model=None, cfg=None,
 
     cfg = cfg or PlanGenModelConfig()  # default: Janus-Pro-1B widths
     gen = GenerationConfig(cfg_weight=5.0, temperature=1.0, output_uint8=output_uint8,
-                           quantize=quantize)
+                           quantize=quantize, kv_a8=kv_a8)
     tok = ByteFallbackTokenizer(vocab_size=cfg.llama.vocab_size)
     proc = PlanGenProcessor(tok, image_tokens=cfg.image_seq_len, gen=gen)
     if model is None:
@@ -668,6 +689,8 @@ def kernel_counters():
                                     da.prefix_decode_attention_reference),
         "prefix_decode_attention_q8": (da.prefix_decode_attention_q8,
                                        da.prefix_decode_attention_q8_reference),
+        "prefix_decode_attention_a8": (da.prefix_decode_attention_a8,
+                                       da.prefix_decode_attention_a8_reference),
         "int4_matmul_w16": (im.int4_matmul_w16, im.int4_matmul_w16_reference),
         "int4_matmul_a8": (im.int4_matmul_w4a8, im.int4_matmul_w4a8_reference),
         "flash_attention_fwd": (fa.flash_attention_fwd, fa.flash_attention_reference),
@@ -685,13 +708,15 @@ def reset_counters(counters) -> None:
         plain.calls = 0
 
 
-def expected_launches(cfg, quantize, n_rows: int, prompt_len: int, steps=None) -> dict:
+def expected_launches(cfg, quantize, n_rows: int, prompt_len: int, steps=None,
+                      kv_a8: bool = False) -> dict:
     """Kernel launches of one decode loop, from the code: each of its
     `steps` (the image loop's 576 by default; a text decode's from its
     tokens) runs the head (gen_head with fc2 quantized, or lm_head) and one
-    decoder step whose 24 layers each make 1 decode attention and 4
-    quantized matmuls (q|k|v, o, gate|up, down); the prefill's matmuls take
-    the kernel only at <= 256 rows (rows x prompt), else the dense route."""
+    decoder step whose 24 layers each make 1 decode attention (K1-a8 with
+    `kv_a8`) and 4 quantized matmuls (q|k|v, o, gate|up, down); the
+    prefill's matmuls take the kernel only at <= 256 rows (rows x prompt),
+    else the dense route."""
     from plangen_tpu_torch.ops.int4_matmul import MAX_KERNEL_ROWS
 
     N = cfg.image_seq_len if steps is None else steps
@@ -700,7 +725,7 @@ def expected_launches(cfg, quantize, n_rows: int, prompt_len: int, steps=None) -
     if quantize is None:
         want["prefix_decode_attention"] = N * L
         return want
-    want["prefix_decode_attention_q8"] = N * L
+    want["prefix_decode_attention_a8" if kv_a8 else "prefix_decode_attention_q8"] = N * L
     matmul = "int4_matmul_a8" if quantize == "int4_a8" else "int4_matmul_w16"
     prefill = 4 * L if n_rows * prompt_len <= MAX_KERNEL_ROWS else 0
     want[matmul] = N * (4 * L + 1) + prefill
@@ -1120,6 +1145,7 @@ class DecodeLoop:
 # launches a step they are, a piece of the kernel's name)
 GRAPH_KERNELS = (("prefix_decode_attention", "split_kv_decode_kernel"),
                  ("prefix_decode_attention_q8", "split_kv_decode_kernel"),
+                 ("prefix_decode_attention_a8", "a8_decode_kernel"),
                  ("int4_matmul_w16", "int4_w16_tc_kernel"),
                  ("int4_matmul_a8", "int4_a8_tc_kernel"))
 GRAPH_WINDOW = 32  # replays a window
@@ -1624,6 +1650,172 @@ def phase_k1_q8_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> dic
     # no one PyTorch call reads the int8 cache with its scales
     return dict(max_abs_err=max(r["err"] for r in rows), library_ms=None,
                 **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+
+
+# K1-a8 against its plain version: the two take the same integer products
+# and the same fp32 logits; a probability code may land one step apart where
+# expf and the order of the fp32 softmax sum move p across a rounding
+# boundary. At most this share of the nonzero codes may differ, each by one
+# step; a (row, head) whose codes agree is within A8_RTOL of the plain
+# output (the rounding of p_s and of the output dtype), one whose codes
+# differ within A8_RTOL plus, for each differing code, the largest v_scale
+# (|v8| * p_s <= 127 * p_s <= max v_scale).
+A8_MAX_CODE_SHARE = 1e-3
+A8_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-6}
+A8_EAGER_STEPS = 64  # [16] graph against eager: the first 64 image steps
+
+
+def a8_compare(torch, got, want, codes, want_codes, v_scale, dtype: str) -> dict:
+    """K1-a8's output and probability codes against the plain version's."""
+    diff = (codes.long() - want_codes.long()).abs()
+    flips = diff.sum(-1)[:, None, :, None].float()  # [B, 1, H, 1]
+    err = (got.float() - want.float()).abs()
+    bound = A8_RTOL[dtype] * want.float().abs() + flips * v_scale.max()
+    return dict(err=err.max().item(), codes=int(diff.sum()), step=int(diff.max()),
+                nonzero=int((want_codes != 0).sum()), within=bool((err <= bound).all()))
+
+
+def phase_k1_a8_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> dict:
+    """[16] K1-a8 against its plain version at the decode shapes of
+    Janus-Pro-1B, on phase 6's cache, mask and q_pos; bf16 and fp32 queries,
+    two calls bitwise equal; in bf16 device times in turns beside K1-q8's at
+    the same q_pos."""
+    from plangen_tpu_torch.ops.decode_attention import (
+        prefix_decode_attention_a8, prefix_decode_attention_a8_reference,
+        prefix_decode_attention_q8,
+    )
+
+    L, B, S, H, D = (shape[k] for k in "LBSHD")
+    gen = torch.Generator(device=dev).manual_seed(5678)
+    mask = left_padded_mask(torch, B, S, min(prompt_len + 576, S), dev)
+    cache = q8_cache(torch, shape, dev, gen)
+    c = (cache["k"], cache["k_scale"], cache["v"], cache["v_scale"])
+    log(f"[16] K1-a8: one block of 256 threads per (row, head), grid {B * H} = "
+        f"{B * H / N_SMS:.2f} per SM")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(dtype)
+        for qp in [prompt_len, 127, 128, prompt_len + 287, S - 1]:
+            q_pos = torch.tensor([qp], dtype=torch.int32, device=dev)
+            res = []
+            for layer in (0, L // 2, L - 1):
+                codes = torch.empty((B, H, S), dtype=torch.int8, device=dev)
+                got = prefix_decode_attention_a8(q, *c, mask, layer, q_pos, codes_out=codes)
+                want, want_codes = prefix_decode_attention_a8_reference(
+                    q, *c, mask, layer, q_pos, return_codes=True)
+                check(bool(torch.isfinite(got).all()), f"non-finite K1-a8 output q_pos={qp}")
+                check(bool((codes[:, :, qp + 1:] == 0).all()),
+                      f"K1-a8 q_pos={qp}: codes past q_pos")
+                res.append(a8_compare(torch, got, want, codes, want_codes, c[3][layer], name))
+                again = prefix_decode_attention_a8(q, *c, mask, layer, q_pos)
+                check(torch.equal(again, got), f"K1-a8 {name} q_pos={qp}: two calls differ")
+            err = max(r["err"] for r in res)
+            n_codes, nonzero = sum(r["codes"] for r in res), sum(r["nonzero"] for r in res)
+            check(all(r["within"] for r in res) and max(r["step"] for r in res) <= 1
+                  and n_codes <= A8_MAX_CODE_SHARE * nonzero,
+                  f"K1-a8 vs plain {name} q_pos={qp}: max abs err {err:.3e}, {n_codes} of "
+                  f"{nonzero} codes differ ({res})")
+            row = dict(dtype=name, q_pos=qp, err=err, codes=n_codes, nonzero=nonzero)
+            line = (f"[16] K1-a8 {name:8s} q_pos={qp:5d} max_abs_err={err:.3e}, "
+                    f"{n_codes} of {nonzero} nonzero p codes differ from the plain "
+                    "version's (3 layers), bitwise equal twice")
+            if dtype == torch.bfloat16:
+                k_ms, p_ms, r = timed_pair(
+                    torch, lambda i: prefix_decode_attention_a8(q, *c, mask, i % L, q_pos),
+                    lambda i: prefix_decode_attention_a8_reference(q, *c, mask, i % L, q_pos),
+                    2 * L)
+                q8_ms = time_ms(torch, lambda i: prefix_decode_attention_q8(
+                    q, *c, mask, i % L, q_pos), 2 * L, host_ahead=True)
+                ops, traffic = decode_bound(B, qp + 1, H, D, 2 * D + 8)  # as K1-q8
+                bound = roofline_ms(ops, traffic, PEAK_INT8_OPS)
+                row.update(ms=k_ms, plain_ms=p_ms, q8_ms=q8_ms, bound_ms=bound,
+                           bound_by=bound_by(ops, traffic, PEAK_INT8_OPS))
+                line += (f"; kernel {k_ms * 1e3:8.2f} us ({r[1] * 1e3:.2f}/{r[2] * 1e3:.2f}) "
+                         f"plain {p_ms * 1e3:9.2f} us ({r[0] * 1e3:.2f}/{r[3] * 1e3:.2f}), "
+                         f"K1-q8 {q8_ms * 1e3:.2f} us; bound {bound * 1e3:.2f} us "
+                         f"({row['bound_by']}) = {100 * bound / k_ms:.1f}% of the kernel's time")
+            rows.append(row)
+            log(line)
+        del q
+    del cache, c
+    headline = next(r for r in rows
+                    if r["dtype"] == "bfloat16" and r["q_pos"] == prompt_len + 287)
+    log("[16] " + json.dumps(dict(k1_a8=rows)))
+    # no one PyTorch call takes int8 K/V with per-slot scales and int8
+    # probabilities
+    return dict(max_abs_err=max(r["err"] for r in rows), library_ms=None,
+                **{key: headline[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+
+
+def phase_kv_a8(torch, dev) -> tuple:
+    """[16] `kv_a8` at Janus-Pro-1B width: a fresh seeded model quantized to
+    `int8`, `layout_to_image` x4 with and without `kv_a8` on it in turns
+    int8, kv_a8, kv_a8, int8 (each call's launches the code's, no plain
+    call, tokens equal to its mode's first call; s/call, peak), then the
+    kv_a8 image loop's first A8_EAGER_STEPS steps eagerly against the graph,
+    bitwise. Returns (the launches of the kv_a8 calls, the numbers)."""
+    from plangen_tpu_torch.runtime.generate import generate_image_tokens
+
+    a8pipe, cfg = build_pipeline(torch, dev, False, quantize="int8", kv_a8=True)
+    # the same int8 model: a quantized model engages its own form
+    q8pipe, _ = build_pipeline(torch, dev, False, model=a8pipe.model)
+    check(q8pipe.gen.quantize == "int8" and not q8pipe.gen.kv_a8 and a8pipe.gen.kv_a8,
+          f"[16] {q8pipe.gen} {a8pipe.gen}")
+    ids, mask = a8pipe.proc.uni_batch(CAPTIONS, GROUNDINGS)
+    prompt_len = a8pipe.proc.cfg_batch(ids, mask)[0].shape[1]
+    n = len(CAPTIONS)
+    launches = dict.fromkeys(kernel_counters(), 0)
+    first, rows = {}, []
+    for i, (mode, p) in enumerate((("int8", q8pipe), ("kv_a8", a8pipe), ("kv_a8", a8pipe),
+                                   ("int8", q8pipe))):
+        want = quantized_launches(cfg, "int8", 2 * n, prompt_len, kv_a8=mode == "kv_a8")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, seconds, got, plain_calls, tc = counted(
+            torch, dev, lambda: p.layout_to_image(CAPTIONS, GROUNDINGS, seeds=SEEDS))
+        check_launches("16", f"{mode} x4 turn {i + 1}", got, want, plain_calls, tc)
+        check_image_output(cfg, out, n)
+        if mode == "kv_a8":
+            add_launches(launches, got)
+        ref = first.setdefault(mode, out.image_tokens)
+        check(bool((out.image_tokens == ref).all()),
+              f"[16] {mode} x4 turn {i + 1}: tokens differ from its first call's")
+        rows.append(dict(mode=mode, s_per_call=seconds,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+        log(f"[16] {mode} x4 turn {i + 1} (graph): {seconds:.3f} s/call, "
+            f"{n * cfg.image_seq_len / seconds:.1f} image tokens/s, peak "
+            f"{rows[-1]['peak_gib']:.2f} GiB; tokens equal to the mode's first call")
+    apart = int((first["kv_a8"] != first["int8"]).sum())
+    log(f"[16] kv_a8 against int8 on the same weights and seeds: {apart} of "
+        f"{first['int8'].size} tokens differ (another function: s8 queries and "
+        "probabilities)")
+    steps = min(A8_EAGER_STEPS, cfg.image_seq_len)
+    loops = {}
+    for eager in (True, False):
+        prep = a8pipe.prepare_layout_to_image(CAPTIONS, GROUNDINGS, seeds=SEEDS)
+        tokens, seconds, got, plain_calls, tc = counted(torch, dev, lambda: generate_image_tokens(
+            a8pipe.model, cfg, prep.embeds, prep.cfg_mask[:, :prompt_len + steps].contiguous(),
+            prep.generator, a8pipe.gen.cfg_weight, a8pipe.gen.temperature, num_tokens=steps,
+            quantized_cache=True, eager=eager, kv_a8=True))
+        what = "eager" if eager else "graph"
+        # int8's matmuls are plain torch: K1-a8 alone, at every decode step
+        want = dict(dict.fromkeys(got, 0),
+                    prefix_decode_attention_a8=steps * cfg.llama.num_layers)
+        check_launches("16", f"kv_a8 loop {what}, {steps} steps", got, want, plain_calls, tc)
+        loops[what] = (tokens.cpu(), seconds)
+        log(f"[16] kv_a8 loop {what}, {steps} steps: {seconds:.3f} s "
+            f"({1e3 * seconds / steps:.2f} ms a step with prefill)")
+    check(torch.equal(loops["graph"][0], loops["eager"][0]),
+          f"[16] kv_a8 graph against eager: "
+          f"{int((loops['graph'][0] != loops['eager'][0]).sum())} tokens differ")
+    log(f"[16] kv_a8 loop: the graph's {steps} x {n} tokens bitwise equal to the eager loop's")
+    summary = dict(calls=rows, tokens_apart=apart,
+                   eager_s=loops["eager"][1], graph_s=loops["graph"][1], steps=steps)
+    log("[16] " + json.dumps(summary))
+    del a8pipe, q8pipe
+    torch.cuda.empty_cache()
+    return launches, summary
 
 
 def check_q8_prefill_cache(torch, pipe, cfg) -> float:
@@ -2441,6 +2633,11 @@ def phase_train_options(torch, dev) -> dict:
 
 
 PARALLEL_STEPS = 3  # checked trainer steps of (b), each run, before a profiled one
+# (b, c): the phase-9 Trainer at Janus-Pro-1B width cut in depth to 4 LLaMA
+# layers and 4 SigLIP blocks: at 24 + 24 the two runs and the checkpoint's
+# write and restore took ~150 s, which brought the smoke near its time
+# limit; cut, ~33 s
+PARALLEL_TRAIN_LAYERS = (4, 4)
 TP2_STEPS = 32  # the 2-rank decode of (e)
 TP2_TIMEOUT_S = 240.0
 TP_EAGER_STEPS = 16  # (d): eager against graph under TP; an eager step is host-bound
@@ -2556,7 +2753,8 @@ def parallel_trainer_run(torch, dev, what: str, overrides: dict, launches: dict)
     numbers)."""
     import statistics
 
-    trainer, loader, built = options_trainer(torch, dev, overrides)
+    trainer, loader, built = options_trainer(torch, dev, overrides,
+                                             fsdp_tp_model_cfg(PARALLEL_TRAIN_LAYERS))
     check((trainer.mesh is None) == (what == "plain"), f"[15b] {what}: mesh {trainer.mesh}")
     losses, seconds, peak, got = trainer_steps(torch, "15b", what, trainer, loader,
                                                PARALLEL_STEPS)
@@ -2579,9 +2777,10 @@ def full_params_cpu(torch, model) -> dict:
 
 
 def phase_parallel_train(torch, dev, launches: dict) -> dict:
-    """[15b, c] the phase-9 Trainer plain, then with `fsdp=True` on the 1 x 1
-    mesh (FSDP2 over the world-1 group), from the same seed on the same toy
-    batches; then the FSDP run's checkpoint restored into a plain Trainer."""
+    """[15b, c] the phase-9 Trainer (cut in depth to PARALLEL_TRAIN_LAYERS)
+    plain, then with `fsdp=True` on the 1 x 1 mesh (FSDP2 over the world-1
+    group), from the same seed on the same toy batches; then the FSDP run's
+    checkpoint restored into a plain Trainer."""
     import gc
 
     gc.collect()
@@ -2616,7 +2815,8 @@ def phase_parallel_train(torch, dev, launches: dict) -> dict:
     out_dir = trainer.cfg.train.output_dir
     trainer.state = trainer.model = trainer.step_fn = None
     torch.cuda.empty_cache()
-    back, _, _ = options_trainer(torch, dev, {"output_dir": out_dir})
+    back, _, _ = options_trainer(torch, dev, {"output_dir": out_dir},
+                                 fsdp_tp_model_cfg(PARALLEL_TRAIN_LAYERS))
     t0 = time.perf_counter()
     step = back.maybe_resume()
     restored_s = time.perf_counter() - t0
@@ -2736,15 +2936,16 @@ def phase_tp2_one_card(torch, pipe, cfg) -> dict:
     return dict(seconds=seconds, steps=TP2_STEPS, tokens_equal=same)
 
 
-def fsdp_tp_model_cfg():
+def fsdp_tp_model_cfg(depth=FSDP_TP_LAYERS):
     """Janus-Pro-1B's widths (hidden 2048, 16 heads x 128, vocab 102400,
-    SigLIP 1024 / 16 heads) at the depth of FSDP_TP_LAYERS."""
+    SigLIP 1024 / 16 heads) at `depth` (LLaMA layers, SigLIP blocks),
+    FSDP_TP_LAYERS by default."""
     import dataclasses
 
     from plangen_tpu_torch.config import PlanGenModelConfig
 
     base = PlanGenModelConfig()
-    layers, blocks = FSDP_TP_LAYERS
+    layers, blocks = depth
     return dataclasses.replace(base, llama=dataclasses.replace(base.llama, num_layers=layers),
                                vision=dataclasses.replace(base.vision, layers=blocks))
 
@@ -2944,15 +3145,17 @@ def phase_fsdp_tp(torch, dev) -> dict:
                                  if k.startswith("flash")} for r, res in got.items()})
 
 
-def quantized_launches(cfg, quantize, n_rows: int, prompt_len: int) -> dict:
+def quantized_launches(cfg, quantize, n_rows: int, prompt_len: int,
+                       kv_a8: bool = False) -> dict:
     """`expected_launches` of one image loop in a quantized form: the int4
     forms (and 'auto', whose x4 call runs the int4 view) K2 or K4 at every
-    projection and K1-q8; int8, whose matmuls are plain torch, K1-q8 alone."""
+    projection and K1-q8 (K1-a8 with `kv_a8`); int8, whose matmuls are plain
+    torch, the decode attention alone."""
     if quantize == "int8":
-        want = expected_launches(cfg, "int4", n_rows, prompt_len)
+        want = expected_launches(cfg, "int4", n_rows, prompt_len, kv_a8=kv_a8)
         return dict(want, int4_matmul_w16=0)
     return expected_launches(cfg, "int4" if quantize == "auto" else quantize, n_rows,
-                             prompt_len)
+                             prompt_len, kv_a8=kv_a8)
 
 
 def same_buffers(torch, a, b) -> list:
@@ -3010,11 +3213,32 @@ def phase_tp_quantized(torch, pipe, cfg, mesh, launches: dict) -> list:
             del split
         row = dict(mode=mode, unsharded_s=out["unsharded"][1], tp_s=out["tp"][1],
                    unsharded_peak_gib=out["unsharded"][3], tp_peak_gib=out["tp"][3])
+        a8 = ""
+        if mode == "int8":
+            # kv_a8 on the same two int8 models: K1-a8 at the rank's H/tp heads
+            want_a8 = quantized_launches(cfg, mode, 2 * len(CAPTIONS), prompt_len, kv_a8=True)
+            for what in ("unsharded", "tp"):
+                apipe, _ = build_pipeline(torch, dev, False, model=out[what][2].model,
+                                          quantize=mode, kv_a8=True)
+                res, seconds, got, plain_calls, tc = counted(
+                    torch, dev, lambda: apipe.layout_to_image(CAPTIONS, GROUNDINGS, seeds=SEEDS))
+                check_launches("15f", f"{mode} + kv_a8 {what} x4", got, want_a8, plain_calls, tc)
+                check_image_output(cfg, res, len(CAPTIONS))
+                if what == "tp":
+                    add_launches(launches, got)
+                row[f"kv_a8_{what}_s"] = seconds
+                out[f"kv_a8_{what}"] = np.asarray(res.image_tokens)
+            diff = int((out["kv_a8_tp"] != out["kv_a8_unsharded"]).sum())
+            check(diff == 0, f"[15f] {mode} + kv_a8 tp x4: {diff} tokens differ from the "
+                  "unsharded model's")
+            a8 = (f"; with kv_a8 tp {row['kv_a8_tp_s']:.3f} s/call against "
+                  f"{row['kv_a8_unsharded_s']:.3f} unsharded, tokens bitwise equal, K1-a8 "
+                  "launches the code's on both")
         rows.append(row)
         log(f"[15f] {mode} x4 (graph): tp {row['tp_s']:.3f} s/call against "
             f"{row['unsharded_s']:.3f} unsharded ({100 * (row['tp_s'] / row['unsharded_s'] - 1):+.1f} %), "
             f"peak {row['tp_peak_gib']:.2f} / {row['unsharded_peak_gib']:.2f} GiB; tokens bitwise "
-            f"equal, launches the code's on both; route b {route_b}; {nvidia_smi_line()}")
+            f"equal, launches the code's on both; route b {route_b}{a8}; {nvidia_smi_line()}")
         del out
         torch.cuda.empty_cache()
     return rows
@@ -4710,6 +4934,10 @@ def main() -> int:
     del apipe
     torch.cuda.empty_cache()
     mark("7")
+    k1a8 = phase_k1_a8_vs_plain(torch, prompt_len, dev)
+    kv_a8_launches, _ = phase_kv_a8(torch, dev)
+    add_launches(launches, kv_a8_launches)
+    mark("16")
 
     flash = phase_flash_vs_plain(torch, dev)
     torch.cuda.empty_cache()
@@ -4735,6 +4963,9 @@ def main() -> int:
          "plangen_tpu/ops/pallas_decode_attention.py:31", k1),
         ("prefix_decode_attention_q8", "prefix_decode_attention.cu",
          "plangen_tpu/ops/pallas_decode_attention.py:31", k1q8),
+        # no Pallas kernel: the XLA s8 einsums of dot_product_attention_q8(a8=True)
+        ("prefix_decode_attention_a8", "prefix_decode_attention_a8.cu",
+         "plangen_tpu/ops/attention.py:229", k1a8),
         ("int4_matmul_w16", "int4_matmul.cu",
          "plangen_tpu/ops/pallas_int4_matmul.py:101", int4["K2"]),
         ("int4_matmul_a8", "int4_matmul.cu",

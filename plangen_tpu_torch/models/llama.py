@@ -24,7 +24,8 @@ prefix decode-attention kernel. The JAX package's `growing_cache` and
 has no branch for them. With the int8 cache (`k_scale` in the cache) the
 rows are written quantized (`quantize_kv`), prefill attends over the
 quantized K/V it has just written (`dot_product_attention_q8`), and a decode
-step reads through the int8-cache kernel K1-q8.
+step reads through the int8-cache kernel K1-q8, or with `kv_a8` (the JAX
+package's s8 x s8 decode attention) through K1-a8.
 
 `ops/quant.py::quantize_model_` may replace the projections by quantized
 modules, with same-input projections fused (`qkv_proj`, `k_v_proj`,
@@ -59,7 +60,7 @@ from plangen_tpu_torch.ops.attention import (
     dot_product_attention, dot_product_attention_q8, make_causal_bias, quantize_kv,
 )
 from plangen_tpu_torch.ops.decode_attention import (
-    prefix_decode_attention, prefix_decode_attention_q8,
+    prefix_decode_attention, prefix_decode_attention_a8, prefix_decode_attention_q8,
 )
 from plangen_tpu_torch.ops.flash_attention import flash_attention
 from plangen_tpu_torch.ops.remat import Remat, remat_call
@@ -200,6 +201,7 @@ class LlamaDecoderLayer(nn.Module):
         layer_idx: int = 0,
         flash_mask: Optional[torch.Tensor] = None,  # [B, Q]: no cache, flash kernel
         lora_scaling: Optional[torch.Tensor] = None,  # alpha / r, with adapters
+        kv_a8: bool = False,  # s8 x s8 decode steps over the int8 cache (K1-a8)
     ) -> torch.Tensor:
         cfg = self.cfg
         B, Q, _ = x.shape
@@ -217,7 +219,8 @@ class LlamaDecoderLayer(nn.Module):
         elif cache is None:
             attn = dot_product_attention(q, k, v, bias=bias)
         elif "k_scale" in cache:
-            attn = self._attend_q8(q, k, v, bias, positions, attn_mask, cache, layer_idx)
+            attn = self._attend_q8(q, k, v, bias, positions, attn_mask, cache, layer_idx,
+                                   kv_a8)
         else:
             # in-place row writes at the absolute positions; index_copy_ takes
             # the device tensor, so no host sync and no cache copy
@@ -235,16 +238,19 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
     @staticmethod
-    def _attend_q8(q, k, v, bias, positions, attn_mask, cache, layer_idx):
+    def _attend_q8(q, k, v, bias, positions, attn_mask, cache, layer_idx, kv_a8=False):
         """Write the quantized rows into the int8 cache, then attend over it
-        (prefill reads the quantized K/V it has just written, as JAX does)."""
+        (prefill reads the quantized K/V it has just written, as JAX does).
+        With `kv_a8` a decode step (Q == 1) goes through K1-a8; prefill keeps
+        the plain int8 path, as JAX's `a8 = kv_a8 and Q == 1`."""
         k_q8, k_s, v_q8, v_s = quantize_kv(k, v)
         write_idx = positions.long()
         names = ("k", "k_scale", "v", "v_scale")
         for name, rows in zip(names, (k_q8, k_s, v_q8, v_s)):
             cache[name][layer_idx].index_copy_(1, write_idx, rows)
         if q.shape[1] == 1:
-            return prefix_decode_attention_q8(
+            attend = prefix_decode_attention_a8 if kv_a8 else prefix_decode_attention_q8
+            return attend(
                 q, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
                 attn_mask, layer_idx, positions,
             )
@@ -274,6 +280,7 @@ class LlamaModel(nn.Module):
         use_flash: bool = False,  # the flash kernel on the no-cache path
         remat: Remat = False,  # no cache: each layer under ops/remat.py
         layers_limit: Optional[int] = None,  # early exit after the first K layers
+        kv_a8: bool = False,  # decode steps over the int8 cache through K1-a8
     ) -> torch.Tensor:
         """Run the decoder stack (final RMSNorm applied, no head).
 
@@ -313,7 +320,7 @@ class LlamaModel(nn.Module):
         remat = remat if kv_cache is None else False
         for i, layer in enumerate(self.layers[:n_layers]):
             x = remat_call(layer, remat, x, cos, sin, bias, positions, attn_mask, kv_cache,
-                           i, flash_mask, self.lora_scaling)
+                           i, flash_mask, self.lora_scaling, kv_a8)
         return self.norm(x)
 
 
@@ -348,6 +355,7 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(hidden).float()
 
     def forward(self, inputs_embeds, attn_mask, positions=None, kv_cache=None,
-                use_flash=False, remat: Remat = False, layers_limit: Optional[int] = None):
+                use_flash=False, remat: Remat = False, layers_limit: Optional[int] = None,
+                kv_a8: bool = False):
         return self.model(inputs_embeds, attn_mask, positions, kv_cache, use_flash, remat,
-                          layers_limit)
+                          layers_limit, kv_a8)

@@ -23,6 +23,16 @@ fixes from S alone; `q_pos` stays in device memory, so nothing of a launch
 depends on its value. Slots past `q_pos` take no part in the softmax: a row
 whose live prefix is all pads gets the mean of V over slots 0..q_pos.
 
+`prefix_decode_attention_a8` (K1-a8, `csrc/prefix_decode_attention_a8.cu`)
+is the JAX package's `kv_a8` decode step over the same int8 cache:
+`ops/attention.py::dot_product_attention_q8(a8=True)` over the fixed buffer,
+restricted to the live prefix (slots past `q_pos` and pads add exactly 0 to
+its sum and to its absmax, so it is the same function). The query and the
+normalized, v_scale-folded probabilities are quantized to int8 rows and
+both products are s8 x s8 -> s32. One block per (row, head): the function
+needs the global max, sum and absmax before any PV product, which K1's
+split-KV combine does not give.
+
 `<wrapper>.launches` counts kernel launches and `<plain>.calls` counts
 plain-version calls, so a run can show which one carried it.
 """
@@ -36,7 +46,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from plangen_tpu_torch.ops import require_local
-from plangen_tpu_torch.ops.attention import NEG_INF
+from plangen_tpu_torch.ops.attention import NEG_INF, _quantize_rows_s8, s8_dot
 
 CHUNK = 128
 MAX_SPLITS = 8  # the kernel's splits per (row, head): the portable cluster size
@@ -339,3 +349,119 @@ def prefix_decode_attention_q8(
 
 
 prefix_decode_attention_q8.launches = 0
+
+
+# ------------------------------------------- s8 x s8 over the int8 cache (K1-a8)
+
+KERNEL_NAME_A8 = "prefix_decode_attention_a8"
+A8_MAX_SLOTS = 32768  # the logits and codes of a row fit in a block's shared memory
+
+
+def prefix_decode_attention_a8_reference(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_q8: torch.Tensor,  # [L, B, S, Hkv, D] int8
+    k_scale: torch.Tensor,  # [L, B, S, Hkv] fp32
+    v_q8: torch.Tensor,
+    v_scale: torch.Tensor,
+    pad_mask: torch.Tensor,  # [B, S]
+    layer: int,
+    q_pos: Union[int, torch.Tensor],
+    scale: Optional[float] = None,
+    return_codes: bool = False,
+):
+    """Plain PyTorch version of K1-a8 over the masked full buffer.
+
+    q8, q_s = the query quantized per (row, head) over D; logit =
+    s32(q8 . k_q8) * q_s * k_scale * scale in fp32; pads get NEG_INF and
+    slots past `q_pos` take no part; p = exp(logit - max) / sum, times
+    v_scale, quantized per (row, head) over S to (p8, p_s); the output is
+    s32(p8 . v_q8) * p_s in q.dtype. A live prefix of pads only gives every
+    live slot the same weight. Fewer KV heads than query heads (GQA) are
+    repeated, as `dot_product_attention_q8` does; the kernel takes MHA.
+    With `return_codes`, (out, p8 [B, H, S] int8)."""
+    prefix_decode_attention_a8_reference.calls += 1
+    H, D = q.shape[-2:]
+    if scale is None:
+        scale = D ** -0.5
+    rep = H // k_q8.shape[3]
+    k8, ks, v8, vs = (t[layer].repeat_interleave(rep, 2) for t in (k_q8, k_scale, v_q8, v_scale))
+    q8, q_s = _quantize_rows_s8(q[:, 0].float())  # q_s [B, H, 1]
+    s = s8_dot("bhd,bshd->bhs", q8, k8) * q_s * ks.transpose(1, 2) * scale
+    p = _live_softmax_numerator(s, pad_mask, q_pos)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    p8, p_s = _quantize_rows_s8(p * vs.transpose(1, 2))  # over S; p_s [B, H, 1]
+    out = (s8_dot("bhs,bshd->bhd", p8, v8) * p_s).to(q.dtype)[:, None]
+    return (out, p8) if return_codes else out
+
+
+prefix_decode_attention_a8_reference.calls = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn_a8():
+    from plangen_tpu_torch.kernels import load_library
+
+    fn = load_library(KERNEL_NAME_A8).lib.plangen_prefix_decode_attention_a8
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def prefix_decode_attention_a8(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_q8: torch.Tensor,  # [L, B, S, H, D] int8
+    k_scale: torch.Tensor,  # [L, B, S, H] fp32
+    v_q8: torch.Tensor,
+    v_scale: torch.Tensor,
+    pad_mask: torch.Tensor,  # [B, S]
+    layer: int,
+    q_pos: Union[int, torch.Tensor],  # one-element int32 tensor on the card
+    scale: Optional[float] = None,
+    codes_out: Optional[torch.Tensor] = None,  # int8 [B, H, S]: the p codes
+) -> torch.Tensor:
+    """Single-step s8 x s8 decode attention over layer `layer`'s live int8
+    cache prefix (K1-a8). Requirements as `prefix_decode_attention_q8`, and
+    S <= A8_MAX_SLOTS on the card; CPU inputs run the plain version.
+    `codes_out`, when given, receives the probability codes (0 past
+    `q_pos`), for comparing the kernel with its plain version."""
+    require_local("prefix_decode_attention_a8", q, k_q8, k_scale, v_q8, v_scale, pad_mask,
+                  q_pos)
+    _check_q8_inputs(q, k_q8, k_scale, v_q8, v_scale, pad_mask, layer)
+    L, B, S, H, D = k_q8.shape
+    if codes_out is not None and (tuple(codes_out.shape) != (B, H, S)
+                                  or codes_out.dtype != torch.int8):
+        raise ValueError(f"codes_out must be int8 [{B}, {H}, {S}], got "
+                         f"{codes_out.dtype} {tuple(codes_out.shape)}")
+    if scale is None:
+        scale = D ** -0.5
+    if q.device.type == "cpu":
+        out, codes = prefix_decode_attention_a8_reference(
+            q, k_q8, k_scale, v_q8, v_scale, pad_mask, layer, q_pos, scale, return_codes=True)
+        if codes_out is not None:
+            codes_out.copy_(codes)
+        return out
+    if q.device.type != "cuda":
+        raise ValueError(f"no prefix decode attention for device {q.device}")
+    if S > A8_MAX_SLOTS:
+        raise ValueError(f"the a8 kernel takes S <= {A8_MAX_SLOTS}, not {S}")
+    extra = () if codes_out is None else (codes_out,)
+    _check_cuda_common(q, pad_mask, q_pos, D,
+                       (q, k_q8, k_scale, v_q8, v_scale, pad_mask, q_pos) + extra)
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    err = _kernel_fn_a8()(
+        q.data_ptr(), k_q8.data_ptr(), k_scale.data_ptr(), v_q8.data_ptr(),
+        v_scale.data_ptr(), pad_mask.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        None if codes_out is None else codes_out.data_ptr(),
+        B, S, H, D, int(layer), float(scale), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"prefix_decode_attention_a8 kernel launch failed: "
+                           f"cudaError {err}")
+    prefix_decode_attention_a8.launches += 1
+    return out
+
+
+prefix_decode_attention_a8.launches = 0

@@ -47,7 +47,8 @@ from plangen_tpu_torch.ops import int4_matmul as im
 # (wrapper, counter) of every kernel a decode step may launch
 COUNTERS = tuple((fn, name)
                  for fn in (da.prefix_decode_attention, da.prefix_decode_attention_q8,
-                            im.int4_matmul_w16, im.int4_matmul_w4a8)
+                            da.prefix_decode_attention_a8, im.int4_matmul_w16,
+                            im.int4_matmul_w4a8)
                  for name in ("launches", "tc_launches") if hasattr(fn, name))
 
 

@@ -9,7 +9,9 @@ Q = 16 forward at positions `L + start + arange(16)` through the cache
 branch of `models/llama.py` (the plain prefill attention, or its int8-cache
 counterpart), which writes the chunk's K/V and gives the hidden state that
 enters the next position. A chunk with any sampled position (a mixed chunk)
-runs `image_decode_step` position by position.
+runs `image_decode_step` position by position. With `kv_a8` the mixed steps
+read the int8 cache through K1-a8 and the frozen chunks keep the plain int8
+path, as in the JAX package.
 
 `frozen_chunk_schedule` and `canonicalize_schedule` are copies of the JAX
 functions (numpy). The JAX pipeline canonicalizes the schedule because each
@@ -101,6 +103,7 @@ def generate_image_tokens_fast_edit(
     schedule: Tuple[bool, ...] = (),  # from frozen_chunk_schedule
     quantized_cache: bool = False,  # int8 KV cache with fp32 scales
     eager: bool = False,  # on the card, the mixed steps eagerly, not the graph
+    kv_a8: bool = False,  # the mixed steps' attention through K1-a8
 ) -> torch.Tensor:
     """Teacher-forced generation with each frozen chunk one forward; [B, N]
     int64 ids, the standard loop's tokens (module docstring)."""
@@ -108,7 +111,7 @@ def generate_image_tokens_fast_edit(
         raise ValueError(f"a schedule of {len(schedule)} chunks for {num_tokens} tokens")
     buffers, step, mask, cache, generators = start_image_loop(
         model, cfg, cfg_embeds, attn_mask, generator, cfg_weight, temperature,
-        gt_tokens, regen_mask, num_tokens, quantized_cache)
+        gt_tokens, regen_mask, num_tokens, quantized_cache, kv_a8)
     gt_tokens = torch.as_tensor(gt_tokens, device=cfg_embeds.device)
     B2, L, _ = cfg_embeds.shape
     device = cfg_embeds.device

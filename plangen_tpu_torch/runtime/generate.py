@@ -18,7 +18,9 @@ state is unused, as in the JAX loop, so a generation makes exactly
 With `quantized_cache` the cache is the int8 layout of `runtime/kvcache.py`
 (the JAX package's `quantized_cache=True`, which every quantized serving
 mode sets): prefill writes quantized rows and attends over them, and each
-decode step reads through the int8-cache kernel K1-q8.
+decode step reads through the int8-cache kernel K1-q8, or with `kv_a8` (the
+JAX package's s8 x s8 decode attention) through K1-a8. The text loop takes
+no `kv_a8`, as in the JAX package.
 
 `greedy_decode_text` (layout planning, understanding): each step takes the
 fp32 `lm_head` logits of the last hidden state, their argmax (the first
@@ -103,6 +105,7 @@ def image_decode_step(
     dtype: torch.dtype,  # of the embeds fed back
     gt_tokens: Optional[torch.Tensor] = None,  # [B, N] forced ids
     regen_mask: Optional[torch.Tensor] = None,  # [B, N] 1 = sample
+    kv_a8: bool = False,  # the decoder step's attention through K1-a8
 ) -> None:
     """Step i = `buffers.step`: gen_head -> CFG combine -> fp32 sampling (or
     teacher forcing) into column i of `buffers.tokens` -> the token fed back
@@ -119,7 +122,7 @@ def image_decode_step(
     b.tokens.index_copy_(1, b.step, token[:, None])
     pair_token = token[:, None].expand(-1, 2).reshape(-1)  # [2B], repeat_interleave(2)
     next_embeds = model.gen_img_embeds(pair_token[:, None]).to(dtype)
-    hidden = model.language_model(next_embeds, mask, b.q_pos, cache)
+    hidden = model.language_model(next_embeds, mask, b.q_pos, cache, kv_a8=kv_a8)
     b.last_hidden.copy_(hidden[:, -1])
     b.q_pos.add_(1)
     b.step.add_(1)
@@ -137,6 +140,7 @@ def start_image_loop(
     regen_mask: Optional[torch.Tensor],
     num_tokens: int,
     quantized_cache: bool,
+    kv_a8: bool = False,
 ) -> Tuple[StepBuffers, Callable[[], None], torch.Tensor, KVCache, List[torch.Generator]]:
     """The arguments checked, the cache allocated and prefilled, the step's
     buffers: (buffers, the step as a closure, the zero-tailed mask, the
@@ -172,7 +176,7 @@ def start_image_loop(
 
     def step():
         image_decode_step(model, buffers, mask, cache, cfg_weight, temperature, generator,
-                          cfg_embeds.dtype, gt_tokens, regen_mask)
+                          cfg_embeds.dtype, gt_tokens, regen_mask, kv_a8)
 
     generators = [] if temperature == 0 else (
         [generator] if isinstance(generator, torch.Generator) else list(generator))
@@ -193,6 +197,7 @@ def generate_image_tokens(
     num_tokens: int = 576,
     quantized_cache: bool = False,  # int8 KV cache with fp32 scales
     eager: bool = False,  # on the card, the eager loop instead of the graph
+    kv_a8: bool = False,  # decode steps over the int8 cache through K1-a8
 ) -> torch.Tensor:
     """Prefill + `num_tokens` KV-cached CFG decode steps; [B, N] int64 ids.
 
@@ -200,7 +205,7 @@ def generate_image_tokens(
     `eager`; a step that cannot be captured raises."""
     buffers, step, _, _, generators = start_image_loop(
         model, cfg, cfg_embeds, attn_mask, generator, cfg_weight, temperature,
-        gt_tokens, regen_mask, num_tokens, quantized_cache)
+        gt_tokens, regen_mask, num_tokens, quantized_cache, kv_a8)
     if cfg_embeds.device.type == "cuda" and not eager and num_tokens > 1:
         # every generator the step draws from, so each replay draws afresh
         eager_step(step)

@@ -56,8 +56,11 @@ driving its draws; `fast_edit` and teacher-forced calls keep their loops.
 With `jacobi`, every text decode (`plan`, the plan of `joint_generate`,
 `understand`) runs `runtime/jacobi.py`. Either with a quantized form raises
 `ValueError`, as the JAX config check does, before anything is quantized.
-The one option the port does not have, `kv_a8`, raises
-`NotImplementedError` instead of being ignored. As in the
+`kv_a8` (it needs a quantized form, as the JAX config check says) sends
+every image decode step, the standard loop's and `fast_edit`'s mixed
+steps, on every route of `auto`, through the s8 x s8 kernel K1-a8 over the
+int8 cache; prefill, `fast_edit`'s frozen chunks and the text loops keep
+the plain int8 path, as in the JAX pipeline. As in the
 JAX pipeline, `gt_images` and `edit_region` take effect only with teacher
 forcing (the `teacher_forcing` argument, or
 `GenerationConfig.use_teacher_forcing` when it is None): the images are
@@ -90,15 +93,6 @@ from plangen_tpu_torch.runtime.jacobi import jacobi_decode_text
 from plangen_tpu_torch.runtime.speculative import generate_image_tokens_spec
 from plangen_tpu_torch.tasks.processor import PlanGenProcessor
 from plangen_tpu_torch.text.grounding import truncate_grounding
-
-
-def _unsupported_options(gen: GenerationConfig) -> List[str]:
-    names = []
-    if gen.quantize not in (None, "auto") + MODES:
-        names.append(f"quantize={gen.quantize!r}")
-    if gen.kv_a8:
-        names.append("kv_a8=True")
-    return names
 
 
 def copy_seed(seed: int, copy: int) -> int:
@@ -192,14 +186,12 @@ class PlanGenPipeline:
         self.cfg = model_cfg
         self.proc = processor
         gen = gen_cfg or processor.gen
-        unsupported = _unsupported_options(gen)
-        if unsupported:
+        if gen.quantize not in (None, "auto") + MODES:
             raise NotImplementedError(
-                "plangen_tpu_torch does not implement "
-                + ", ".join(unsupported) + " yet"
-            )
-        # the JAX config check's rules (speculative or jacobi with a
-        # quantized form raise ValueError), before anything is quantized
+                f"plangen_tpu_torch does not implement quantize={gen.quantize!r}")
+        # the JAX config check's rules (kv_a8 without a quantized form, and
+        # speculative or jacobi with one, raise ValueError), before anything
+        # is quantized
         validate_config(PlanGenConfig(generation=gen))
         have = quant_form(model)
         if have is None:
@@ -482,7 +474,7 @@ class PlanGenPipeline:
         kwargs = dict(generator=prep.generator, cfg_weight=self.gen.cfg_weight,
                       temperature=self.gen.temperature, gt_tokens=prep.gt_tokens,
                       regen_mask=prep.regen, num_tokens=self.cfg.image_seq_len,
-                      quantized_cache=self._quantized_cache)
+                      quantized_cache=self._quantized_cache, kv_a8=self.gen.kv_a8)
         if self.gen.fast_edit and prep.gt_tokens is not None:
             tokens = generate_image_tokens_fast_edit(
                 model, self.cfg, prep.embeds, prep.cfg_mask,

@@ -32,6 +32,7 @@ from plangen_tpu_torch.config import GenerationConfig
 from plangen_tpu_torch.config import PlanGenModelConfig as TConfig
 from plangen_tpu_torch.convert import load_jax_params
 from plangen_tpu_torch.models.vlm import PlanGenModel
+from plangen_tpu_torch.ops import decode_attention as da
 from plangen_tpu_torch.ops.sampling import skip_categorical
 from plangen_tpu_torch.runtime import fast_edit as fe
 from plangen_tpu_torch.runtime.generate import generate_image_tokens
@@ -124,21 +125,35 @@ def _generators(kind):
     return torch.Generator().manual_seed(11)
 
 
+def _loop_args(quantized, temperature):
+    _, model = _load()
+    embeds, mask, gt, regen = _inputs()
+    args = (model, TCFG, torch.from_numpy(embeds), torch.from_numpy(mask))
+    kw = dict(cfg_weight=5.0, temperature=temperature, gt_tokens=torch.from_numpy(gt),
+              regen_mask=torch.from_numpy(regen), num_tokens=N, quantized_cache=quantized)
+    return args, kw
+
+
+@functools.lru_cache(maxsize=None)
+def _standard_loop(quantized, temperature, kind):
+    """The standard loop's tokens from fresh generators: both schedules'
+    cases compare against the same decode."""
+    args, kw = _loop_args(quantized, temperature)
+    return generate_image_tokens(*args, _generators(kind), **kw)
+
+
 @pytest.mark.parametrize("schedule", ["raw", "canonical"])
 @pytest.mark.parametrize("sampling", [(0.0, "one"), (1.0, "one"), (1.0, "per_row")],
                          ids=["greedy", "t1_one_generator", "t1_per_row"])
 @pytest.mark.parametrize("quantized", [False, True], ids=["dense_cache", "int8_cache"])
 def test_tokens_equal_the_standard_loop(quantized, sampling, schedule):
-    _, model = _load()
-    embeds, mask, gt, regen = _inputs()
+    _, _, gt, regen = _inputs()
     temperature, kind = sampling
     raw = fe.frozen_chunk_schedule(regen)
     assert raw == (True, False, False, True)
     sched = raw if schedule == "raw" else fe.canonicalize_schedule(raw, 2)
-    args = (model, TCFG, torch.from_numpy(embeds), torch.from_numpy(mask))
-    kw = dict(cfg_weight=5.0, temperature=temperature, gt_tokens=torch.from_numpy(gt),
-              regen_mask=torch.from_numpy(regen), num_tokens=N, quantized_cache=quantized)
-    want = generate_image_tokens(*args, _generators(kind), **kw)
+    args, kw = _loop_args(quantized, temperature)
+    want = _standard_loop(quantized, temperature, kind)
     got = fe.generate_image_tokens_fast_edit(*args, _generators(kind), schedule=sched, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     keep = torch.from_numpy(regen) == 0
@@ -249,15 +264,33 @@ def test_pipeline_fast_edit_equals_standard(quantize, n, monkeypatch):
     assert calls == []
 
 
-def test_fast_edit_flag_is_accepted_with_the_other_options_still_raising(monkeypatch):
-    """With `fast_edit` and `speculative` both on, a teacher-forced call of
-    one image takes `fast_edit`, as in JAX (speculative decoding is for
-    calls without teacher forcing), and gives the plain `fast_edit`
-    pipeline's tokens; `kv_a8`, the option the port lacks, still raises."""
+def test_fast_edit_flag_is_accepted_with_kv_a8_and_speculative(monkeypatch):
+    """`fast_edit` with `kv_a8` (and int8) reaches
+    `generate_image_tokens_fast_edit` with the flag. With `fast_edit` and
+    `speculative` both on, a teacher-forced call of one image takes
+    `fast_edit`, as in JAX (speculative decoding is for calls without
+    teacher forcing), and gives the plain `fast_edit` pipeline's tokens."""
     assert dataclasses.replace(_pipeline(None, True).gen).fast_edit
-    with pytest.raises(NotImplementedError, match="kv_a8"):
-        PlanGenPipeline(_load()[1], TCFG, _pipeline(None, True).proc,
-                        gen_cfg=GenerationConfig(fast_edit=True, kv_a8=True, quantize="int8"))
+    a8 = _pipeline("int8", True)
+    a8 = PlanGenPipeline(a8.model, TCFG, a8.proc,
+                         gen_cfg=dataclasses.replace(a8.gen, kv_a8=True))
+    flags = []
+    inner = tpipeline.generate_image_tokens_fast_edit
+    monkeypatch.setattr(tpipeline, "generate_image_tokens_fast_edit", lambda *a, **kw: (
+        flags.append(kw["kv_a8"]), inner(*a, **kw))[1])
+    size = TCFG.vision.image_size
+    image = np.random.RandomState(8).uniform(-1, 1, (1, size, size, 3)).astype(np.float32)
+    region = np.zeros((1, TCFG.image_seq_len), np.int32)
+    region[0, 2] = 1
+    grounding = ["<grounding><ref>x</ref><box>[0, 0, 500, 500]</box></grounding>"]
+    calls = da.prefix_decode_attention_a8_reference.calls
+    a8.edit_image(["c"], grounding, image, region, seeds=[3])
+    assert flags == [True]
+    # the one chunk (4 tokens) holds a sampled position: each of its decode
+    # steps through K1-a8 (its plain version here)
+    assert (da.prefix_decode_attention_a8_reference.calls - calls
+            == TCFG.image_seq_len * TCFG.llama.num_layers)
+    monkeypatch.setattr(tpipeline, "generate_image_tokens_fast_edit", inner)
     fast = _pipeline(None, True)
     gen = dataclasses.replace(fast.gen, speculative=True, spec_draft_layers=1)
     both = PlanGenPipeline(fast.model, TCFG, fast.proc, gen_cfg=gen)
@@ -266,11 +299,6 @@ def test_fast_edit_flag_is_accepted_with_the_other_options_still_raising(monkeyp
         inner = getattr(tpipeline, name)
         monkeypatch.setattr(tpipeline, name, lambda *a, _n=name, _f=inner, **kw: (
             calls.append(_n), _f(*a, **kw))[1])
-    size = TCFG.vision.image_size
-    image = np.random.RandomState(8).uniform(-1, 1, (1, size, size, 3)).astype(np.float32)
-    region = np.zeros((1, TCFG.image_seq_len), np.int32)
-    region[0, 2] = 1
-    grounding = ["<grounding><ref>x</ref><box>[0, 0, 500, 500]</box></grounding>"]
     got = both.edit_image(["c"], grounding, image, region, seeds=[3])
     want = fast.edit_image(["c"], grounding, image, region, seeds=[3])
     assert calls == ["generate_image_tokens_fast_edit"] * 2

@@ -100,14 +100,21 @@ def pallas_interpret(monkeypatch):
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _port_greedy(name):
+    """The port's greedy tokens: one loop for every JAX cache form, so the
+    paged and growing-cache cases share its decode."""
+    return _port_tokens(name)
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_greedy_tokens_equal_jax_paged(name, pallas_interpret):
-    np.testing.assert_array_equal(_port_tokens(name), _jax_tokens(name, paged=True))
+    np.testing.assert_array_equal(_port_greedy(name), _jax_tokens(name, paged=True))
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_greedy_tokens_equal_jax_growing_cache(name):
-    np.testing.assert_array_equal(_port_tokens(name),
+    np.testing.assert_array_equal(_port_greedy(name),
                                   _jax_tokens(name, growing_cache=True))
 
 
@@ -233,14 +240,22 @@ def test_sampled_layout_to_image_is_reproducible_per_seed():
     dict(quantize="int2"), dict(kv_a8=True, quantize="int8"),
 ], ids=["quantize", "kv_a8"])
 def test_unported_options_raise(option):
-    """The option the port lacks (`kv_a8`) raises; so does a quantize value
-    outside the modes (every mode of the JAX package, 'auto' included, is
-    ported; `fast_edit` too, tests/test_torch_fast_edit.py; `speculative`
-    and `jacobi`, tests/test_torch_speculative.py and test_torch_jacobi.py)."""
+    """Only a quantize value outside the modes raises NotImplementedError:
+    every option of the JAX package's GenerationConfig is ported, so the
+    `kv_a8` case builds its pipeline (it decodes in
+    tests/test_torch_kv_a8.py; 'auto' and `fast_edit` in
+    tests/test_torch_fast_edit.py; `speculative` and `jacobi` in
+    tests/test_torch_speculative.py and test_torch_jacobi.py)."""
     cfg, _, model = _load("tiny")
     tok = ByteFallbackTokenizer(vocab_size=cfg.llama.vocab_size)
     proc = PlanGenProcessor(tok, image_tokens=cfg.image_seq_len)
-    with pytest.raises(NotImplementedError):
+    if option.get("kv_a8"):
+        dense = PlanGenModel(cfg, dtype=torch.float32)
+        dense.load_state_dict(model.state_dict())
+        pipe = PlanGenPipeline(dense, cfg, proc, gen_cfg=GenerationConfig(**option))
+        assert pipe.gen.kv_a8 and pipe._quantized_cache
+        return
+    with pytest.raises(NotImplementedError, match="int2"):
         PlanGenPipeline(model, cfg, proc, gen_cfg=GenerationConfig(**option))
 
 

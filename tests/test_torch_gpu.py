@@ -412,6 +412,130 @@ def test_k1_q8_wrapper_raises(cuda, bad):
     assert da.prefix_decode_attention_q8.launches == launches
 
 
+# ------------------------------------------------- K1-a8 (s8 x s8, int8 cache)
+
+# K1-a8 and its plain version take the same integer products and the same
+# fp32 logits; a probability code may land one step apart where expf and
+# the order of the fp32 softmax sum move p across a rounding boundary. A
+# row whose codes agree is off by the rounding of p_s and of the output's
+# dtype; a differing code moves its row by at most |v8| * p_s <= max v_scale.
+A8_MAX_DIFFERING_CODES = 8
+A8_RTOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -7}
+
+
+def _a8_check(got, want, codes, want_codes, vs, dtype):
+    diff = (codes.long() - want_codes.long()).abs()
+    assert diff.max().item() <= 1 and diff.sum().item() <= A8_MAX_DIFFERING_CODES, diff.sum()
+    flips = diff.sum(-1)[:, None, :, None].float()  # [B, 1, H, 1]
+    err = (got.float() - want.float()).abs()
+    bound = A8_RTOL[dtype] * want.float().abs() + flips * vs.max() + 1e-12
+    assert (err <= bound).all(), (err - bound).max()
+
+
+@pytest.mark.parametrize("shape", [dict(L=3, B=5, S=256, H=3, D=128),
+                                   dict(L=2, B=6, S=1024, H=4, D=64)], ids=["S256_D128",
+                                                                           "S1024_D64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k1_a8_matches_plain_version(cuda, dtype, shape):
+    q, k8, ks, v8, vs, mask = _q8_inputs(cuda, dtype, **shape)
+    B, S, H = shape["B"], shape["S"], shape["H"]
+    for layer, pos in [(0, 0), (1, 60), (0, 127), (1, 128), (0, 200), (1, S - 1)]:
+        q_pos = torch.tensor([pos], dtype=torch.int32, device=cuda)
+        codes = torch.full((B, H, S), 99, dtype=torch.int8, device=cuda)
+        launches = da.prefix_decode_attention_a8.launches
+        got = da.prefix_decode_attention_a8(q, k8, ks, v8, vs, mask, layer, q_pos,
+                                            codes_out=codes)
+        assert da.prefix_decode_attention_a8.launches == launches + 1
+        want, want_codes = da.prefix_decode_attention_a8_reference(
+            q, k8, ks, v8, vs, mask, layer, q_pos, return_codes=True)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert (codes[:, :, pos + 1:] == 0).all()
+        _a8_check(got, want, codes, want_codes, vs[layer], dtype)
+        again = da.prefix_decode_attention_a8(q, k8, ks, v8, vs, mask, layer, q_pos)
+        assert torch.equal(again, got)  # no atomics: bitwise the same
+
+
+def test_k1_a8_all_pad_prefix_is_the_mean_rule(cuda):
+    """A live prefix of pads only: every live slot weighs alike, as the
+    plain version (and K1-q8) give."""
+    q, k8, ks, v8, vs, mask = _q8_inputs(cuda, torch.float32)
+    mask[2, :150] = 0
+    q_pos = torch.tensor([120], dtype=torch.int32, device=cuda)
+    codes = torch.zeros((5, 3, 256), dtype=torch.int8, device=cuda)
+    got = da.prefix_decode_attention_a8(q, k8, ks, v8, vs, mask, 1, q_pos, codes_out=codes)
+    want, want_codes = da.prefix_decode_attention_a8_reference(
+        q, k8, ks, v8, vs, mask, 1, q_pos, return_codes=True)
+    _a8_check(got, want, codes, want_codes, vs[1], torch.float32)
+
+
+@pytest.mark.parametrize("bad", ["mask_int64", "q_pos_int", "fp16", "head_dim_32",
+                                 "scale_fp16", "k_fp32", "non_contiguous", "misaligned_q",
+                                 "misaligned_v", "misaligned_scale", "codes_int32",
+                                 "dtensor"])
+def test_k1_a8_wrapper_raises(cuda, bad, request):
+    q, k8, ks, v8, vs, mask = _q8_inputs(cuda, torch.float32)
+    q_pos = torch.tensor([100], dtype=torch.int32, device=cuda)
+    codes = None
+    if bad == "mask_int64":
+        mask = mask.long()
+    elif bad == "q_pos_int":
+        q_pos = 100
+    elif bad == "fp16":
+        q = q.half()
+    elif bad == "head_dim_32":
+        q, k8, v8 = (t[..., :32].contiguous() for t in (q, k8, v8))
+    elif bad == "scale_fp16":
+        ks = ks.half()
+    elif bad == "k_fp32":
+        k8 = k8.float()
+    elif bad == "misaligned_q":
+        q = _misaligned(q)
+    elif bad == "misaligned_v":
+        v8 = _misaligned(v8)
+    elif bad == "misaligned_scale":
+        ks = _misaligned(ks)
+    elif bad == "codes_int32":
+        codes = torch.zeros((5, 3, 256), dtype=torch.int32, device=cuda)
+    elif bad == "dtensor":
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        mesh = request.getfixturevalue("world1_nccl")
+        q = distribute_tensor(q, mesh["model"], [Replicate()])
+    else:
+        v8 = v8.transpose(3, 4).contiguous().transpose(3, 4)
+    launches = da.prefix_decode_attention_a8.launches
+    with pytest.raises((TypeError, ValueError)):
+        da.prefix_decode_attention_a8(q, k8, ks, v8, vs, mask, 0, q_pos, codes_out=codes)
+    assert da.prefix_decode_attention_a8.launches == launches
+
+
+def test_a8_graph_equals_eager_loop(cuda):
+    """`generate_image_tokens(kv_a8=True)` over the int8 cache: the captured
+    step replayed gives the eager loop's tokens bit for bit, and every
+    decode step's attention is one K1-a8 launch a layer (none of K1-q8)."""
+    cfg, model = _graph_model(cuda, "int8")
+    n = 16
+    embeds, mask = _graph_prompt(cuda, cfg, n)
+
+    def run(eager):
+        generator = [torch.Generator(device=cuda).manual_seed(s) for s in (5, 6)]
+        before = (da.prefix_decode_attention_a8.launches,
+                  da.prefix_decode_attention_q8.launches)
+        tokens = generate_image_tokens(
+            model, cfg, embeds, mask, generator=generator, cfg_weight=5.0, temperature=1.0,
+            num_tokens=n, quantized_cache=True, eager=eager, kv_a8=True)
+        torch.cuda.synchronize()
+        return tokens.cpu(), (da.prefix_decode_attention_a8.launches - before[0],
+                              da.prefix_decode_attention_q8.launches - before[1])
+
+    eager_tokens, eager_counts = run(eager=True)
+    graph_tokens, graph_counts = run(eager=False)
+    assert torch.equal(graph_tokens, eager_tokens)
+    assert graph_counts == eager_counts == (n * cfg.llama.num_layers, 0)
+    assert len(set(graph_tokens.flatten().tolist())) > 1
+
+
 @pytest.mark.parametrize("mode", ["int4", "int4_a8"])
 def test_quantized_decode_loop_on_card_equals_cpu(cuda, mode):
     """Greedy tokens of a tiny int4 model over the int8 cache, fp32: the card

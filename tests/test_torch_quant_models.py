@@ -12,7 +12,8 @@ its Pallas kernels in interpret mode, the port its plain versions.
   * the decode loop: temperature-0 and teacher-forced tokens equal JAX's
     for every mode, against both `growing_cache` settings;
   * `PlanGenPipeline(quantize="int4").layout_to_image` gives JAX's tokens
-    and pixels; the unported and inconsistent settings raise;
+    and pixels; `kv_a8` builds and decodes; the inconsistent settings
+    raise;
   * one bf16 prefill + decode step within rtol 2e-2 of JAX bf16.
 """
 
@@ -262,14 +263,21 @@ def _port_tokens(mode, gt=None, regen=None):
     return out.numpy()
 
 
+@functools.lru_cache(maxsize=None)
+def _port_greedy(mode):
+    """(the port's greedy tokens, its K1-q8 plain calls): one loop for both
+    JAX cache forms, so their two cases share its decode."""
+    calls = da.prefix_decode_attention_q8_reference.calls
+    got = _port_tokens(mode)
+    return got, da.prefix_decode_attention_q8_reference.calls - calls
+
+
 @pytest.mark.parametrize("growing", [True, False], ids=["growing_cache", "fixed_cache"])
 @pytest.mark.parametrize("mode", MODES)
 def test_greedy_tokens_equal_jax(mode, growing):
-    calls = da.prefix_decode_attention_q8_reference.calls
-    got = _port_tokens(mode)
+    got, calls = _port_greedy(mode)
     # every decode step's attention read the int8 cache through K1-q8
-    assert (da.prefix_decode_attention_q8_reference.calls - calls
-            == NUM_TOKENS * CFG.llama.num_layers)
+    assert calls == NUM_TOKENS * CFG.llama.num_layers
     np.testing.assert_array_equal(got, _jax_tokens(mode, growing))
 
 
@@ -347,20 +355,38 @@ def test_prequantized_model_engages_its_form():
     assert out.image_tokens.shape == (1, CFG.image_seq_len)
 
 
-@pytest.mark.parametrize("option,error", [
-    (dict(quantize="auto", speculative=True), ValueError),
-    (dict(kv_a8=True, quantize="int4"), NotImplementedError),
+@pytest.mark.parametrize("option", [
+    dict(quantize="auto", speculative=True),
+    dict(quantize="int4", kv_a8=True),
 ], ids=["auto", "kv_a8"])
-def test_unported_quantized_options_raise(option, error):
-    """The unported option (`kv_a8`) raises NotImplementedError, and
-    `speculative` with a quantized form the JAX config check's ValueError,
-    before the model is quantized (or, under 'auto', before its int4 view is
-    built); 'auto' itself is ported (tests/test_torch_auto_route.py)."""
+def test_unported_quantized_options_raise(option):
+    """`speculative` with a quantized form raises the JAX config check's
+    ValueError, and so does `kv_a8` without a quantized form or with
+    `speculative`, before the model is quantized (or, under 'auto', before
+    its int4 view is built); 'auto' itself is ported
+    (tests/test_torch_auto_route.py). `kv_a8` with a quantized form builds
+    and decodes: every image decode step through K1-a8 (its plain version
+    here), none through K1-q8."""
     _, proc = _procs(GenerationConfig())
     model = _dense_model()
-    with pytest.raises(error):
-        PlanGenPipeline(model, CFG, proc, gen_cfg=GenerationConfig(**option))
-    assert quant_form(model) is None  # refused before quantizing anything
+    refused = [option] if "speculative" in option else [
+        dict(kv_a8=True), dict(option, speculative=True)]
+    for bad in refused:
+        with pytest.raises(ValueError):
+            PlanGenPipeline(model, CFG, proc, gen_cfg=GenerationConfig(**bad))
+        assert quant_form(model) is None  # refused before quantizing anything
+    if option in refused:
+        return
+    pipe = PlanGenPipeline(model, CFG, proc, gen_cfg=GenerationConfig(temperature=0.0,
+                                                                      **option))
+    assert quant_form(model) == "int4" and pipe._quantized_cache
+    a8, q8 = (da.prefix_decode_attention_a8_reference.calls,
+              da.prefix_decode_attention_q8_reference.calls)
+    out = pipe.layout_to_image(CAPTIONS[:1], GROUNDINGS[:1], seed=1)
+    assert out.image_tokens.shape == (1, CFG.image_seq_len)
+    assert (da.prefix_decode_attention_a8_reference.calls - a8,
+            da.prefix_decode_attention_q8_reference.calls - q8) == (
+        CFG.image_seq_len * CFG.llama.num_layers, 0)
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4", "int8_kv"])

@@ -101,15 +101,22 @@ def _port_text(model, cfg, embeds, mask, eos, budget, **kw):
     return out.numpy(), calls // cfg.llama.num_layers
 
 
+@functools.lru_cache(maxsize=None)
+def _port_greedy(name, budget, quantized):
+    """`_port_text` on `_prompt(name, budget)`: the port has one loop for
+    both JAX cache forms, so their two cases share its decode."""
+    cfg, _, model = _load(name)
+    embeds, mask = _prompt(name, budget)
+    return _port_text(model, cfg, embeds, mask, EOS, budget, quantized_cache=quantized)
+
+
 @pytest.mark.parametrize("quantized", [False, True], ids=["dense_cache", "int8_cache"])
 @pytest.mark.parametrize("budget", BUDGETS)
 @pytest.mark.parametrize("growing", [True, False], ids=["growing_cache", "fixed_cache"])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_greedy_decode_text_equals_jax(name, growing, budget, quantized):
-    cfg, _, model = _load(name)
     embeds, mask = _prompt(name, budget)
-    got, steps = _port_text(model, cfg, embeds, mask, EOS, budget,
-                            quantized_cache=quantized)
+    got, steps = _port_greedy(name, budget, quantized)
     want = _jax_text(name, embeds, mask, EOS, budget, growing_cache=growing,
                      quantized_cache=quantized)
     assert got.dtype == np.int32 and got.shape == (3, budget)
@@ -204,8 +211,19 @@ def _pipelines(name="tiny", **gen_kw):
     return jax_pipe, port
 
 
-def _text_tokens(pipe, prep):
-    return np.asarray(pipe._text_decode(prep["embeds"], prep["mask"], prep["budget"]))
+def _recording_text_decode(pipe, decoded, name):
+    """Wrap `pipe._text_decode` so that `decoded[name]` keeps the tokens of
+    its last decode, which `plan` then detokenizes: one decode gives both
+    the tokens and the strings."""
+    inner = pipe._text_decode
+
+    def run(*args):
+        tokens = inner(*args)
+        decoded[name] = np.asarray(tokens)
+        return tokens
+
+    pipe._text_decode = run
+
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -215,10 +233,13 @@ def test_plan_equals_jax(name):
     assert got_prep["budget"] == want_prep["budget"] == TEXT_BUDGET
     np.testing.assert_array_equal(got_prep["mask"].numpy(), np.asarray(want_prep["mask"]))
     np.testing.assert_array_equal(got_prep["embeds"].numpy(), np.asarray(want_prep["embeds"]))
-    got = _text_tokens(port, got_prep)
+    decoded = {}
+    _recording_text_decode(port, decoded, "port")
+    _recording_text_decode(jax_pipe, decoded, "jax")
+    assert port.plan_from_prepared(got_prep) == jax_pipe.plan_from_prepared(want_prep)
+    got = decoded["port"]
     assert got.dtype == np.int32
-    np.testing.assert_array_equal(got, _text_tokens(jax_pipe, want_prep))
-    assert port.plan(CAPTIONS) == jax_pipe.plan(CAPTIONS)
+    np.testing.assert_array_equal(got, decoded["jax"])
 
 
 @pytest.mark.parametrize("kw", [dict(seed=3), dict(seeds=[5, 6], parallel_size=2)],
@@ -252,10 +273,12 @@ def test_understand_equals_jax(name, question):
     np.testing.assert_array_equal(got_prep["mask"].numpy(), np.asarray(want_prep["mask"]))
     np.testing.assert_allclose(got_prep["embeds"].numpy(), np.asarray(want_prep["embeds"]),
                                atol=1e-5, rtol=0)
-    np.testing.assert_array_equal(_text_tokens(port, got_prep),
-                                  _text_tokens(jax_pipe, want_prep))
-    got = port.understand(images, question)
-    want = jax_pipe.understand(images, question)
+    decoded = {}
+    _recording_text_decode(port, decoded, "port")
+    _recording_text_decode(jax_pipe, decoded, "jax")
+    got = port.understand_from_prepared(got_prep)
+    want = jax_pipe.understand_from_prepared(want_prep)
+    np.testing.assert_array_equal(decoded["port"], decoded["jax"])
     assert got.texts == want.texts and got.groundings == want.texts
     assert got.images is None and got.image_tokens is None
 
@@ -336,14 +359,19 @@ QCFG = PlanGenModelConfig(
 )
 
 
+@functools.lru_cache(maxsize=None)
+def _qparams():
+    return jvlm.init(jax.random.PRNGKey(0), QCFG, dtype=jnp.float32)
+
+
 @pytest.mark.parametrize("captions", [CAPTIONS[:1], CAPTIONS], ids=["1_caption", "2_captions"])
 @pytest.mark.parametrize("mode", ["int4", "int4_a8"])
 def test_quantized_plan_equals_jax(mode, captions):
     """`plan` in the int4 forms over the int8 cache: JAX's tokens and
-    strings. Every decode step runs `lm_head` and 4 matmuls a layer through
-    K2 (K4 for int4_a8), and the prefill its 4 a layer when its rows fit the
-    kernel (<= 256)."""
-    params = jvlm.init(jax.random.PRNGKey(0), QCFG, dtype=jnp.float32)
+    strings, each pipeline decoding once. Every decode step runs `lm_head`
+    and 4 matmuls a layer through K2 (K4 for int4_a8), and the prefill its
+    4 a layer when its rows fit the kernel (<= 256)."""
+    params = _qparams()
     jparams = jquant.quantize_lm_params_int4(params, act_int8=mode == "int4_a8")
     model = PlanGenModel(QCFG, dtype=torch.float32)
     load_jax_params(model, params, QCFG)
@@ -355,19 +383,23 @@ def test_quantized_plan_equals_jax(mode, captions):
     port = PlanGenPipeline(model.eval(), QCFG,
                            PlanGenProcessor(tok, image_tokens=QCFG.image_seq_len, gen=gen))
     assert port._quantized_cache
+    decoded = {}
+    _recording_text_decode(port, decoded, "port")
+    _recording_text_decode(jax_pipe, decoded, "jax")
     prep = port.prepare_plan(captions)
     plain = (im.int4_matmul_w4a8_reference if mode == "int4_a8"
              else im.int4_matmul_w16_reference)
     calls = plain.calls
-    got = _text_tokens(port, prep)
+    got_plan = port.plan_from_prepared(prep)
     calls = plain.calls - calls
-    np.testing.assert_array_equal(got, _text_tokens(jax_pipe, jax_pipe.prepare_plan(captions)))
+    got = decoded["port"]
+    assert jax_pipe.plan(captions) == got_plan
+    np.testing.assert_array_equal(got, decoded["jax"])
     L = QCFG.llama.num_layers
     B, P, _ = prep["embeds"].shape
     steps = text_decode_steps(got, tok.special.eos_id)
     prefill = 4 * L if B * P <= im.MAX_KERNEL_ROWS else 0
     assert calls == steps * (4 * L + 1) + prefill
-    assert port.plan(captions) == jax_pipe.plan(captions)
 
 
 # ------------------------------------------- K2 / K4 plans at lm_head's shape
