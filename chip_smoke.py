@@ -200,11 +200,12 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      `cli convert` plain and `--quantize int4` (the weights read, quantized
      and stored in fp32, as a user runs it), `build_pipeline` (bf16) from
      each `params_path` (every tensor bitwise equal to the `janus_path`
-     model's, or to its in-place int4 form's: the checkout holds bf16
-     values and quantization runs in fp32 from either), load s and size on
-     disk; the int4 artifact's `plan` x4 and
-     the in-place int4 pipeline's launch K2 and K1-q8 alike, with equal
-     tokens; `cli export` (fp32 safetensors) read back through
+     model's, or to its int4 form quantized in place by convert's rule
+     (JAX's eager division; the pipeline's own quantization follows JAX's
+     jitted reciprocal): the checkout holds bf16 values and quantization
+     runs in fp32 from either), load s and size on disk; the int4
+     artifact's `plan` x4 and that in-place int4 pipeline's launch K2 and
+     K1-q8 alike, with equal tokens; `cli export` (fp32 safetensors) read back through
      `load_params`, bitwise equal to the model's fp32 state dict. Run 13
      and 14 alone from the root with `python3 -c "import pathlib, tempfile,
      torch, chip_smoke as cs; cs.phase_header(torch); cs.phase_build();
@@ -213,13 +214,20 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      pathlib.Path(tempfile.mkdtemp()); cs.write_checkpoint(torch, p.model,
      d); del p; cs.phase_artifacts(torch, dev, d)"`.
   16. `kv_a8` (run after phase 7): K1-a8, the s8 x s8 decode attention over
-     the int8 cache, against its plain version on phase 6's cache, mask
-     and q_pos, bf16 and fp32 queries: max abs err, the probability codes
-     that differ from the plain version's (at most A8_MAX_CODE_SHARE of
-     the nonzero ones, one step each; a row within A8_RTOL, plus the
-     largest v_scale for each code that differs), two calls bitwise equal,
-     device times in turns beside K1-q8's at the same q_pos and the bound
-     (K1-q8's bytes); then a fresh seeded model quantized to `int8`:
+     the int8 cache (split over slots, one cluster per (row, head)),
+     against its plain version on phase 6's cache and mask at q_pos 0,
+     127, 128 (a tile edge), 256 (a split edge), 677 and 1023, bf16 and
+     fp32 queries, then with one row's live prefix all pads, then on a
+     cache of S 2048 (four 128-slot tiles a split) at q_pos 1500: max abs err, the probability
+     codes that differ from the plain version's (at most
+     A8_MAX_CODE_SHARE of the nonzero ones, one step each; a row within
+     A8_RTOL, plus the largest v_scale for each code that differs), two
+     calls bitwise equal, the split plan and the live blocks, device times
+     in turns with the earlier one-block design
+     (`csrc/prefix_decode_attention_a8_one_block.cu`, built in phase 2,
+     launched by no path of the port) beside K1-q8's and the plain
+     version's, and each design's share of the bound (K1-q8's bytes);
+     then a fresh seeded model quantized to `int8`:
      `layout_to_image` x4 with and without `kv_a8` in turns int8, kv_a8,
      kv_a8, int8 on the graph (13,824 K1-a8 launches a kv_a8 call, no K1-q8,
      no plain call; tokens equal to the mode's first call; s/call, peak),
@@ -304,7 +312,7 @@ PEAK_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KERNEL_SHAPE = dict(L=24, B=8, S=1024, H=16, D=128)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 KERNEL_SOURCES = ("prefix_decode_attention", "prefix_decode_attention_a8", "int4_matmul",
-                  "flash_attention")
+                  "flash_attention", "prefix_decode_attention_a8_one_block")
 # (name, I, O) of the int4 matmuls of a Janus-Pro-1B decode step
 INT4_SHAPES = (("qkv_proj", 2048, 6144), ("o_proj", 2048, 2048),
                ("gate_up_proj", 2048, 11264), ("down_proj", 5632, 2048),
@@ -1145,7 +1153,7 @@ class DecodeLoop:
 # launches a step they are, a piece of the kernel's name)
 GRAPH_KERNELS = (("prefix_decode_attention", "split_kv_decode_kernel"),
                  ("prefix_decode_attention_q8", "split_kv_decode_kernel"),
-                 ("prefix_decode_attention_a8", "a8_decode_kernel"),
+                 ("prefix_decode_attention_a8", "a8_split_kernel"),
                  ("int4_matmul_w16", "int4_w16_tc_kernel"),
                  ("int4_matmul_a8", "int4_a8_tc_kernel"))
 GRAPH_WINDOW = 32  # replays a window
@@ -1675,72 +1683,136 @@ def a8_compare(torch, got, want, codes, want_codes, v_scale, dtype: str) -> dict
                 nonzero=int((want_codes != 0).sum()), within=bool((err <= bound).all()))
 
 
-def phase_k1_a8_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> dict:
-    """[16] K1-a8 against its plain version at the decode shapes of
-    Janus-Pro-1B, on phase 6's cache, mask and q_pos; bf16 and fp32 queries,
-    two calls bitwise equal; in bf16 device times in turns beside K1-q8's at
-    the same q_pos."""
+A8_LONG_SHAPE = dict(L=4, B=8, S=2048, H=16, D=128)  # [16] 512-slot splits: four tiles each
+A8_LONG_Q_POS = 1500
+A8_ONE_BLOCK = "prefix_decode_attention_a8_one_block"  # the earlier design, timed beside
+
+
+def a8_one_block(torch):
+    """K1-a8's earlier design (`csrc/prefix_decode_attention_a8_one_block.cu`:
+    one block per (row, head)), which no path of the port launches: a
+    function (q, k8, ks, v8, vs, mask, layer, q_pos) -> out on the card."""
+    import ctypes
+
+    from plangen_tpu_torch.kernels import load_library
+    from plangen_tpu_torch.ops.decode_attention import _DTYPE_CODES
+
+    fn = getattr(load_library(A8_ONE_BLOCK).lib, f"plangen_{A8_ONE_BLOCK}")
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(q, k8, ks, v8, vs, mask, layer, q_pos):
+        L, B, S, H, D = k8.shape
+        out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+        err = fn(q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(), vs.data_ptr(),
+                 mask.data_ptr(), q_pos.data_ptr(), out.data_ptr(), None, B, S, H, D, layer,
+                 D ** -0.5, _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"[16] the one-block K1-a8 launch failed: cudaError {err}")
+        return out
+
+    return run
+
+
+def a8_case(torch, c, mask, qp: int, dtype, gen, one_block, what: str) -> dict:
+    """[16] K1-a8 against its plain version at one q_pos on the cache `c`
+    (three layers, codes through `codes_out`, two calls bitwise equal);
+    in bf16 its device time in turns with the one-block design (one block,
+    split, split, one block), the plain version's, K1-q8's and the bound."""
     from plangen_tpu_torch.ops.decode_attention import (
-        prefix_decode_attention_a8, prefix_decode_attention_a8_reference,
-        prefix_decode_attention_q8,
+        A8_MAX_SPLITS, prefix_decode_attention_a8, prefix_decode_attention_a8_reference,
+        prefix_decode_attention_q8, split_plan,
     )
 
+    L, B, S, H, D = c[0].shape
+    name = str(dtype).split(".")[-1]
+    q = torch.randn((B, 1, H, D), generator=gen, device=c[0].device).to(dtype)
+    q_pos = torch.tensor([qp], dtype=torch.int32, device=q.device)
+    res = []
+    for layer in (0, L // 2, L - 1):
+        codes = torch.empty((B, H, S), dtype=torch.int8, device=q.device)
+        got = prefix_decode_attention_a8(q, *c, mask, layer, q_pos, codes_out=codes)
+        want, want_codes = prefix_decode_attention_a8_reference(
+            q, *c, mask, layer, q_pos, return_codes=True)
+        check(bool(torch.isfinite(got).all()), f"[16] non-finite K1-a8 output {what}")
+        check(bool((codes[:, :, qp + 1:] == 0).all()), f"[16] K1-a8 {what}: codes past q_pos")
+        res.append(a8_compare(torch, got, want, codes, want_codes, c[3][layer], name))
+        again = prefix_decode_attention_a8(q, *c, mask, layer, q_pos)
+        check(torch.equal(again, got), f"[16] K1-a8 {name} {what}: two calls differ")
+    err = max(r["err"] for r in res)
+    n_codes, nonzero = sum(r["codes"] for r in res), sum(r["nonzero"] for r in res)
+    check(all(r["within"] for r in res) and max(r["step"] for r in res) <= 1
+          and n_codes <= A8_MAX_CODE_SHARE * nonzero,
+          f"[16] K1-a8 vs plain {name} {what}: max abs err {err:.3e}, {n_codes} of "
+          f"{nonzero} codes differ ({res})")
+    n_split, slots = split_plan(S, A8_MAX_SPLITS)
+    live = min(qp, S - 1) // slots + 1
+    row = dict(dtype=name, q_pos=qp, S=S, what=what, err=err, codes=n_codes, nonzero=nonzero,
+               n_split=n_split, split_slots=slots, live_blocks=B * H * live)
+    line = (f"[16] K1-a8 {name:8s} {what} (S {S}, q_pos {qp}): max_abs_err={err:.3e}, "
+            f"{n_codes} of {nonzero} nonzero p codes differ from the plain version's "
+            f"(3 layers), bitwise equal twice; split plan {n_split} x {slots} slots, "
+            f"{B * H * live} of {B * H * n_split} blocks live ({B * H * live / N_SMS:.2f} per SM)")
+    if dtype == torch.bfloat16:
+        k_ms, o_ms, r = timed_pair(
+            torch, lambda i: prefix_decode_attention_a8(q, *c, mask, i % L, q_pos),
+            lambda i: one_block(q, *c, mask, i % L, q_pos), 2 * L)
+        p_ms = time_ms(torch, lambda i: prefix_decode_attention_a8_reference(
+            q, *c, mask, i % L, q_pos), 2 * L, host_ahead=True)
+        q8_ms = time_ms(torch, lambda i: prefix_decode_attention_q8(
+            q, *c, mask, i % L, q_pos), 2 * L, host_ahead=True)
+        ops, traffic = decode_bound(B, qp + 1, H, D, 2 * D + 8)  # as K1-q8
+        bound = roofline_ms(ops, traffic, PEAK_INT8_OPS)
+        row.update(ms=k_ms, one_block_ms=o_ms, plain_ms=p_ms, q8_ms=q8_ms, bound_ms=bound,
+                   bound_by=bound_by(ops, traffic, PEAK_INT8_OPS))
+        line += (f"; split {k_ms * 1e3:.2f} us ({r[1] * 1e3:.2f}/{r[2] * 1e3:.2f}) = "
+                 f"{100 * bound / k_ms:.1f}% of bound, one block {o_ms * 1e3:.2f} us "
+                 f"({r[0] * 1e3:.2f}/{r[3] * 1e3:.2f}) = {100 * bound / o_ms:.1f}%, in turns; "
+                 f"plain {p_ms * 1e3:.2f} us, K1-q8 {q8_ms * 1e3:.2f} us; bound "
+                 f"{bound * 1e3:.2f} us ({row['bound_by']})")
+    log(line)
+    return row
+
+
+def phase_k1_a8_vs_plain(torch, prompt_len: int, dev, shape=KERNEL_SHAPE) -> dict:
+    """[16] K1-a8 against its plain version at the decode shapes of
+    Janus-Pro-1B on phase 6's cache and mask, bf16 and fp32 queries, at
+    q_pos 0, 127, 128 (a tile edge), 256 (a split edge), 677 and S - 1, then a live prefix of
+    pads only in one row, and a cache of A8_LONG_SHAPE (S 2048: splits of
+    four 128-slot tiles); in bf16 device times in turns with the one-block
+    design, beside K1-q8's and the plain version's."""
     L, B, S, H, D = (shape[k] for k in "LBSHD")
     gen = torch.Generator(device=dev).manual_seed(5678)
     mask = left_padded_mask(torch, B, S, min(prompt_len + 576, S), dev)
     cache = q8_cache(torch, shape, dev, gen)
     c = (cache["k"], cache["k_scale"], cache["v"], cache["v_scale"])
-    log(f"[16] K1-a8: one block of 256 threads per (row, head), grid {B * H} = "
-        f"{B * H / N_SMS:.2f} per SM")
+    from plangen_tpu_torch.ops.decode_attention import A8_MAX_SPLITS
+
+    one_block = a8_one_block(torch)
+    log(f"[16] K1-a8: one cluster of up to {A8_MAX_SPLITS} blocks of 128 threads per (row, "
+        "head), split over slots, mbarrier exchanges; the one-block design timed beside it")
     rows = []
+    headline_q = prompt_len + 287
     for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(dtype)
-        for qp in [prompt_len, 127, 128, prompt_len + 287, S - 1]:
-            q_pos = torch.tensor([qp], dtype=torch.int32, device=dev)
-            res = []
-            for layer in (0, L // 2, L - 1):
-                codes = torch.empty((B, H, S), dtype=torch.int8, device=dev)
-                got = prefix_decode_attention_a8(q, *c, mask, layer, q_pos, codes_out=codes)
-                want, want_codes = prefix_decode_attention_a8_reference(
-                    q, *c, mask, layer, q_pos, return_codes=True)
-                check(bool(torch.isfinite(got).all()), f"non-finite K1-a8 output q_pos={qp}")
-                check(bool((codes[:, :, qp + 1:] == 0).all()),
-                      f"K1-a8 q_pos={qp}: codes past q_pos")
-                res.append(a8_compare(torch, got, want, codes, want_codes, c[3][layer], name))
-                again = prefix_decode_attention_a8(q, *c, mask, layer, q_pos)
-                check(torch.equal(again, got), f"K1-a8 {name} q_pos={qp}: two calls differ")
-            err = max(r["err"] for r in res)
-            n_codes, nonzero = sum(r["codes"] for r in res), sum(r["nonzero"] for r in res)
-            check(all(r["within"] for r in res) and max(r["step"] for r in res) <= 1
-                  and n_codes <= A8_MAX_CODE_SHARE * nonzero,
-                  f"K1-a8 vs plain {name} q_pos={qp}: max abs err {err:.3e}, {n_codes} of "
-                  f"{nonzero} codes differ ({res})")
-            row = dict(dtype=name, q_pos=qp, err=err, codes=n_codes, nonzero=nonzero)
-            line = (f"[16] K1-a8 {name:8s} q_pos={qp:5d} max_abs_err={err:.3e}, "
-                    f"{n_codes} of {nonzero} nonzero p codes differ from the plain "
-                    "version's (3 layers), bitwise equal twice")
-            if dtype == torch.bfloat16:
-                k_ms, p_ms, r = timed_pair(
-                    torch, lambda i: prefix_decode_attention_a8(q, *c, mask, i % L, q_pos),
-                    lambda i: prefix_decode_attention_a8_reference(q, *c, mask, i % L, q_pos),
-                    2 * L)
-                q8_ms = time_ms(torch, lambda i: prefix_decode_attention_q8(
-                    q, *c, mask, i % L, q_pos), 2 * L, host_ahead=True)
-                ops, traffic = decode_bound(B, qp + 1, H, D, 2 * D + 8)  # as K1-q8
-                bound = roofline_ms(ops, traffic, PEAK_INT8_OPS)
-                row.update(ms=k_ms, plain_ms=p_ms, q8_ms=q8_ms, bound_ms=bound,
-                           bound_by=bound_by(ops, traffic, PEAK_INT8_OPS))
-                line += (f"; kernel {k_ms * 1e3:8.2f} us ({r[1] * 1e3:.2f}/{r[2] * 1e3:.2f}) "
-                         f"plain {p_ms * 1e3:9.2f} us ({r[0] * 1e3:.2f}/{r[3] * 1e3:.2f}), "
-                         f"K1-q8 {q8_ms * 1e3:.2f} us; bound {bound * 1e3:.2f} us "
-                         f"({row['bound_by']}) = {100 * bound / k_ms:.1f}% of the kernel's time")
-            rows.append(row)
-            log(line)
-        del q
+        for qp in [0, 127, 128, 256, headline_q, S - 1]:
+            rows.append(a8_case(torch, c, mask, qp, dtype, gen, one_block, "1B cache"))
+    pads = mask.clone()
+    pads[1, :headline_q + 1] = 0  # row 1: every live slot a pad
+    rows.append(a8_case(torch, c, pads, headline_q, torch.bfloat16, gen, one_block,
+                        "row 1 all pads"))
     del cache, c
-    headline = next(r for r in rows
-                    if r["dtype"] == "bfloat16" and r["q_pos"] == prompt_len + 287)
+    torch.cuda.empty_cache()
+    L2, B2, S2, H2, D2 = (A8_LONG_SHAPE[k] for k in "LBSHD")
+    cache = q8_cache(torch, A8_LONG_SHAPE, dev, gen)
+    c = (cache["k"], cache["k_scale"], cache["v"], cache["v_scale"])
+    long_mask = left_padded_mask(torch, B2, S2, S2, dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(a8_case(torch, c, long_mask, A8_LONG_Q_POS, dtype, gen, one_block,
+                            "long cache"))
+    del cache, c
+    torch.cuda.empty_cache()
+    headline = next(r for r in rows if r["dtype"] == "bfloat16" and r["q_pos"] == headline_q
+                    and r["what"] == "1B cache")
     log("[16] " + json.dumps(dict(k1_a8=rows)))
     # no one PyTorch call takes int8 K/V with per-slot scales and int8
     # probabilities
@@ -2713,13 +2785,17 @@ def trainer_steps(torch, tag: str, what: str, trainer, loader, steps: int, first
     """`steps` of the trainer's own step on its batches (logged from step
     `first`), K3 counted each step (forward and backward =
     `n_attention_calls`, the forward twice under gradient_checkpointing,
-    all on the tensor cores, no plain call): (losses, seconds, peak GiB,
-    launches)."""
+    all on the tensor cores in bf16 compute, no plain call): (losses,
+    seconds, peak GiB, launches)."""
     import math
+
+    from plangen_tpu_torch.train import trainer as trainer_module
 
     n_calls = n_attention_calls(trainer)
     if trainer.cfg.train.gradient_checkpointing:  # the recompute runs the forward again
         n_calls = (2 * n_calls[0], n_calls[1])
+    # bf16 compute on the tensor cores; fp32 (15h's fp32 run) on the CUDA cores
+    tc = n_calls if trainer_module.COMPUTE_DTYPE == torch.bfloat16 else (0, 0)
     counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     reset_counters(counters)
@@ -2739,9 +2815,9 @@ def trainer_steps(torch, tag: str, what: str, trainer, loader, steps: int, first
             f"{calls[:2]}, on the tensor cores {calls[2:4]}, plain {calls[4]}, "
             f"loss {metrics['loss']:.6f}")
         check(all(math.isfinite(v) for v in metrics.values()), f"{what} step {step}: non-finite")
-        check(calls == n_calls + n_calls + (0,),
-              f"{what} step {step}: K3 calls {calls}, expected {n_calls} each on the tensor "
-              "cores and no plain call")
+        check(calls == n_calls + tc + (0,),
+              f"{what} step {step}: K3 calls {calls}, expected {n_calls} each, {tc} on the "
+              "tensor cores and no plain call")
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: w.launches for k, (w, _) in counters.items()}
     return losses, seconds, peak, launches
@@ -2988,6 +3064,7 @@ def fsdp_tp_rank(rank: int, port: int, inputs: dict, results) -> None:
         torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        fsdp_tp_compute_dtype(torch, inputs["fp32"])
         pm.init_distributed(f"localhost:{port}", 4, rank, device="cpu")  # gloo
         model_cfg = fsdp_tp_model_cfg()
         trainer, loader, built = options_trainer(
@@ -3039,13 +3116,26 @@ def fsdp_tp_rank(rank: int, port: int, inputs: dict, results) -> None:
             dist.destroy_process_group()
 
 
-def phase_fsdp_tp(torch, dev) -> dict:
+def fsdp_tp_compute_dtype(torch, fp32: bool) -> None:
+    """[15h] The Trainer's compute dtype in this process: bf16, as it
+    trains, or fp32 (`fp32`), to tell rounding from a fault."""
+    from plangen_tpu_torch.train import trainer
+
+    trainer.COMPUTE_DTYPE = torch.float32 if fp32 else torch.bfloat16
+
+
+def phase_fsdp_tp(torch, dev, fp32: bool = False) -> dict:
     """[15h] FSDP x TP: the phase-9 Trainer (stage3, AdamW, fp32 masters,
-    bf16 compute) at Janus-Pro-1B width, depth cut to FSDP_TP_LAYERS, under
-    gradient_checkpointing, on a data 2 x model 2 mesh with `fsdp=True`:
-    four ranks on the one card over gloo with CUDA tensors (NCCL refuses
-    two ranks on one device), against one plain Trainer on the card taking
-    the same steps on the global batch."""
+    bf16 compute, or fp32 with `fp32`) at Janus-Pro-1B width, depth cut to
+    FSDP_TP_LAYERS, under gradient_checkpointing, on a data 2 x model 2
+    mesh with `fsdp=True`: four ranks on the one card over gloo with CUDA
+    tensors (NCCL refuses two ranks on one device), against one plain
+    Trainer on the card taking the same steps on the global batch. The
+    smoke runs it in bf16; the fp32 run (not a phase) reads each tensor's
+    first-moment gap without bf16's rounding, in the returned `mu_gaps`:
+    `python3 -c "import torch, chip_smoke as cs; cs.phase_header(torch);
+    cs.phase_build(); cs.phase_fsdp_tp(torch, torch.device('cuda:0'),
+    fp32=True)"`."""
     import math
     import multiprocessing
     import queue
@@ -3057,6 +3147,7 @@ def phase_fsdp_tp(torch, dev) -> dict:
     log(f"[15h] depth cut to {model_cfg.llama.num_layers} LLaMA layers (of "
         f"{full.llama.num_layers}) and {model_cfg.vision.layers} SigLIP blocks (of "
         f"{full.vision.layers}) for the smoke's time limit; widths Janus-Pro-1B's")
+    fsdp_tp_compute_dtype(torch, fp32)
     dp = FSDP_TP_MESH["data"]
     flows = tuple(FlowConfig(t, "toy", dp * b) for t, b in TRAIN_OPTION_FLOWS)
     plain_trainer, loader, built = options_trainer(
@@ -3076,7 +3167,8 @@ def phase_fsdp_tp(torch, dev) -> dict:
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=fsdp_tp_rank, args=(r, port, {"plain": path}, results))
+    procs = [ctx.Process(target=fsdp_tp_rank, args=(r, port, {"plain": path, "fp32": fp32},
+                                                      results))
              for r in range(4)]
     t0 = time.perf_counter()
     for p in procs:
@@ -3116,7 +3208,10 @@ def phase_fsdp_tp(torch, dev) -> dict:
              / sum(w * w for _, w in mu_gaps.values())) ** 0.5
     loss_gap = max(abs(res["losses"][i][k] - losses[i][k]) / abs(losses[i][k])
                    for res in got.values() for i in range(FSDP_TP_STEPS) for k in losses[i])
-    log(f"[15h] FSDP x TP over four gloo ranks on cuda:0 ({got[0]['tp_split']} parameters "
+    log("[15h] the five tensors whose first moments part most: " + ", ".join(
+        f"{n} {g:.3e}" for g, n in per_tensor[-5:][::-1]))
+    log(f"[15h] FSDP x TP in {'fp32' if fp32 else 'bf16'} compute over four gloo ranks on "
+        f"cuda:0 ({got[0]['tp_split']} parameters "
         f"TP-split, {got[0]['fsdp']} FSDP-sharded), {FSDP_TP_STEPS} steps under remat in "
         f"{wall:.1f} s (the processes' start, build and steps); against the plain Trainer: "
         f"losses within {loss_gap:.3e} (relative, limit {FSDP_TP_LOSS_RTOL}); AdamW's first "
@@ -3139,6 +3234,7 @@ def phase_fsdp_tp(torch, dev) -> dict:
     return dict(seconds=wall, losses={r: res["losses"] for r, res in got.items()},
                 plain_losses=losses, param_max_abs_diff=diff, loss_max_rel_gap=loss_gap,
                 mu_median_rel_gap=mu_gap, mu_max_rel_gap=per_tensor[-1][0],
+                mu_whole_rel_gap=whole, mu_gaps={n: g for g, n in per_tensor},
                 peak_gib={r: res["peak_gib"] for r, res in got.items()},
                 s_step={r: res["seconds"] for r, res in got.items()},
                 k3_launches={r: {k: v for k, v in res["launches"].items()
@@ -4700,13 +4796,17 @@ def phase_artifacts(torch, dev, checkout) -> dict:
     """[14] The weight artifacts at Janus-Pro-1B width, from phase 10's
     `.bin` checkout: `cli convert` plain and `--quantize int4` (fp32, the
     command's only form), `build_pipeline` from each `params_path` (weights
-    bitwise equal to the `janus_path` model and to its in-place int4 form;
-    load s and size on disk), the int4 artifact's `plan` x4 against the in-place int4
-    pipeline's (launches and tokens equal); `cli export` of the model
+    bitwise equal to the `janus_path` model and to its int4 form quantized
+    in place by convert's rule, `quantize_model_(eager=True)`: the
+    pipeline's own in-place quantization follows JAX's jitted rule, a
+    scale one rounding apart in some channels; load s and size on disk),
+    the int4 artifact's `plan` x4 against that in-place int4 pipeline's
+    (launches and tokens equal); `cli export` of the model
     (fp32 safetensors) read back through `load_params`, bitwise equal to
     the model's fp32 state dict. Returns the launches of the artifact's
     `plan`."""
     import contextlib
+    import copy
     import dataclasses
     import io
     import shutil
@@ -4715,7 +4815,7 @@ def phase_artifacts(torch, dev, checkout) -> dict:
     from plangen_tpu_torch import cli
     from plangen_tpu_torch.config import GenerationConfig, PlanGenConfig, PlanGenModelConfig
     from plangen_tpu_torch.convert.loading import load_params
-    from plangen_tpu_torch.ops.quant import quant_form
+    from plangen_tpu_torch.ops.quant import quant_form, quantize_model_
     from plangen_tpu_torch.tasks.eval import build_pipeline
 
     card = nvidia_smi_line()
@@ -4773,8 +4873,14 @@ def phase_artifacts(torch, dev, checkout) -> dict:
                     f"{load_s:.2f} s (janus_path {janus_s:.2f} s); {n} tensors bitwise equal "
                     f"to the janus_path model's; {card}")
             else:
-                inplace, inplace_s = timed_pipeline(
-                    generation=dataclasses.replace(gen, quantize=form), janus_path=str(checkout))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inplace = build_pipeline(
+                    PlanGenConfig(model=mcfg, generation=dataclasses.replace(gen, quantize=form)),
+                    model=quantize_model_(copy.deepcopy(ref.model), form, eager=True),
+                    device=dev)
+                torch.cuda.synchronize()
+                inplace_s = time.perf_counter() - t0
                 n = same_weights("int4 artifact", art.model, inplace.model)
                 plan_len = art.proc.stage1_batch(CAPTIONS, art.gen.max_new_text_tokens)[0].shape[1]
                 plans = []
@@ -4788,9 +4894,10 @@ def phase_artifacts(torch, dev, checkout) -> dict:
                 add_launches(launches, a_launches)
                 log(f"[14] cli convert --quantize int4: {convert_s:.2f} s, "
                     f"{printed['params_m']} M stored elements, {gib(out):.2f} GiB; "
-                    f"build_pipeline from params_path {load_s:.2f} s (janus_path + in-place "
-                    f"int4 {inplace_s:.2f} s); {n} tensors bitwise equal to the in-place int4 "
-                    f"form's; plan x4 {a_s:.3f} s/call (in-place {b_s:.3f}), launches and "
+                    f"build_pipeline from params_path {load_s:.2f} s (a copy of the janus_path "
+                    f"model quantized in place {inplace_s:.2f} s); {n} tensors bitwise equal to "
+                    f"the in-place int4 form's (convert's rule); plan x4 {a_s:.3f} s/call "
+                    f"(in-place {b_s:.3f}), launches and "
                     f"tokens equal; {card}")
                 del inplace
             del art

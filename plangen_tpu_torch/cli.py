@@ -179,7 +179,7 @@ def cmd_convert(args) -> None:
     if model is None:
         sys.exit(f"convert: no weights in --janus-path {args.janus_path!r}")
     if args.quantize:
-        quantize_model_(model, args.quantize)
+        quantize_model_(model, args.quantize, eager=True)  # as JAX's convert: eagerly
     out = save_params(model, args.out)
     n = sum(t.numel() for t in model.state_dict().values())
     print(json.dumps({"saved": out, "params_m": round(n / 1e6, 1)}))

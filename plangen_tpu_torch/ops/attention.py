@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from plangen_tpu_torch.ops import scale_of
+
 NEG_INF = -1e30  # large-but-finite; avoids NaN from all-masked rows
 
 
@@ -64,12 +66,11 @@ def make_causal_bias(
 
 def _quantize_rows_s8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row (last axis) int8 quantization with fp32 scales:
-    s = absmax / 127 (1 for an all-zero row), q8 = clip(round(x / s)),
-    rounding half to even. Returns (q8, s[..., 1])."""
+    s = absmax * fl(1/127) (1 for an all-zero row; the JAX decode runs it
+    jitted), q8 = clip(round(x / s)), rounding half to even. Returns
+    (q8, s[..., 1])."""
     absmax = x.abs().amax(dim=-1, keepdim=True)
-    # divided by a tensor: on the card PyTorch turns a division by a Python
-    # number into a product by its reciprocal, one rounding apart
-    s = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0), 1.0)
+    s = torch.where(absmax > 0, scale_of(absmax, 127.0, jitted=True), 1.0)
     q8 = torch.round(x / s).clamp_(-127, 127).to(torch.int8)
     return q8, s.float()
 
@@ -137,12 +138,13 @@ def quantize_kv(
     k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization of K/V rows, one scale per (batch,
-    position, head) over D: (k_q8, k_scale, v_q8, v_scale), scales fp32."""
+    position, head) over D: (k_q8, k_scale, v_q8, v_scale), scales fp32,
+    absmax * fl(1/127) as in the JAX package's jitted decode and prefill."""
 
     # k and v in one pass: every op below is elementwise or per row, so
     # stacking them changes no value and halves the launches of a step
     xf = torch.stack([k, v]).float()
     absmax = xf.abs().amax(dim=-1)
-    s = torch.where(absmax > 0, absmax / 127.0, 1.0)
+    s = torch.where(absmax > 0, scale_of(absmax, 127.0, jitted=True), 1.0)
     q = torch.round(xf / s[..., None]).clamp_(-127, 127).to(torch.int8)
     return q[0], s[0], q[1], s[1]

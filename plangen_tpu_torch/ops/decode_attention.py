@@ -29,9 +29,11 @@ is the JAX package's `kv_a8` decode step over the same int8 cache:
 restricted to the live prefix (slots past `q_pos` and pads add exactly 0 to
 its sum and to its absmax, so it is the same function). The query and the
 normalized, v_scale-folded probabilities are quantized to int8 rows and
-both products are s8 x s8 -> s32. One block per (row, head): the function
-needs the global max, sum and absmax before any PV product, which K1's
-split-KV combine does not give.
+both products are s8 x s8 -> s32. Its grid is of K1's kind (`split_plan`
+with at most A8_MAX_SPLITS splits, one cluster per (row, head)); the
+function needs the global max, sum and absmax before any PV product, so
+the splits exchange each of the three through distributed shared memory
+before the PV products, in place of K1's combine after them.
 
 `<wrapper>.launches` counts kernel launches and `<plain>.calls` counts
 plain-version calls, so a run can show which one carried it.
@@ -125,17 +127,17 @@ def _check_inputs(q, k_cache, v_cache, pad_mask, layer, q_pos) -> None:
         )
 
 
-def split_plan(S: int) -> Tuple[int, int]:
-    """(splits, slots per split) of the kernel's grid for a cache of S slots.
+def split_plan(S: int, max_splits: int = MAX_SPLITS) -> Tuple[int, int]:
+    """(splits, slots per split) of a kernel's grid for a cache of S slots.
 
-    The S / 128 chunks are spread over at most MAX_SPLITS blocks per (row,
+    The S / 128 chunks are spread over at most `max_splits` blocks per (row,
     head), whole chunks each, as evenly as that allows; the last split holds
     slot S - 1. It depends on S alone, never on q_pos: a split whose slots
     all lie past q_pos is launched and reads nothing."""
     if S <= 0 or S % CHUNK:
         raise ValueError(f"prefix decode attention needs S ({S}) % {CHUNK} == 0")
     chunks = S // CHUNK
-    per = -(-chunks // MAX_SPLITS)
+    per = -(-chunks // max_splits)
     return -(-chunks // per), per * CHUNK
 
 
@@ -354,7 +356,10 @@ prefix_decode_attention_q8.launches = 0
 # ------------------------------------------- s8 x s8 over the int8 cache (K1-a8)
 
 KERNEL_NAME_A8 = "prefix_decode_attention_a8"
-A8_MAX_SLOTS = 32768  # the logits and codes of a row fit in a block's shared memory
+A8_MAX_SLOTS = 32768  # a split's logits, scales and codes fit in a block's shared memory
+# K1-a8's splits per (row, head): 4 of 256 slots at S 1024 were faster on the
+# card than K1's 8 of 128 (fewer blocks in the dependent chain; PERF.md)
+A8_MAX_SPLITS = 4
 
 
 def prefix_decode_attention_a8_reference(
@@ -403,7 +408,7 @@ def _kernel_fn_a8():
 
     fn = load_library(KERNEL_NAME_A8).lib.plangen_prefix_decode_attention_a8
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -455,7 +460,7 @@ def prefix_decode_attention_a8(
         v_scale.data_ptr(), pad_mask.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
         None if codes_out is None else codes_out.data_ptr(),
         B, S, H, D, int(layer), float(scale), _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream().cuda_stream,
+        *split_plan(S, A8_MAX_SPLITS), torch.cuda.current_stream().cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"prefix_decode_attention_a8 kernel launch failed: "

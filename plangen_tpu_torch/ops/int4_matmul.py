@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from plangen_tpu_torch.ops import require_local
+from plangen_tpu_torch.ops import require_local, scale_of
 
 Int4Weight = Dict[str, torch.Tensor]
 
@@ -88,21 +88,25 @@ def unpack_int4(q: Int4Weight) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def quantize_weight_int4(w: torch.Tensor, act_int8: bool = False,
-                         absmax: Optional[torch.Tensor] = None) -> Int4Weight:
+                         absmax: Optional[torch.Tensor] = None,
+                         eager: bool = False) -> Int4Weight:
     """Symmetric per-output-channel int4 quantization of [..., in, out].
 
     Returns {"w_p4", "s_lo", "s_hi16"} in the JAX package's layout (see the
     module docstring); `act_int8` adds the "a8" marker of the W4A8 form.
     `out` must be even. `torch.round` rounds half to even, like `jnp.round`.
     `absmax` [..., 1, out] replaces the columns' absmax over `in` (a
-    row-parallel shard passes the whole input dim's)."""
+    row-parallel shard passes the whole input dim's). The scale is absmax *
+    fl(1/7), as the JAX pipeline quantizes under `jax.jit`, or with `eager`
+    absmax / 7, as JAX's `cli convert` does (`ops.scale_of`)."""
     wf = w.float()
     O = wf.shape[-1]
     if O % 2:
         raise ValueError(f"int4 packing needs an even out dim, got {O}")
     if absmax is None:
         absmax = wf.abs().amax(dim=-2, keepdim=True)  # [..., 1, out]
-    scale = torch.where(absmax > 0, absmax / 7.0, torch.ones_like(absmax))
+    scale = torch.where(absmax > 0, scale_of(absmax, 7.0, jitted=not eager),
+                        torch.ones_like(absmax))
     q4 = torch.clamp(torch.round(wf / scale), -8, 7).to(torch.int8)
     out = pack_int4(q4, scale)
     if act_int8:
@@ -129,16 +133,17 @@ def is_quantized_int4(w) -> bool:
 
 
 def quantize_activations_int8(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row symmetric int8 activations: (x8 int8 [..., I], xs fp32 [..., 1]).
-    With a process `group` x holds this rank's columns of each row and the
-    row's absmax is the maximum over the group (the whole row's)."""
+    """Per-row symmetric int8 activations: (x8 int8 [..., I], xs fp32 [..., 1]),
+    xs = absmax * fl(1/127) as in the JAX package's jitted decode. With a
+    process `group` x holds this rank's columns of each row and the row's
+    absmax is the maximum over the group (the whole row's)."""
     xf = x.float()
     absmax = xf.abs().amax(dim=-1, keepdim=True)
     if group is not None:
         import torch.distributed as dist
 
         dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
-    xs = absmax / 127.0
+    xs = scale_of(absmax, 127.0, jitted=True)
     xs = torch.where(xs > 0, xs, 1.0)
     x8 = torch.round(xf / xs).clamp_(-127, 127).to(torch.int8)
     return x8, xs

@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from plangen_tpu_torch.ops import scale_of
 from plangen_tpu_torch.ops.int4_matmul import int4_matmul_2d, quantize_weight_int4
 
 QuantWeight = Dict[str, torch.Tensor]
@@ -54,11 +55,14 @@ _ATTN_KEYS = ("q_proj", "k_proj", "v_proj", "o_proj", "qkv_proj", "k_v_proj")
 def quantize_weight(w: torch.Tensor, absmax: Optional[torch.Tensor] = None) -> QuantWeight:
     """Symmetric per-output-channel int8 quantization of [..., in, out];
     `absmax` [..., 1, out] replaces the columns' absmax over `in` (a
-    row-parallel shard passes the whole input dim's)."""
+    row-parallel shard passes the whole input dim's). The scale is absmax /
+    127: the JAX package quantizes int8 weights eagerly, in its pipeline
+    and in `cli convert` alike."""
     wf = w.float()
     if absmax is None:
         absmax = wf.abs().amax(dim=-2, keepdim=True)  # [..., 1, out]
-    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    scale = torch.where(absmax > 0, scale_of(absmax, 127.0, jitted=False),
+                        torch.ones_like(absmax))
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"w_q8": q, "scale": scale}
 
@@ -142,11 +146,12 @@ class Int4Linear(_QuantLinear):
 
     @classmethod
     def from_dense(cls, w_io: torch.Tensor, a8: bool = False,
-                   bias: Optional[torch.Tensor] = None, absmax: Optional[torch.Tensor] = None):
-        """From a dense weight in the JAX layout [in, out] (`absmax`: as
-        `quantize_weight_int4`'s)."""
+                   bias: Optional[torch.Tensor] = None, absmax: Optional[torch.Tensor] = None,
+                   eager: bool = False):
+        """From a dense weight in the JAX layout [in, out] (`absmax`,
+        `eager`: as `quantize_weight_int4`'s)."""
         mod = cls(*w_io.shape, a8=a8, device=w_io.device)
-        q = quantize_weight_int4(w_io, absmax=absmax)
+        q = quantize_weight_int4(w_io, absmax=absmax, eager=eager)
         for name in ("w_p4", "s_lo", "s_hi16"):
             getattr(mod, name).copy_(q[name])
         mod._init_bias(bias)
@@ -247,17 +252,18 @@ def quantized_structure_(model: nn.Module, mode: str) -> nn.Module:
     return model
 
 
-def _quantized(dense: List[nn.Module], mode: str) -> _QuantLinear:
+def _quantized(dense: List[nn.Module], mode: str, eager: bool = False) -> _QuantLinear:
     """The quantized module of one target's dense members (in output
-    order), in the JAX layout. Members split over ranks carry a `tp_split`
-    (`parallel/mesh.py::TPSplit`), whose `quantized` quantizes this rank's
-    shard with `quantize` below."""
+    order), in the JAX layout; `eager` as `quantize_model_`'s. Members
+    split over ranks carry a `tp_split` (`parallel/mesh.py::TPSplit`), whose
+    `quantized` quantizes this rank's shard with `quantize` below."""
 
     def quantize(w_io: torch.Tensor, bias: Optional[torch.Tensor],
                  absmax: Optional[torch.Tensor] = None) -> _QuantLinear:
         if mode == "int8":
             return Int8Linear.from_dense(w_io, bias=bias, absmax=absmax)
-        return Int4Linear.from_dense(w_io, a8=mode == "int4_a8", bias=bias, absmax=absmax)
+        return Int4Linear.from_dense(w_io, a8=mode == "int4_a8", bias=bias, absmax=absmax,
+                                     eager=eager)
 
     split = getattr(dense[0], "tp_split", None)
     if split is not None:
@@ -268,19 +274,23 @@ def _quantized(dense: List[nn.Module], mode: str) -> _QuantLinear:
 
 
 @torch.no_grad()
-def quantize_model_(model: nn.Module, mode: str) -> nn.Module:
+def quantize_model_(model: nn.Module, mode: str, eager: bool = False) -> nn.Module:
     """Quantize `model` in place to `mode` ('int8', 'int8_kv', 'int4',
     'int4_a8'); the dense weights are freed as each module is replaced, so
     the model never holds both forms. 'int8_kv' keeps the weights dense
     (its int8 KV cache is a decode setting). A TP-split model is quantized
-    on each rank's shards (`_quantized`). Returns `model`."""
+    on each rank's shards (`_quantized`). int4 scales follow the JAX call
+    site this one stands for: the pipeline's jitted quantization (absmax *
+    fl(1/7)), or with `eager` that of `cli convert` (absmax / 7); int8
+    scales divide either way, as JAX quantizes int8 eagerly. Returns
+    `model`."""
     _check_mode(mode)
     if quant_form(model) is not None:
         raise ValueError(f"the model is already {quant_form(model)}-quantized")
     if mode == "int8_kv":
         return model
     for parent, name, sources in targets(model, mode):
-        mod = _quantized([getattr(p, m) for p, m in sources], mode)
+        mod = _quantized([getattr(p, m) for p, m in sources], mode, eager)
         for p, m in sources:
             delattr(p, m)
         setattr(parent, name, mod)

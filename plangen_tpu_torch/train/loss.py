@@ -39,6 +39,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from plangen_tpu_torch.models.vlm import PlanGenModel
+from plangen_tpu_torch.parallel.mesh import distribute_like, full_tensor
 
 Losses = Dict[str, torch.Tensor]
 
@@ -101,15 +102,33 @@ def shift_cross_entropy_fused(
     return total / token_count(valid, group)
 
 
+class _WholeWeight(torch.autograd.Function):
+    """A TP-split weight (a DTensor over one mesh dim) whole on every rank:
+    forward the c10d all-gather of `parallel/mesh.py::full_tensor`, backward
+    this rank's shard of the whole gradient, cut with no collective (every
+    rank of the split computes the same gradient: its inputs are whole on
+    each). DTensor's own `full_tensor`, a functional collective, kills
+    every rank over gloo with CUDA tensors (torch 2.11)."""
+
+    @staticmethod
+    def forward(ctx, w: DTensor) -> torch.Tensor:
+        ctx.like = w
+        return full_tensor(w.detach())
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> DTensor:
+        return distribute_like(grad, ctx.like)
+
+
 def _lm_shift_ce(model: PlanGenModel, hidden, labels, pad_id: int,
                  fused: bool = False, group=None) -> torch.Tensor:
     """lm_head CE; `fused` takes the chunked form when lm_head is a plain
     Linear (a quantized head takes the materialized one, as in JAX). A
-    TP-split head weight is gathered whole for the chunks."""
+    TP-split head weight is gathered whole for the chunks (`_WholeWeight`)."""
     head = model.language_model.lm_head
     if fused and type(head) is nn.Linear:
         w = head.weight
-        w = w.full_tensor() if isinstance(w, DTensor) else w
+        w = _WholeWeight.apply(w) if isinstance(w, DTensor) else w
         return shift_cross_entropy_fused(hidden, w, labels, pad_id, group=group)
     return shift_cross_entropy(model.language_model.logits(hidden), labels, pad_id, group)
 

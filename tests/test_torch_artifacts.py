@@ -96,7 +96,7 @@ def test_convert_round_trips_bit_for_bit(checkout, tmp_path, capsys, quantize):
                     "quantize": quantize}
     want = _checkout_model(checkout)
     if quantize is not None:
-        quantize_model_(want, quantize)
+        quantize_model_(want, quantize, eager=True)  # convert's rule: JAX's eager one
     got = load_params(PlanGenConfig(model=TINY, params_path=printed["saved"]),
                       dtype=torch.float32)
     assert quant_form(got) == quant_form(want)
@@ -169,7 +169,7 @@ def test_an_int4_artifact_in_bf16_is_the_in_place_bf16_form(checkout, tmp_path, 
     stored = safetensors.load_file(str(pathlib.Path(path) / artifact.WEIGHTS))
     assert stored["gen_embed.weight"].dtype == torch.float32
     got = load_params(PlanGenConfig(model=TINY, params_path=path), dtype=torch.bfloat16)
-    want = quantize_model_(_checkout_model(bf16, torch.bfloat16), "int4")
+    want = quantize_model_(_checkout_model(bf16, torch.bfloat16), "int4", eager=True)
     _assert_state_equal(got.state_dict(), want.state_dict())
 
 

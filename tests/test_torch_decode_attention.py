@@ -165,6 +165,18 @@ def test_split_plan(S_, plan):
     assert (n_split - 1) * slots < S_ <= n_split * slots
 
 
+@pytest.mark.parametrize("S_,plan", [(128, (1, 128)), (256, (2, 128)), (1024, (4, 256)),
+                                     (1152, (3, 384)), (2048, (4, 512)),
+                                     (da.A8_MAX_SLOTS, (4, da.A8_MAX_SLOTS // 4))])
+def test_a8_split_plan(S_, plan):
+    """K1-a8's grid: at most A8_MAX_SPLITS splits of whole 128-slot chunks,
+    up to the largest cache its wrapper takes."""
+    assert da.split_plan(S_, da.A8_MAX_SPLITS) == plan
+    n_split, slots = plan
+    assert n_split <= da.A8_MAX_SPLITS and slots % da.CHUNK == 0
+    assert (n_split - 1) * slots < S_ <= n_split * slots
+
+
 def test_split_plan_refuses_ragged_caches():
     for bad in (0, 100, 1000):
         with pytest.raises(ValueError):

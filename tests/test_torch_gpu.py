@@ -432,14 +432,28 @@ def _a8_check(got, want, codes, want_codes, vs, dtype):
     assert (err <= bound).all(), (err - bound).max()
 
 
+# q_pos of each case: 0, either side of the first tile edge (128 slots) and
+# of the first split edge (A8_MAX_SPLITS splits: 128 slots at S 256, 256 at
+# S 1024, 512 at S 2048, streamed as 128-slot tiles), the image loop's 677
+# and S - 1
+A8_POSITIONS = (0, 60, 127, 128, 200, 255, 256, 511, 512, 677, 1023, 1500)
+
+
 @pytest.mark.parametrize("shape", [dict(L=3, B=5, S=256, H=3, D=128),
-                                   dict(L=2, B=6, S=1024, H=4, D=64)], ids=["S256_D128",
-                                                                           "S1024_D64"])
+                                   dict(L=2, B=6, S=1024, H=4, D=64),
+                                   dict(L=2, B=5, S=2048, H=2, D=128)],
+                         ids=["S256_D128", "S1024_D64", "S2048_D128"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_k1_a8_matches_plain_version(cuda, dtype, shape):
+    """K1-a8 (split over slots, one cluster per (row, head)) against its
+    plain version at every q_pos of A8_POSITIONS below S and at S - 1: the
+    probability codes within A8_MAX_DIFFERING_CODES steps of one, the
+    output within `_a8_check`'s bound, two calls bitwise equal."""
     q, k8, ks, v8, vs, mask = _q8_inputs(cuda, dtype, **shape)
     B, S, H = shape["B"], shape["S"], shape["H"]
-    for layer, pos in [(0, 0), (1, 60), (0, 127), (1, 128), (0, 200), (1, S - 1)]:
+    positions = [p for p in A8_POSITIONS if p < S] + [S - 1]
+    for i, pos in enumerate(positions):
+        layer = i % shape["L"]
         q_pos = torch.tensor([pos], dtype=torch.int32, device=cuda)
         codes = torch.full((B, H, S), 99, dtype=torch.int8, device=cuda)
         launches = da.prefix_decode_attention_a8.launches
@@ -457,11 +471,11 @@ def test_k1_a8_matches_plain_version(cuda, dtype, shape):
 
 
 def test_k1_a8_all_pad_prefix_is_the_mean_rule(cuda):
-    """A live prefix of pads only: every live slot weighs alike, as the
-    plain version (and K1-q8) give."""
+    """A live prefix of pads only, over two splits: every live slot weighs
+    alike, as the plain version (and K1-q8) give."""
     q, k8, ks, v8, vs, mask = _q8_inputs(cuda, torch.float32)
     mask[2, :150] = 0
-    q_pos = torch.tensor([120], dtype=torch.int32, device=cuda)
+    q_pos = torch.tensor([140], dtype=torch.int32, device=cuda)
     codes = torch.zeros((5, 3, 256), dtype=torch.int8, device=cuda)
     got = da.prefix_decode_attention_a8(q, k8, ks, v8, vs, mask, 1, q_pos, codes_out=codes)
     want, want_codes = da.prefix_decode_attention_a8_reference(
@@ -508,6 +522,46 @@ def test_k1_a8_wrapper_raises(cuda, bad, request):
     with pytest.raises((TypeError, ValueError)):
         da.prefix_decode_attention_a8(q, k8, ks, v8, vs, mask, 0, q_pos, codes_out=codes)
     assert da.prefix_decode_attention_a8.launches == launches
+
+
+# ------------------------------------- the quantizers: the card against the CPU
+
+
+def _quantizer_cases():
+    """(name, fn of a float32 tensor -> a tuple of tensors): each quantizer
+    with the rule of the JAX call site it follows (`ops.scale_of`)."""
+    from plangen_tpu_torch.ops.attention import _quantize_rows_s8
+    from plangen_tpu_torch.ops.quant import quantize_weight
+
+    def int4(eager):
+        return lambda w: tuple(im.quantize_weight_int4(w, eager=eager).values())
+
+    return {"quantize_kv": lambda x: quantize_kv(x, x.flip(-1) * 3),
+            "rows_s8": _quantize_rows_s8,
+            "activations_int8": im.quantize_activations_int8,
+            "weight_int4_pipeline": int4(False),
+            "weight_int4_convert": int4(True),
+            "weight_int8": lambda w: tuple(quantize_weight(w).values())}
+
+
+@pytest.mark.parametrize("name", ["quantize_kv", "rows_s8", "activations_int8",
+                                  "weight_int4_pipeline", "weight_int4_convert",
+                                  "weight_int8"])
+def test_quantizer_on_the_card_equals_the_cpu(cuda, name):
+    """Each quantizer's codes and scales on CUDA tensors equal its output on
+    the CPU bit for bit: a scale is a product by fl(1/c) or a division by a
+    float32 tensor on both, never PyTorch's CUDA division by a Python
+    number (a product by its reciprocal there, a division on the CPU)."""
+    fn = _quantizer_cases()[name]
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((64, 16, 256), generator=g) * torch.rand((64, 16, 1), generator=g) * 4
+    x[0, 0] = 0.0  # an all-zero row (or column's worth): scale 1
+    want = fn(x)
+    got = fn(x.to(cuda))
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
 
 
 def test_a8_graph_equals_eager_loop(cuda):
@@ -1763,10 +1817,11 @@ def _fsdp_tp_config():
     return dataclasses.replace(cfg, llama=dataclasses.replace(cfg.llama, num_kv_heads=2))
 
 
-def _fsdp_tp_rank(rank: int, port: int, results) -> None:
+def _fsdp_tp_rank(rank: int, port: int, fused_ce: bool, results) -> None:
     """One of four ranks on cuda:0 over gloo (NCCL refuses two ranks on one
-    device): one stage3 AdamW step (fp32 compute, K3) on a data 2 x model 2
-    mesh with FSDP over "data", this data shard's rows of the global batch."""
+    device): one stage3 AdamW step (fp32 compute, K3, the fused lm_head CE
+    when `fused_ce`) on a data 2 x model 2 mesh with FSDP over "data", this
+    data shard's rows of the global batch."""
     import traceback
 
     import torch.distributed as dist
@@ -1784,7 +1839,8 @@ def _fsdp_tp_rank(rank: int, port: int, results) -> None:
         torch.backends.cudnn.allow_tf32 = False
         pm.init_distributed(f"localhost:{port}", 4, rank, device="cpu")
         mesh = pm.create_mesh({"data": 2, "model": 2}, device="cuda")
-        cfg, tcfg = _fsdp_tp_config(), TrainConfig(use_flash_attention=True)
+        cfg = _fsdp_tp_config()
+        tcfg = TrainConfig(use_flash_attention=True, fused_lm_ce=fused_ce)
         model = init_params(PlanGenModel(cfg, dtype=torch.float32, device=dev),
                             torch.Generator(device=dev).manual_seed(0))
         for name, trainable in trainable_mask(model, "stage3").items():
@@ -1813,22 +1869,27 @@ def _fsdp_tp_rank(rank: int, port: int, results) -> None:
             dist.destroy_process_group()
 
 
-def test_fsdp_tp_step_over_four_gloo_ranks_equals_the_plain_step(cuda):
+@pytest.mark.parametrize("fused_ce", [False, True], ids=["lm_ce", "fused_lm_ce"])
+def test_fsdp_tp_step_over_four_gloo_ranks_equals_the_plain_step(cuda, fused_ce):
     """One stage3 AdamW step (fp32 compute) on a data 2 x model 2 mesh with
     FSDP over "data", four gloo ranks sharing cuda:0, equals the plain step
     on the global batch: the losses on every rank, and AdamW's first moment
     of every parameter (the clipped gradient's tenth) within FSDP_TP_MU_RTOL
     (Adam's update itself does not see a gradient's scale). Each rank runs
-    K3 forward and backward at its H/tp heads, no plain call."""
+    K3 forward and backward at its H/tp heads, no plain call. With
+    `fused_lm_ce` the chunked CE gathers the vocab-split lm_head whole over
+    gloo with CUDA tensors, and the plain step takes the fused CE too."""
     import multiprocessing
     import queue
     import socket
+    import time
 
     from plangen_tpu_torch.config import TrainConfig
     from plangen_tpu_torch.train.optim import make_optimizer
     from plangen_tpu_torch.train.step import init_train_state, make_train_step
 
-    cfg, tcfg = _fsdp_tp_config(), TrainConfig(use_flash_attention=True)
+    cfg = _fsdp_tp_config()
+    tcfg = TrainConfig(use_flash_attention=True, fused_lm_ce=fused_ce)
     model = init_params(PlanGenModel(cfg, dtype=torch.float32, device=cuda),
                         torch.Generator(device=cuda).manual_seed(0))
     opt, mask = make_optimizer(tcfg.optim, model, "stage3")
@@ -1845,17 +1906,25 @@ def test_fsdp_tp_step_over_four_gloo_ranks_equals_the_plain_step(cuda):
         port = s.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_fsdp_tp_rank, args=(r, port, results)) for r in range(4)]
+    procs = [ctx.Process(target=_fsdp_tp_rank, args=(r, port, fused_ce, results))
+             for r in range(4)]
     for p in procs:
         p.start()
-    got = {}
+    got, deadline = {}, time.monotonic() + FSDP_TP_TIMEOUT_S
     try:
-        for _ in procs:
-            rank, res = results.get(timeout=FSDP_TP_TIMEOUT_S)
+        while len(got) < len(procs):
+            try:
+                rank, res = results.get(timeout=5.0)
+            except queue.Empty:
+                # a rank killed by a signal puts nothing in the queue
+                dead = {r: p.exitcode for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in got}
+                assert not dead, f"ranks died without a result (exit codes {dead})"
+                if time.monotonic() > deadline:
+                    pytest.fail(f"four ranks: no result within {FSDP_TP_TIMEOUT_S} s")
+                continue
             assert not isinstance(res, str), f"rank {rank} failed:\n{res}"
             got[rank] = res
-    except queue.Empty:
-        pytest.fail(f"four ranks: no result within {FSDP_TP_TIMEOUT_S} s")
     finally:
         for p in procs:
             p.join(timeout=30)

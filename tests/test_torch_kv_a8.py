@@ -1,8 +1,9 @@
 """`kv_a8` on the CPU: the s8 x s8 decode attention over the int8 KV cache
 (K1-a8's plain version) against the JAX package.
 
-  * `_quantize_rows_s8` equals JAX's bit for bit, codes and scales, ties
-    at .5 included;
+  * `_quantize_rows_s8` equals JAX's as the JAX decode runs it (jitted:
+    the scale is absmax times the float32 reciprocal of 127) bit for bit,
+    codes and scales, ties at .5 included;
   * `dot_product_attention_q8(a8=True)` (the fixed buffer with a bias) and
     `prefix_decode_attention_a8_reference` (the live prefix of the stacked
     cache) against JAX's `dot_product_attention_q8(a8=True)` in fp32, with
@@ -63,7 +64,7 @@ def test_quantize_rows_s8_equals_jax():
     x[0] = ties
     x[1, 0] = 0.0  # an all-zero row: scale 1, codes 0
     x[1, 1] = np.float32(1e-30)
-    want_q, want_s = (np.asarray(a) for a in jattn._quantize_rows_s8(jnp.asarray(x)))
+    want_q, want_s = (np.asarray(a) for a in jax.jit(jattn._quantize_rows_s8)(jnp.asarray(x)))
     got_q, got_s = tattn._quantize_rows_s8(torch.from_numpy(x))
     assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
     np.testing.assert_array_equal(got_q.numpy(), want_q)
@@ -106,27 +107,33 @@ def _bias(mask):
                                   jnp.arange(S, dtype=jnp.int32))
 
 
-def _jax_codes(q, k8, ks, v8, vs, mask):
-    """JAX's dot_product_attention_q8(a8=True) up to its probability codes
-    [B, H, S], in its operations."""
+@jax.jit
+def _jax_codes_jitted(q, k8, ks, vs, bias):
     rep = H // HKV
-    k8, ks, vs = (jnp.repeat(jnp.asarray(a), rep, axis=2) for a in (k8, ks, vs))
-    q_q8, q_s = jattn._quantize_rows_s8(jnp.asarray(q))
+    k8, ks, vs = (jnp.repeat(a, rep, axis=2) for a in (k8, ks, vs))
+    q_q8, q_s = jattn._quantize_rows_s8(q)
     logits = jnp.einsum("bqhd,bshd->bhqs", q_q8, k8, preferred_element_type=jnp.int32
                         ).astype(jnp.float32) * q_s.transpose(0, 2, 1, 3)
     logits = logits * ks.transpose(0, 2, 1)[:, :, None, :] * (q.shape[-1] ** -0.5)
-    probs = jax.nn.softmax(logits + _bias(mask), axis=-1)
+    probs = jax.nn.softmax(logits + bias, axis=-1)
     probs = probs * vs.transpose(0, 2, 1)[:, :, None, :]
-    return np.asarray(jattn._quantize_rows_s8(probs)[0])[:, :, 0]
+    return jattn._quantize_rows_s8(probs)[0]
+
+
+def _jax_codes(q, k8, ks, v8, vs, mask):
+    """JAX's dot_product_attention_q8(a8=True) up to its probability codes
+    [B, H, S], in its operations, jitted as the JAX decode runs them."""
+    codes = _jax_codes_jitted(*(jnp.asarray(a) for a in (q, k8, ks, vs)), _bias(mask))
+    return np.asarray(codes)[:, :, 0]
 
 
 @pytest.mark.parametrize("D", [64, 128])
 def test_a8_attention_equals_jax(D):
     q, k8, ks, v8, vs, mask = _a8_inputs(D)
     layer = 1
-    want = np.asarray(jattn.dot_product_attention_q8(
+    want = np.asarray(jax.jit(functools.partial(jattn.dot_product_attention_q8, a8=True))(
         jnp.asarray(q), *(jnp.asarray(a[layer]) for a in (k8, ks, v8, vs)),
-        bias=_bias(mask), a8=True))
+        bias=_bias(mask)))  # jitted, as the JAX decode runs it
     t = [torch.from_numpy(a) for a in (q, k8, ks, v8, vs, mask)]
     bias = torch.from_numpy(np.array(_bias(mask)))
     full = tattn.dot_product_attention_q8(t[0], *(a[layer] for a in t[1:5]), bias=bias,
@@ -270,8 +277,10 @@ def _pipelines(mode):
     (which acts only with teacher forcing) at temperature 0."""
     tok = ByteFallbackTokenizer(vocab_size=QCFG.llama.vocab_size)
     dense, params = _qmodel()
+    # as the JAX package's eval.build_pipeline quantizes: int8 eagerly, int4
+    # under jax.jit
     jparams = (jquant.quantize_lm_params(params) if mode == "int8"
-               else jquant.quantize_lm_params_int4(params))
+               else jax.jit(jquant.quantize_lm_params_int4)(params))
     jax_pipe = JaxPipeline(jparams, QCFG, JaxProcessor(
         tok, image_tokens=QCFG.image_seq_len,
         gen=_gen(JaxGenerationConfig, quantize=mode, kv_a8=True)),

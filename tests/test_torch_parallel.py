@@ -78,7 +78,10 @@ CONFIGS = {"tiny": TINY, "tiny_7b": PlanGenModelConfig.tiny_7b(), "tiny_af": TIN
 # the clip is active: the tiny model's first gradient norm is well above 0.05
 TCFGS = {"adamw": TrainConfig(optim=OptimConfig(max_grad_norm=0.05)),
          "adafactor": TrainConfig(optim=OptimConfig(optimizer="adafactor", learning_rate=1e-3,
-                                                    max_grad_norm=0.05))}
+                                                    max_grad_norm=0.05)),
+         # the chunked lm_head CE (train.fused_lm_ce) on the vocab-split head
+         "adamw_fused_ce": TrainConfig(optim=OptimConfig(max_grad_norm=0.05),
+                                       fused_lm_ce=True)}
 TCFG = TCFGS["adamw"]
 TOL = dict(rtol=1e-5, atol=1e-6)
 SPAWN_TIMEOUT = 150.0
@@ -106,6 +109,11 @@ OPTION_CASES = {  # name: (mesh shape, fsdp, world, model, tuning mode, optimize
                           "adafactor"),
     "adafactor_fsdp2_tp2": ({"data": 2, "model": 2}, True, 4, "tiny_af", "stage3",
                             "adafactor"),
+}
+FUSED_CE_CASES = {  # as OPTION_CASES: the fused lm_head CE under TP
+    "fused_ce_tp2": ({"data": 1, "model": 2}, False, 2, "tiny", "stage3", "adamw_fused_ce"),
+    "fused_ce_fsdp2_tp2": ({"data": 2, "model": 2}, True, 4, "tiny", "stage3",
+                           "adamw_fused_ce"),
 }
 CHECKPOINT_CASES = ("fsdp2_tp2", "adafactor_fsdp2_tp2")  # saved, then restored
 REMAT_CASES = ("fsdp2_tp2",)  # under gradient_checkpointing
@@ -235,7 +243,7 @@ def _case(name):
     """(mesh shape, fsdp, world, model, tuning mode, optimizer) of a case."""
     if name in TRAIN_CASES:
         return TRAIN_CASES[name] + ("tiny", "stage3", "adamw")
-    return OPTION_CASES[name]
+    return {**OPTION_CASES, **FUSED_CE_CASES}[name]
 
 
 def _sharded_state(name, inputs, mesh, compute_dtype=torch.float32):
@@ -465,7 +473,8 @@ def _rank_main(rank, world, port, inputs, results):
         sd, ids = inputs["weights"]["tiny"], inputs["ids"]
         pm.init_distributed(f"localhost:{port}", world, rank, device="cpu")
         out = {name: _train_case(name, inputs, directory)
-               for name in (*TRAIN_CASES, *OPTION_CASES) if _case(name)[2] == world}
+               for name in (*TRAIN_CASES, *OPTION_CASES, *FUSED_CE_CASES)
+               if _case(name)[2] == world}
         shape = {"data": 1, "model": 2} if world == 2 else {"data": 2, "model": 2}
         out["decode"] = _decode_case(shape, sd, ids, world)
         if world == 2:
@@ -610,7 +619,9 @@ def _jax_greedy_tokens(mode=None, name="tiny"):
     if mode == "int8":
         params = jquant.quantize_lm_params(params)
     elif mode is not None:
-        params = jquant.quantize_lm_params_int4(params, act_int8=mode == "int4_a8")
+        # under jax.jit, as the JAX pipeline quantizes int4 (tasks/eval.py)
+        params = jax.jit(functools.partial(jquant.quantize_lm_params_int4,
+                                           act_int8=mode == "int4_a8"))(params)
     dense = jint4.int4_matmul
 
     def through_reference(x, q, layer=None, interpret=None):
@@ -902,6 +913,26 @@ def test_option_train_steps_on_a_mesh_match_jax_global_batch(world):
                                                err_msg=msg + " (keys)")
                     continue
                 np.testing.assert_allclose(p, want, err_msg=msg, **TOL)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_fused_lm_ce_under_tp_matches_jax_global_batch(world):
+    """`train.fused_lm_ce` with the lm_head split over "model" (the chunked
+    CE gathers the head whole, its gradient back to each rank's rows): tp 2
+    on 2 ranks, FSDP 2 x tp 2 on 4; the loss and every parameter after the
+    step, on every rank, equal JAX's fused step on the global batch."""
+    want_metrics, want_params = _jax_step("tiny", "stage3", "adamw_fused_ce")
+    results = _spawned(world)
+    (name,) = [n for n, c in FUSED_CE_CASES.items() if c[2] == world]
+    for rank, res in results.items():
+        got = res[name]["metrics"]
+        assert sorted(got) == sorted(want_metrics), name
+        for k, v in want_metrics.items():
+            np.testing.assert_allclose(got[k], v, err_msg=f"{name} rank {rank} {k}", **TOL)
+        assert sorted(res[name]["params"]) == sorted(want_params), name
+        for pname, p in res[name]["params"].items():
+            np.testing.assert_allclose(p, want_params[pname],
+                                       err_msg=f"{name} rank {rank}: {pname}", **TOL)
 
 
 @pytest.mark.parametrize("world", [2, 4])

@@ -1,7 +1,12 @@
 """The port's quantization ops against the JAX package (CPU, plain versions).
 
   * packing: int4 `w_p4` / `s_lo` / `s_hi16`, int8 `quantize_weight`,
-    `quantize_kv` and `quantize_activations_int8` are byte-equal to JAX's;
+    `quantize_kv` and `quantize_activations_int8` are byte-equal to JAX's
+    as JAX runs each: `jax.jit` of it where the JAX package runs it jitted
+    (the decode's `quantize_kv` and activations, the pipeline's int4
+    weights), eagerly where it runs eagerly (int8 weights, `cli
+    convert`'s int4 weights: the port's `eager=True`). XLA turns a jitted
+    division by a constant into a product by its float32 reciprocal;
   * K2 (W4A16) plain version against JAX `int4_matmul` (Pallas in interpret
     mode) and `int4_matmul_reference`, fp32;
   * K4 (W4A8) plain version against JAX `int4_matmul_a8_reference` and the
@@ -12,6 +17,8 @@
 Inputs come from `np.random.RandomState`; weights at the JAX init scale
 (normal * fan_in^-0.5).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -33,6 +40,12 @@ def _w(rs, *shape):
     return (rs.randn(*shape) / np.sqrt(shape[-2])).astype(np.float32)
 
 
+# JAX's int4 quantization where its pipeline runs it (`tasks/eval.py`: under
+# jax.jit) and where `cli convert` does (eagerly)
+JAX_INT4 = {"pipeline": jax.jit(jint4.quantize_weight_int4, static_argnames="act_int8"),
+            "convert": jint4.quantize_weight_int4}
+
+
 def _assert_tree_equal(want, got):
     assert sorted(want) == sorted(got)
     for k in want:
@@ -44,9 +57,10 @@ def _assert_tree_equal(want, got):
 # ------------------------------------------------------------------ packing
 
 
+@pytest.mark.parametrize("route", ["pipeline", "convert"])
 @pytest.mark.parametrize("case", ["2d", "stacked", "fused", "zero_column", "half_steps"])
 @pytest.mark.parametrize("act_int8", [False, True], ids=["w16", "a8"])
-def test_int4_packing_byte_equal(case, act_int8):
+def test_int4_packing_byte_equal(case, act_int8, route):
     rs = np.random.RandomState(0)
     if case == "2d":
         w = _w(rs, 256, 512)
@@ -63,8 +77,9 @@ def test_int4_packing_byte_equal(case, act_int8):
         codes = rs.randint(-7, 7, size=(256, 512)).astype(np.float32) + 0.5
         w = codes * scale
         w[0] = 7 * scale  # pins absmax so the scale is exactly 0.25
-    want = jint4.quantize_weight_int4(jnp.asarray(w), act_int8=act_int8)
-    got = im.quantize_weight_int4(torch.from_numpy(w), act_int8=act_int8)
+    want = JAX_INT4[route](jnp.asarray(w), act_int8=act_int8)
+    got = im.quantize_weight_int4(torch.from_numpy(w), act_int8=act_int8,
+                                  eager=route == "convert")
     assert im.is_quantized_int4(got) and not im.is_quantized_int4(torch.from_numpy(w))
     _assert_tree_equal(want, got)
     np.testing.assert_array_equal(
@@ -76,7 +91,7 @@ def test_int4_stacked_packing_equals_per_layer():
     """The port quantizes per layer; the JAX tree is stacked: same bytes."""
     rs = np.random.RandomState(1)
     w = _w(rs, 3, 256, 512)
-    stacked = jint4.quantize_weight_int4(jnp.asarray(w))
+    stacked = JAX_INT4["pipeline"](jnp.asarray(w))
     for layer in range(3):
         got = im.quantize_weight_int4(torch.from_numpy(w[layer]))
         _assert_tree_equal({k: v[layer] for k, v in stacked.items()}, got)
@@ -100,7 +115,7 @@ def test_quantize_kv_byte_equal():
     k = rs.randn(4, 9, 2, 128).astype(np.float32)
     v = rs.randn(4, 9, 2, 128).astype(np.float32)
     k[1, 3, 0] = 0.0  # an all-zero row: scale 1
-    want = jattn.quantize_kv(jnp.asarray(k), jnp.asarray(v))
+    want = jax.jit(jattn.quantize_kv)(jnp.asarray(k), jnp.asarray(v))  # as the decode runs it
     got = attn.quantize_kv(torch.from_numpy(k), torch.from_numpy(v))
     for a, b in zip(want, got):
         assert np.asarray(a).dtype == b.numpy().dtype
@@ -111,7 +126,7 @@ def test_quantize_activations_int8_byte_equal():
     rs = np.random.RandomState(4)
     x = rs.randn(9, 256).astype(np.float32)
     x[2] = 0.0
-    want = jint4.quantize_activations_int8(jnp.asarray(x))
+    want = jax.jit(jint4.quantize_activations_int8)(jnp.asarray(x))  # as the decode runs it
     got = im.quantize_activations_int8(torch.from_numpy(x))
     for a, b in zip(want, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
@@ -123,7 +138,7 @@ def test_quantize_activations_int8_byte_equal():
 def _int4_pair(seed, stacked=False, act_int8=False, I=256, O=512):
     rs = np.random.RandomState(seed)
     w = _w(rs, *((2, I, O) if stacked else (I, O)))
-    return (rs, jint4.quantize_weight_int4(jnp.asarray(w), act_int8=act_int8),
+    return (rs, JAX_INT4["pipeline"](jnp.asarray(w), act_int8=act_int8),
             im.quantize_weight_int4(torch.from_numpy(w), act_int8=act_int8))
 
 
@@ -184,12 +199,15 @@ def test_k4_plain_version_exactly_jax(rows, stacked):
     x = rs.randn(rows, 256).astype(np.float32)
     layer = 1 if stacked else 0
     got = im.int4_matmul(torch.from_numpy(x), tq, layer=layer if stacked else None).numpy()
-    kernel = np.asarray(jint4.int4_matmul(
-        jnp.asarray(x), jq, layer=jnp.int32(layer) if stacked else None, interpret=True))
+    # jitted, as the JAX decode runs them: the activations' scale is their
+    # absmax times the float32 reciprocal of 127
+    kernel = np.asarray(jax.jit(functools.partial(jint4.int4_matmul, interpret=True))(
+        jnp.asarray(x), jq, layer=jnp.int32(layer) if stacked else None))
     if rows > 256:
         np.testing.assert_allclose(got, kernel, atol=1e-5, rtol=0)
         return
-    ref = np.asarray(jint4.int4_matmul_a8_reference(jnp.asarray(x), jq, layer=layer))
+    ref = np.asarray(jax.jit(jint4.int4_matmul_a8_reference, static_argnames="layer")(
+        jnp.asarray(x), jq, layer=layer))
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(
         im.int4_matmul_a8_reference(torch.from_numpy(x), tq, layer=layer).numpy(), ref)
@@ -208,7 +226,8 @@ def test_k4_extreme_values_exact():
     q = {"w_p4": w_p4, "s_lo": rs.rand(1, OH).astype(np.float32),
          "s_hi16": rs.rand(1, OH).astype(np.float32) / 16, "a8": np.zeros((), np.int8)}
     x = np.sign(rs.randn(8, I)).astype(np.float32) * 3.0  # quantizes to +-127
-    want = np.asarray(jint4.int4_matmul_a8_reference(jnp.asarray(x), jax.tree.map(jnp.asarray, q)))
+    want = np.asarray(jax.jit(jint4.int4_matmul_a8_reference)(jnp.asarray(x),
+                                                               jax.tree.map(jnp.asarray, q)))
     got = im.int4_matmul(torch.from_numpy(x), {k: torch.from_numpy(np.asarray(v)) for k, v in q.items()})
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -219,7 +238,7 @@ def test_int4_linear_modules_match_dense_reference():
     w = _w(rs, 256, 512)
     b = rs.randn(512).astype(np.float32)
     x = rs.randn(5, 256).astype(np.float32)
-    jq4 = jint4.quantize_weight_int4(jnp.asarray(w))
+    jq4 = JAX_INT4["pipeline"](jnp.asarray(w))
     mod4 = quant.Int4Linear.from_dense(torch.from_numpy(w), bias=torch.from_numpy(b))
     ref4 = np.asarray(jint4.int4_matmul_reference(jnp.asarray(x), jq4)) + b
     np.testing.assert_allclose(mod4(torch.from_numpy(x)).numpy(), ref4, atol=1e-5, rtol=0)

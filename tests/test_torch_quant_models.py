@@ -82,11 +82,18 @@ def _params():
     return jvlm.init(jax.random.PRNGKey(0), CFG, dtype=jnp.float32)
 
 
+def _jax_int4(params, act_int8=False):
+    """JAX's int4 tree as its pipeline quantizes it (`tasks/eval.py`:
+    under jax.jit, the scale a product by the float32 reciprocal of 7),
+    which `quantize_model_` follows."""
+    return jax.jit(functools.partial(jquant.quantize_lm_params_int4, act_int8=act_int8))(params)
+
+
 def _jax_quantized(params, mode):
     if mode == "int8":
         return jquant.quantize_lm_params(params)
     if mode in ("int4", "int4_a8"):
-        return jquant.quantize_lm_params_int4(params, act_int8=mode == "int4_a8")
+        return _jax_int4(params, act_int8=mode == "int4_a8")
     return params  # int8_kv: bf16 weights, int8 cache
 
 
@@ -149,13 +156,17 @@ def test_llama_stack_over_int8_cache_matches_jax(mode, jax_int4_through_referenc
     rs = np.random.RandomState(1)
     steps = rs.randn(3, B, 1, CFG.llama.hidden_size).astype(np.float32)
     lm = jparams["language_model"]
+    # jitted, as JAX's prefill and decode run it (its quantize_kv then
+    # scales by the float32 reciprocal of 127, as the port's does)
+    jforward = jax.jit(lambda p, x, m, pos, c: jllama.forward(p, CFG.llama, x, m,
+                                                              positions=pos, kv_cache=c))
     jcache = jinit_kv_cache(CFG.llama, B, S, dtype=jnp.float32, quantized=True)
-    jh, jcache = jllama.forward(lm, CFG.llama, jnp.asarray(embeds), jnp.asarray(full),
-                                positions=jnp.arange(L, dtype=jnp.int32), kv_cache=jcache)
+    jh, jcache = jforward(lm, jnp.asarray(embeds), jnp.asarray(full),
+                          jnp.arange(L, dtype=jnp.int32), jcache)
     want = [np.asarray(jh)]
     for i, step in enumerate(steps):
-        jh, jcache = jllama.forward(lm, CFG.llama, jnp.asarray(step), jnp.asarray(full),
-                                    positions=jnp.array([L + i], jnp.int32), kv_cache=jcache)
+        jh, jcache = jforward(lm, jnp.asarray(step), jnp.asarray(full),
+                              jnp.array([L + i], jnp.int32), jcache)
         want.append(np.asarray(jh))
 
     cache = init_kv_cache(CFG.llama, B, S, dtype=torch.float32, quantized=True)
@@ -228,7 +239,7 @@ def test_gqa_fuses_only_k_and_v():
     attn = model.language_model.model.layers[0].self_attn
     assert {n for n, _ in attn.named_children()} == {"q_proj", "k_v_proj", "o_proj"}
     loaded = PlanGenModel(cfg, dtype=torch.float32)
-    load_jax_quantized_params(loaded, jquant.quantize_lm_params_int4(params), cfg)
+    load_jax_quantized_params(loaded, _jax_int4(params), cfg)
     for name, t in model.state_dict().items():
         torch.testing.assert_close(t, loaded.state_dict()[name], rtol=0, atol=0, msg=name)
 
@@ -405,7 +416,7 @@ def test_bf16_int4_prefill_and_decode_step_logits():
     plus one decode step; the gen-head logits agree within rtol 2e-2 of
     their scale."""
     params = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), _params())
-    jparams = jquant.quantize_lm_params_int4(params)
+    jparams = _jax_int4(params)
     model = PlanGenModel(CFG, dtype=torch.bfloat16)
     load_jax_params(model, params, CFG)
     quantize_model_(model, "int4")

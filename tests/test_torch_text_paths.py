@@ -372,7 +372,9 @@ def test_quantized_plan_equals_jax(mode, captions):
     and 4 matmuls a layer through K2 (K4 for int4_a8), and the prefill its
     4 a layer when its rows fit the kernel (<= 256)."""
     params = _qparams()
-    jparams = jquant.quantize_lm_params_int4(params, act_int8=mode == "int4_a8")
+    # under jax.jit, as the JAX pipeline quantizes int4 (tasks/eval.py)
+    jparams = jax.jit(functools.partial(jquant.quantize_lm_params_int4,
+                                        act_int8=mode == "int4_a8"))(params)
     model = PlanGenModel(QCFG, dtype=torch.float32)
     load_jax_params(model, params, QCFG)
     gen = GenerationConfig(temperature=0.0, max_new_text_tokens=TEXT_BUDGET, quantize=mode)
