@@ -249,8 +249,10 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      equal to each other and to the unsharded fp32 model's; (b) the
      phase-9 Trainer at 1B width cut to PARALLEL_TRAIN_LAYERS (4 LLaMA
      layers, 4 SigLIP blocks) plain, then with `fsdp=True` on the 1 x 1
-     mesh, 3 steps each from the same seed (K3 16 forward and 16 backward a step,
-     no plain call; s/step, peak) and a fourth under the profiler (device
+     mesh at JAX's default `fsdp_min_size` (the parameters' placements by
+     kind and dim against the rule and PARALLEL_PLACED), 3 steps each
+     from the same seed (K3 16 forward and 16 backward a step, no plain
+     call; s/step, peak) and a fourth under the profiler (device
      busy, kernels by group), then the losses and every parameter against
      plain; (c) the FSDP run's checkpoint (gathered, written by the lead)
      restored into a plain Trainer, every parameter bitwise; (f) the
@@ -279,7 +281,8 @@ Phases; each passes or raises, and the script exits non-zero on any failure:
      (stage3, AdamW, fp32 masters, bf16 compute) at Janus-Pro-1B width cut
      to FSDP_TP_LAYERS, under gradient_checkpointing, 2 steps: every
      parameter gathered right after `shard_params` bitwise equal to the
-     seeded weights on every rank, 8 heads a rank, K3's launches the
+     seeded weights on every rank, placed as the rule says at JAX's default
+     `fsdp_min_size` (FSDP_TP_PLACED), 8 heads a rank, K3's launches the
      code's count each step (no plain call), against one plain Trainer's
      same steps on the global batch the losses within FSDP_TP_LOSS_RTOL,
      AdamW's first moment after step 1 (linear in the gradient) within
@@ -2710,6 +2713,16 @@ PARALLEL_STEPS = 3  # checked trainer steps of (b), each run, before a profiled 
 # write and restore took ~150 s, which brought the smoke near its time
 # limit; cut, ~33 s
 PARALLEL_TRAIN_LAYERS = (4, 4)
+FSDP_MIN_SIZE = 2 ** 20  # JAX's default `train.fsdp_min_size`, which (b) and (h) keep
+# (b) the FSDP Trainer's parameters by kind and dim at FSDP_MIN_SIZE on the
+# 1 x 1 mesh: the JAX leaves of 2^20 elements or more FSDP-sharded along
+# the port dim of their largest dim (every dim divides 1), the rest whole
+PARALLEL_PLACED = {"fsdp 0": 22, "fsdp 1": 51, "replicated": 375}
+# (b) the FSDP run's s/step and peak when FSDP2 sharded every parameter along
+# dim 0 (the code before `fsdp_min_size`), measured by this phase in turns
+# with the rule's code in one run
+EVERY_PARAM_SHARDED_15B = ("0.2701-0.3369 s/step, peak 16.86 GiB on NVIDIA H100 80GB HBM3, "
+                           "700.00 W")
 TP2_STEPS = 32  # the 2-rank decode of (e)
 TP2_TIMEOUT_S = 240.0
 TP_EAGER_STEPS = 16  # (d): eager against graph under TP; an eager step is host-bound
@@ -2749,6 +2762,9 @@ FSDP_TP_MESH = {"data": 2, "model": 2}
 FSDP_TP_LAYERS = (2, 2)
 FSDP_TP_STEPS = 2
 FSDP_TP_TIMEOUT_S = 300.0
+# (h) the parameters by kind and dim at FSDP_MIN_SIZE: 30 TP-split (21
+# column, 8 row, the vocab-split embedding), 26 FSDP-sharded, the rest whole
+FSDP_TP_PLACED = {"fsdp 0": 3, "fsdp 1": 23, "replicated": 350, "tp": 30}
 # (h) the ranks' losses against the plain Trainer's, relative: bf16 compute,
 # each data shard's rows and each TP partial sum rounded to bf16 (8 bits,
 # 0.4 %) apart from the plain run's, a few roundings deep at this depth
@@ -2823,23 +2839,65 @@ def trainer_steps(torch, tag: str, what: str, trainer, loader, steps: int, first
     return losses, seconds, peak, launches
 
 
+def placement_counts(trainer) -> tuple:
+    """[15b, 15h] How `shard_params` placed a Trainer's parameters on its
+    mesh, read from the live parameters, and what the rule says at the
+    Trainer's `train.fsdp_min_size` (`param_shardings`, `fsdp_dims`):
+    ({kind: parameters}, the same by the rule). Kinds: "fsdp 0" / "fsdp 1"
+    a DTensor over "data" sharded along that dim, "tp" one over "model",
+    "replicated" a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    from plangen_tpu_torch.parallel import mesh as pm
+
+    mesh, min_size = trainer.mesh, trainer.cfg.train.fsdp_min_size
+    tp = mesh["model"].size() if mesh["model"].size() > 1 else None
+    fsdp = mesh["data"].size()
+    kinds = pm.param_shardings(trainer.model, tp, fsdp, min_size)
+    dims = pm.fsdp_dims(trainer.model, tp, fsdp, min_size)
+    live, rule = {}, {}
+    for n, p in trainer.model.named_parameters():
+        if isinstance(p, DTensor):
+            placement, sub = pm._mesh_dim(p)
+            got = (f"fsdp {pm.split_dim(placement)}" if sub.mesh_dim_names == ("data",)
+                   else "tp")
+        else:
+            got = "replicated"
+        want = {"fsdp": f"fsdp {dims.get(n)}", "replicated": "replicated"}.get(kinds[n], "tp")
+        live[got] = live.get(got, 0) + 1
+        rule[want] = rule.get(want, 0) + 1
+    return dict(sorted(live.items())), dict(sorted(rule.items()))
+
+
 def parallel_trainer_run(torch, dev, what: str, overrides: dict, launches: dict):
     """[15b] One phase-9 Trainer (`options_trainer`) for PARALLEL_STEPS
     checked steps, then one more under the profiler: (trainer, its
-    numbers)."""
+    numbers). Under FSDP the parameters' placements by kind and dim, the
+    live ones against the rule's."""
     import statistics
 
     trainer, loader, built = options_trainer(torch, dev, overrides,
                                              fsdp_tp_model_cfg(PARALLEL_TRAIN_LAYERS))
     check((trainer.mesh is None) == (what == "plain"), f"[15b] {what}: mesh {trainer.mesh}")
+    placed = None
+    if trainer.mesh is not None:
+        check(trainer.cfg.train.fsdp_min_size == FSDP_MIN_SIZE,
+              f"[15b] {what}: fsdp_min_size {trainer.cfg.train.fsdp_min_size}")
+        placed, rule = placement_counts(trainer)
+        log(f"[15b] {what}: fsdp_min_size {trainer.cfg.train.fsdp_min_size}, parameters "
+            f"placed {placed} (the rule: {rule})")
+        check(placed == rule == PARALLEL_PLACED, f"[15b] {what}: placed {placed}, the rule "
+              f"says {rule}, expected {PARALLEL_PLACED}")
     losses, seconds, peak, got = trainer_steps(torch, "15b", what, trainer, loader,
                                                PARALLEL_STEPS)
     add_launches(launches, got)
     run = dict(losses=losses, s_step=statistics.median(seconds[1:]), step0_s=seconds[0],
-               peak_gib=peak, built_s=built)
+               peak_gib=peak, built_s=built, placed=placed)
     log(f"[15b] {what}: built in {built:.2f} s, {run['s_step']:.4f} s/step (median of steps "
         f"1-{PARALLEL_STEPS - 1}; step 0 {seconds[0]:.3f} s), peak device memory "
-        f"{peak:.2f} GiB, {nvidia_smi_line()}")
+        f"{peak:.2f} GiB, {nvidia_smi_line()}" + (
+            f"; with every parameter FSDP-sharded along dim 0 (before `fsdp_min_size`): "
+            f"{EVERY_PARAM_SHARDED_15B}" if what == "fsdp" else ""))
     profile_step(torch, trainer, loader, f"15b {what}")
     return trainer, run
 
@@ -3079,8 +3137,7 @@ def fsdp_tp_rank(rank: int, port: int, inputs: dict, results) -> None:
                        if not torch.equal(pm.full_tensor(p), seeded.get_parameter(n))]
         del seeded
         torch.cuda.empty_cache()
-        kinds = pm.param_shardings(trainer.model, tp=FSDP_TP_MESH["model"],
-                                   fsdp=FSDP_TP_MESH["data"])
+        placed, rule = placement_counts(trainer)
         layer = trainer.model.language_model.model.layers[0]
         block = trainer.model.vision_model.vision_tower.blocks[0]
         heads = {"llama": pm._local(layer.self_attn.q_proj.weight).shape[0]
@@ -3107,8 +3164,7 @@ def fsdp_tp_rank(rank: int, port: int, inputs: dict, results) -> None:
         results.put((rank, dict(
             unequal_after_shard=unequal, heads=heads, losses=losses, seconds=seconds,
             peak_gib=peak, launches=launches, built_s=built, diffs=diffs, mu_gaps=mu_gaps,
-            tp_split=sum(k in ("vocab", "column", "row") for k in kinds.values()),
-            fsdp=sum(k == "fsdp" for k in kinds.values()))))
+            placed=placed, rule=rule)))
     except BaseException:
         results.put((rank, traceback.format_exc()))
     finally:
@@ -3211,8 +3267,8 @@ def phase_fsdp_tp(torch, dev, fp32: bool = False) -> dict:
     log("[15h] the five tensors whose first moments part most: " + ", ".join(
         f"{n} {g:.3e}" for g, n in per_tensor[-5:][::-1]))
     log(f"[15h] FSDP x TP in {'fp32' if fp32 else 'bf16'} compute over four gloo ranks on "
-        f"cuda:0 ({got[0]['tp_split']} parameters "
-        f"TP-split, {got[0]['fsdp']} FSDP-sharded), {FSDP_TP_STEPS} steps under remat in "
+        f"cuda:0 (parameters placed {got[0]['placed']}, by kind and dim, at fsdp_min_size "
+        f"{FSDP_MIN_SIZE}), {FSDP_TP_STEPS} steps under remat in "
         f"{wall:.1f} s (the processes' start, build and steps); against the plain Trainer: "
         f"losses within {loss_gap:.3e} (relative, limit {FSDP_TP_LOSS_RTOL}); AdamW's first "
         f"moment after step 1 within {mu_gap:.3e} at the median tensor (relative L2, limit "
@@ -3224,6 +3280,8 @@ def phase_fsdp_tp(torch, dev, fp32: bool = False) -> dict:
         check(not res["unequal_after_shard"], f"[15h] rank {r}: right after shard_params "
               f"{res['unequal_after_shard'][:5]} differ from the seeded weights")
         check(res["heads"] == want_heads, f"[15h] rank {r}: local heads {res['heads']}")
+        check(res["placed"] == res["rule"] == FSDP_TP_PLACED, f"[15h] rank {r}: parameters "
+              f"placed {res['placed']}, the rule says {res['rule']}, expected {FSDP_TP_PLACED}")
         for step, (a, b) in enumerate(zip(res["losses"], losses)):
             for k, v in b.items():
                 check(abs(a[k] - v) <= FSDP_TP_LOSS_RTOL * abs(v),

@@ -19,8 +19,9 @@ go back in through `torch.func.functional_call` at the recompute: the train
 step swaps the compute copy into the model only for the forward, so a
 recompute that read the module's attributes would see the masters. Of an
 FSDP2 unit (`parallel/mesh.py`) only the parameters FSDP2 ignores (the
-TP-split ones on a data x model mesh, `unit.fsdp_ignored`) go in so: its
-own hooks gather and cast the others at the forward and at the recompute.
+TP-split ones on a data x model mesh and those JAX's `fsdp_min_size` rule
+keeps whole, `unit.fsdp_ignored`) go in so: its own hooks gather and cast
+the others at the forward and at the recompute.
 
 The flash-attention kernel (`ops/flash_attention.py`) is an
 `autograd.Function` around an extension call, which no policy can save: its

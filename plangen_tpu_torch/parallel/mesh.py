@@ -46,24 +46,30 @@ the mesh's product is the world size (JAX has one process drive many):
     (`TPSplit.quantized`); both give every rank the same bytes.
   * FSDP over "data" is FSDP2 (`fully_shard`): one unit per LLaMA layer
     and SigLIP block, the rest in the root. As in JAX, a parameter takes a
-    TP placement or an FSDP one, never both: FSDP2 shards every parameter
-    that no TP rule splits (those JAX shards, of `fsdp_min_size` elements
-    or more, and the small ones too; which dim it splits does not change
-    the numbers) and ignores the TP-split ones, which stay whole over
-    "data" (`fsdp_ignored`: the train step casts them to the compute dtype
+    TP placement or an FSDP one, never both, and FSDP shards only what
+    JAX's rule shards (`fsdp_dim`): a parameter that no TP rule splits
+    whose JAX leaf (the layer-stacked [L, ...] array for a LLaMA layer's or
+    SigLIP block's tensor, in the JAX layout: a linear weight [in, out], a
+    conv weight HWIO) holds `fsdp_min_size` elements or more, along the
+    port dim of that leaf's largest dim that divides the "data" size (the
+    lower one on a tie). FSDP2 shards it there (`shard_placement_fn`) and
+    ignores the rest: the TP-split parameters, which keep their TP
+    placement alone, and the replicated ones, plain tensors whole on every
+    rank (`fsdp_ignored`: the train step casts them to the compute dtype
     and sums their gradients over the data group itself, and a
     rematerialized unit takes their casts at the recompute too,
-    `ops/remat.py`). So every
-    parameter is a DTensor over one mesh dim, on a 2-D mesh too.
-    `MixedPrecisionPolicy` casts the masters to the compute dtype after
-    the all-gather and reduces the gradients in fp32, summed over the data
-    group (the losses divide by the global token count, `train/loss.py`).
+    `ops/remat.py`). So a parameter is a DTensor over one mesh dim, or a
+    plain tensor, on a 2-D mesh too. `MixedPrecisionPolicy` casts the
+    masters to the compute dtype after the all-gather and reduces the
+    gradients in fp32, summed over the data group (the losses divide by
+    the global token count, `train/loss.py`).
   * The batch: each data shard of the mesh takes its contiguous slice of
     the global batch's rows (`batch_sharding`, `shard_rows`); ranks that
     differ only in their "model" coordinate take the same rows.
 
-`param_placement` is the pure rule (name, shape, tp size, fsdp size) that
-`shard_params` applies, so a test can hold it against JAX's
+`param_placement` is the pure rule (name, shape, tp size, fsdp size,
+`fsdp_min_size`, the JAX leaf's layout) that `shard_params` applies, and
+`fsdp_dim` the dim FSDP shards, so a test can hold them against JAX's
 `param_shardings` without processes.
 """
 
@@ -71,6 +77,7 @@ from __future__ import annotations
 
 import datetime
 import functools
+import math
 import os
 import re
 import socket
@@ -228,29 +235,112 @@ def _tp_rule(name: str, shape: Sequence[int], tp: int, parts: int = 1,
     return None
 
 
+# one JAX leaf holds a layer-stacked [L, ...] array where the port holds one
+# tensor per layer: these prefixes, by layer index
+STACKED = re.compile(r"^(language_model\.model\.layers|vision_model\.vision_tower\.blocks)"
+                     r"\.(\d+)\.(.+)$")
+FSDP_MIN_SIZE = 2 ** 20  # JAX's default `fsdp_min_size`
+
+
+def jax_axes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """{parameter name: the permutation of its axes into the JAX layout}:
+    linear weights [out, in] -> [in, out], conv weights OIHW -> HWIO; the
+    rest (the LoRA adapters included) as they are."""
+    axes = {}
+    for mod_name, mod in model.named_modules():
+        prefix = mod_name + "." if mod_name else ""
+        if isinstance(mod, nn.Linear):
+            axes[prefix + "weight"] = (1, 0)
+        elif isinstance(mod, nn.Conv2d):
+            axes[prefix + "weight"] = (2, 3, 1, 0)
+    return axes
+
+
+def jax_layers(cfg, name: str) -> Optional[int]:
+    """The number of layers the JAX leaf holding parameter `name` stacks
+    (a `PlanGenModelConfig`'s LLaMA layers or SigLIP blocks), or None when
+    that leaf is not stacked."""
+    m = STACKED.match(name)
+    if m is None:
+        return None
+    return cfg.llama.num_layers if m[1].startswith("language_model") else cfg.vision.layers
+
+
+def fsdp_dim(shape: Sequence[int], fsdp: int, fsdp_min_size: int = FSDP_MIN_SIZE,
+             axes: Sequence[int] = (), layers: Optional[int] = None) -> Optional[int]:
+    """The dim of a parameter of `shape` that FSDP over `fsdp` ranks shards,
+    or None when it stays whole: JAX's rule on the parameter's JAX leaf
+    (its dims permuted by `axes`, `jax_axes`, behind a stack of `layers`,
+    `jax_layers`). A leaf of `fsdp_min_size` elements or more shards along
+    its largest dim that divides `fsdp` (the lower dim on a tie); that dim
+    is mapped back to the port's. The port cannot split a stack of per-layer
+    tensors, so where JAX would take the layer dim it takes JAX's next dim
+    that divides. (At size 1 every dim divides, as a TP rule splits over an
+    axis of size 1.)"""
+    leaf = [shape[a] for a in axes] if axes else list(shape)
+    stack = int(layers is not None)
+    if stack:
+        leaf.insert(0, layers)
+    if not leaf or math.prod(leaf) < fsdp_min_size:
+        return None
+    for d in sorted(range(len(leaf)), key=lambda d: -leaf[d]):  # stable: ties keep order
+        if d >= stack and leaf[d] % fsdp == 0:
+            d -= stack
+            return axes[d] if axes else d
+    return None
+
+
 def param_placement(name: str, shape: Sequence[int], tp: Optional[int] = None,
-                    fsdp: Optional[int] = None, whole: FrozenSet[str] = frozenset()) -> str:
+                    fsdp: Optional[int] = None, whole: FrozenSet[str] = frozenset(),
+                    fsdp_min_size: int = FSDP_MIN_SIZE, axes: Sequence[int] = (),
+                    layers: Optional[int] = None) -> str:
     """How `shard_params` places one parameter: "vocab", "column", "row"
     (TP over an axis of size `tp`), "fsdp" (FSDP2 over an axis of size
     `fsdp`) or "replicated". None leaves an axis out. A TP rule whose split
     dim does not divide by `tp` leaves the tensor replicated, as in JAX, and
     so does the attention of a tower in `whole` (`whole_attention`), unlike
-    JAX; a TP-split parameter takes its TP placement only, as in JAX, and
-    under FSDP every other parameter is sharded. (At size 1 a split tensor
-    is whole on its one rank, as JAX's replicated one.) The LoRA adapters,
-    which JAX keeps replicated, split as the module docstring says."""
+    JAX; a TP-split parameter takes its TP placement only, as in JAX. Under
+    FSDP any other parameter is "fsdp" where `fsdp_dim` (of its JAX leaf's
+    layout `axes` / `layers`) gives a dim, as JAX's rule shards its leaf,
+    and "replicated" otherwise. (At size 1 a split tensor is whole on its
+    one rank, as JAX's replicated one.) The LoRA adapters, which JAX keeps
+    replicated under TP, split as the module docstring says."""
     rule = None if tp is None else _tp_rule(name, shape, tp, whole=whole)
     if rule is not None:
         return rule[0]
-    return "replicated" if fsdp is None else "fsdp"
+    if fsdp is not None and fsdp_dim(shape, fsdp, fsdp_min_size, axes, layers) is not None:
+        return "fsdp"
+    return "replicated"
 
 
-def param_shardings(model: nn.Module, tp: Optional[int] = None,
-                     fsdp: Optional[int] = None) -> Dict[str, str]:
-    """{parameter name: `param_placement`} over a model's parameters."""
+def _placements(model: nn.Module, tp: Optional[int], fsdp: Optional[int],
+                fsdp_min_size: int) -> Dict[str, Tuple[str, Optional[int]]]:
+    """{parameter name: (`param_placement`, the dim FSDP shards or None)}."""
     whole = frozenset() if tp is None else whole_attention(model.cfg, tp)
-    return {name: param_placement(name, tuple(p.shape), tp, fsdp, whole)
-            for name, p in model.named_parameters()}
+    axes = jax_axes(model)
+    out = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        layout = dict(axes=axes.get(name, ()), layers=jax_layers(model.cfg, name))
+        kind = param_placement(name, shape, tp, fsdp, whole, fsdp_min_size, **layout)
+        out[name] = (kind, fsdp_dim(shape, fsdp, fsdp_min_size, **layout)
+                     if kind == "fsdp" else None)
+    return out
+
+
+def param_shardings(model: nn.Module, tp: Optional[int] = None, fsdp: Optional[int] = None,
+                    fsdp_min_size: int = FSDP_MIN_SIZE) -> Dict[str, str]:
+    """{parameter name: `param_placement`} over a model's parameters."""
+    return {name: kind for name, (kind, _) in _placements(model, tp, fsdp,
+                                                          fsdp_min_size).items()}
+
+
+def fsdp_dims(model: nn.Module, tp: Optional[int], fsdp: int,
+              fsdp_min_size: int = FSDP_MIN_SIZE) -> Dict[str, int]:
+    """{parameter name: the dim FSDP2 shards} of the "fsdp" parameters."""
+    return {name: dim for name, (_, dim) in _placements(model, tp, fsdp,
+                                                        fsdp_min_size).items()
+            if dim is not None}
 
 
 def batch_sharding(mesh, data_axis: str = "data") -> Tuple[int, int]:
@@ -573,15 +663,19 @@ def _shard_quantized(model: nn.Module, tp_mesh: DeviceMesh) -> None:
 
 def shard_params(model: nn.Module, mesh, tp_axis: Optional[str] = "model",
                  fsdp_axis: Optional[str] = None,
-                 param_dtype: Optional[torch.dtype] = None) -> nn.Module:
+                 param_dtype: Optional[torch.dtype] = None,
+                 fsdp_min_size: int = FSDP_MIN_SIZE) -> nn.Module:
     """Place a `PlanGenModel` on the mesh, in place, as `param_placement`
     says: TP styles over `tp_axis` (any size; None: no TP; a quantized
     model's quantized modules split as `_shard_quantized` says), then FSDP2
-    over `fsdp_axis` (None: no FSDP) of every parameter TP left whole, with
-    `param_dtype` the compute dtype the masters are cast to after each
-    all-gather (None: the masters' own). Returns the model."""
+    over `fsdp_axis` (None: no FSDP) of the "fsdp" parameters, each along
+    its `fsdp_dim` (of `fsdp_min_size`), with `param_dtype` the compute
+    dtype the masters are cast to after each all-gather (None: the masters'
+    own). Returns the model."""
+    tp = None if tp_axis is None else mesh[tp_axis].size()
+    dims = {} if fsdp_axis is None else fsdp_dims(model, tp, mesh[fsdp_axis].size(),
+                                                   fsdp_min_size)
     if tp_axis is not None:
-        tp = mesh[tp_axis].size()
         parallelize_module(model, mesh[tp_axis], _tp_styles(model, tp))
         _shard_quantized(model, mesh[tp_axis])
     if fsdp_axis is not None:
@@ -589,27 +683,30 @@ def shard_params(model: nn.Module, mesh, tp_axis: Optional[str] = "model",
                                       cast_forward_inputs=False)
         units = list(model.language_model.model.layers)
         units += list(model.vision_model.vision_tower.blocks)
-        # FSDP2 takes no 0-d parameter (LoRA's frozen `lora_scaling`), and
-        # a TP-split parameter keeps its TP placement alone, as in JAX
-        ignored = {id(p) for p in model.parameters() if p.dim() == 0 or isinstance(p, DTensor)}
-        params = [p for p in model.parameters() if id(p) in ignored]
+        # FSDP2 manages the "fsdp" parameters only: the TP-split ones keep
+        # their TP placement alone and the replicated ones (0-d included,
+        # which FSDP2 does not take) stay plain tensors, as in JAX
+        shard = {id(p): Shard(dims[n]) for n, p in model.named_parameters() if n in dims}
+        ignored = {p for p in model.parameters() if id(p) not in shard}
+        ignored_ids = {id(p) for p in ignored}
         for unit in units + [model]:
-            fully_shard(unit, mesh=mesh[fsdp_axis], mp_policy=policy, ignored_params=set(params))
+            fully_shard(unit, mesh=mesh[fsdp_axis], mp_policy=policy, ignored_params=ignored,
+                        shard_placement_fn=lambda p: shard[id(p)])
             # a plain sum (the losses divide by the global count), by SUM
             # collectives, which gloo has too
             unit.set_gradient_divide_factor(1.0)
             unit.set_force_sum_reduction_for_comms(True)
             unit.fsdp_ignored = frozenset(n for n, p in unit.named_parameters()
-                                          if id(p) in ignored)
+                                          if id(p) in ignored_ids)
     return model
 
 
 def fsdp_ignored(module: nn.Module) -> FrozenSet[str]:
     """The names (relative to `module`) of the parameters that FSDP2 does
     not manage in a model `shard_params` placed with FSDP, or in one of its
-    units (the TP-split ones and the 0-d ones): whole over the data axis, so
-    the train step casts them to the compute dtype and sums their gradients
-    over the data group. Empty without FSDP."""
+    units (the TP-split ones and the replicated ones): whole over the data
+    axis, so the train step casts them to the compute dtype and sums their
+    gradients over the data group. Empty without FSDP."""
     return getattr(module, "fsdp_ignored", frozenset())
 
 

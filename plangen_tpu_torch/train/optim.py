@@ -30,7 +30,6 @@ dtype, as a weakly typed scalar meets an array in JAX.
 from __future__ import annotations
 
 import math
-import re
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -41,7 +40,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.placement_types import _StridedShard
 
 from plangen_tpu_torch.config import OptimConfig
-from plangen_tpu_torch.parallel.mesh import split_dim
+from plangen_tpu_torch.parallel.mesh import STACKED, jax_axes, split_dim
 
 _LORA = ".lora."  # the adapters' names: ...self_attn.lora.<target>.{a, b}
 TUNING_MODES: Dict[str, Callable[[str], bool]] = {
@@ -227,34 +226,15 @@ class AdamW(_Masked):
 
 # ---------------------------------------------------------------- Adafactor
 
-# one JAX leaf holds a layer-stacked [L, ...] array where the port holds one
-# tensor per layer: these prefixes, by layer index
-_STACKED = re.compile(r"^(language_model\.model\.layers|vision_model\.vision_tower\.blocks)"
-                      r"\.(\d+)\.(.+)$")
-
-
-def _jax_axes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
-    """{parameter name: the permutation of its axes into the JAX layout}:
-    linear weights [out, in] -> [in, out], conv weights OIHW -> HWIO; the
-    rest (the LoRA adapters included) as they are."""
-    axes = {}
-    for mod_name, mod in model.named_modules():
-        prefix = mod_name + "." if mod_name else ""
-        if isinstance(mod, nn.Linear):
-            axes[prefix + "weight"] = (1, 0)
-        elif isinstance(mod, nn.Conv2d):
-            axes[prefix + "weight"] = (2, 3, 1, 0)
-    return axes
-
 
 def _jax_leaves(model: nn.Module, names) -> Dict[str, Tuple[bool, List[Tuple[str, tuple]]]]:
     """Group parameter names by the JAX leaf that holds them: {leaf key:
     (stacked, [(name, axes into the JAX layout)])}, a stacked leaf's names
     in layer order under `<prefix>.*.<rest>`."""
-    axes = _jax_axes(model)
+    axes = jax_axes(model)
     groups: Dict[str, list] = {}
     for name in names:
-        m = _STACKED.match(name)
+        m = STACKED.match(name)
         key, index = (f"{m[1]}.*.{m[3]}", int(m[2])) if m else (name, -1)
         groups.setdefault(key, []).append((index, name))
     return {key: (members[0][0] >= 0, [(name, axes.get(name, ())) for _, name in sorted(members)])

@@ -16,8 +16,9 @@ no frozen module does weight-gradient work. Under FSDP2
 (`parallel/mesh.py::shard_params`) the model's `MixedPrecisionPolicy` makes
 the same cast after each all-gather, and frozen parameters take no
 gradient because they do not require one (the Trainer sets that); the
-parameters FSDP2 ignores (the TP-split ones on a data x model mesh,
-`fsdp_ignored`) are cast here as without FSDP.
+parameters FSDP2 ignores (the TP-split ones on a data x model mesh and
+those kept whole under `fsdp_min_size`, `fsdp_ignored`) are cast here as
+without FSDP.
 
 `gradient_checkpointing` rematerializes every LLaMA layer and SigLIP block
 by `remat_policy` (`ops/remat.py`), `fused_lm_ce` takes the lm_head CE in

@@ -46,7 +46,10 @@ global batch's (`train/step.py`); only the lead process writes
 `metrics.jsonl`, `params.jsonl` and TensorBoard, and the checkpoint is
 gathered to it (`train/checkpoint.py`). Without `fsdp` and with a mesh of
 one device the Trainer opens no process group and shards nothing.
-`train.fsdp_min_size` has no counterpart: FSDP2 shards every parameter.
+`train.fsdp_min_size` goes to `shard_params`, as JAX's Trainer passes it
+on: FSDP2 shards a parameter only where JAX's rule shards its leaf (of that
+many elements or more, along the dim JAX picks), and the rest stay whole on
+every rank.
 
 On a mesh LoRA, Adafactor, accumulation and bf16 masters run as on one
 device (`parallel/mesh.py`, `train/optim.py`), and `validate` runs on every
@@ -159,7 +162,8 @@ class Trainer:
                     self.model.get_parameter(name).requires_grad_(trainable)
             shard_params(self.model, self.mesh,
                          tp_axis="model" if dims["model"] > 1 else None,
-                         fsdp_axis="data" if tcfg.fsdp else None, param_dtype=COMPUTE_DTYPE)
+                         fsdp_axis="data" if tcfg.fsdp else None, param_dtype=COMPUTE_DTYPE,
+                         fsdp_min_size=tcfg.fsdp_min_size)
             if dims["data"] > 1:
                 group = self.mesh["data"].get_group()
 

@@ -3,7 +3,8 @@
 there), at tiny widths on the toy data.
 
 One spawn of 2 ranks, joined under a timeout and killed on expiry, trains
-`Trainer(cfg, device="cpu")` for 2 steps with FSDP over data 2, then
+`Trainer(cfg, device="cpu")` for 2 steps with FSDP over data 2
+(`fsdp_min_size` 1000: some tensors sharded, the rest whole), then
 restores the step-2 checkpoint into a Trainer on a tp 2 mesh. This process
 holds it against a one-process Trainer on the same global batch (every toy
 sample is the same image and prompt, so any rows are the same batch):
@@ -123,7 +124,8 @@ def _rank_main(rank, world, port, out_dir, results):
         fetch = BatchLoader._fetch
         BatchLoader._fetch = lambda self, idxs: (  # (the flow's seed, sample)
             fetched.extend((self.seed, int(i)) for i in idxs), fetch(self, idxs))[1]
-        t = Trainer(toy_config(out_dir, fsdp=True), device="cpu")
+        # fsdp_min_size 1000, as JAX's own tests: a mix of sharded and whole tensors
+        t = Trainer(toy_config(out_dir, fsdp=True, fsdp_min_size=1000), device="cpu")
         losses = recording(t)
         t.fit(max_steps=STEPS)
         out = {"losses": losses, "fetched": fetched, "params": full_params(t.model),

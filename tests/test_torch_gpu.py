@@ -1636,10 +1636,29 @@ def world1_nccl(cuda):
     dist.destroy_process_group()
 
 
+# the `fsdp_min_size` of JAX's own tests: FSDP shards some of these small
+# models' tensors (along dims 0 and 1) and leaves the rest whole
+FSDP_MIN = 1000
+
+
+def _mixed(model) -> bool:
+    """Whether FSDP sharded some parameters along dim 0 and some along dim 1
+    (DTensors over "data"), and left some whole (plain tensors)."""
+    from torch.distributed.tensor import DTensor
+
+    from plangen_tpu_torch.parallel import mesh as pm
+
+    kinds = {None if not isinstance(p, DTensor) else
+             pm.split_dim(p.placements[0]) if p.device_mesh.mesh_dim_names == ("data",) else "tp"
+             for p in model.parameters()}
+    return {0, 1, None} <= kinds
+
+
 def test_fsdp_train_step_over_nccl_equals_the_plain_step(cuda, world1_nccl):
     """One stage3 step (fp32 compute, K3) under FSDP2 over the world-1 NCCL
-    group equals the plain step: the losses, and the weights to Adam's 2 lr
-    (a rounding-level gradient may take either sign)."""
+    group (`fsdp_min_size` 1000: a mix of sharded and whole tensors) equals
+    the plain step: the losses, and the weights to Adam's 2 lr (a
+    rounding-level gradient may take either sign)."""
     from plangen_tpu_torch.config import TrainConfig
     from plangen_tpu_torch.ops import flash_attention as fa
     from plangen_tpu_torch.parallel import mesh as pm
@@ -1656,7 +1675,9 @@ def test_fsdp_train_step_over_nccl_equals_the_plain_step(cuda, world1_nccl):
         if fsdp:
             for name, trainable in trainable_mask(model, "stage3").items():
                 model.get_parameter(name).requires_grad_(trainable)
-            pm.shard_params(model, world1_nccl, tp_axis=None, fsdp_axis="data")
+            pm.shard_params(model, world1_nccl, tp_axis=None, fsdp_axis="data",
+                            fsdp_min_size=FSDP_MIN)
+            assert _mixed(model)
         opt, mask = make_optimizer(tcfg.optim, model, "stage3")
         step = make_train_step(cfg, tcfg, 2, flows, compute_dtype=torch.float32,
                                trainable_mask=mask)
@@ -1758,8 +1779,9 @@ def test_quantized_tp_graph_equals_eager_and_the_unsharded_model(cuda, world1_nc
 
 def test_adafactor_fsdp_steps_over_nccl_equal_the_plain_steps(cuda, world1_nccl):
     """Two stage3 Adafactor steps (fp32 masters, bf16 compute as the
-    Trainer runs them, K3) under FSDP2 over the world-1 NCCL group equal
-    the plain steps bit for bit: the losses, every weight, and the factored
+    Trainer runs them, K3) under FSDP2 over the world-1 NCCL group
+    (`fsdp_min_size` 1000: a mix of sharded and whole tensors) equal the
+    plain steps bit for bit: the losses, every weight, and the factored
     statistics."""
     from plangen_tpu_torch.config import OptimConfig, TrainConfig
     from plangen_tpu_torch.parallel import mesh as pm
@@ -1778,7 +1800,8 @@ def test_adafactor_fsdp_steps_over_nccl_equal_the_plain_steps(cuda, world1_nccl)
             for name, trainable in trainable_mask(model, "stage3").items():
                 model.get_parameter(name).requires_grad_(trainable)
             pm.shard_params(model, world1_nccl, tp_axis=None, fsdp_axis="data",
-                            param_dtype=torch.bfloat16)
+                            param_dtype=torch.bfloat16, fsdp_min_size=FSDP_MIN)
+            assert _mixed(model)
         opt, mask = make_optimizer(tcfg.optim, model, "stage3")
         step = make_train_step(cfg, tcfg, 2, flows, compute_dtype=torch.bfloat16,
                                trainable_mask=mask)
@@ -1845,7 +1868,8 @@ def _fsdp_tp_rank(rank: int, port: int, fused_ce: bool, results) -> None:
                             torch.Generator(device=dev).manual_seed(0))
         for name, trainable in trainable_mask(model, "stage3").items():
             model.get_parameter(name).requires_grad_(trainable)
-        pm.shard_params(model, mesh, tp_axis="model", fsdp_axis="data")
+        pm.shard_params(model, mesh, tp_axis="model", fsdp_axis="data", fsdp_min_size=FSDP_MIN)
+        mixed = _mixed(model)
         opt, mask = make_optimizer(tcfg.optim, model, "stage3")
         step = make_train_step(cfg, tcfg, 2, ((0, "uni"), (1, "mmu"), (2, "plan")),
                                compute_dtype=torch.float32, trainable_mask=mask,
@@ -1861,7 +1885,7 @@ def _fsdp_tp_rank(rank: int, port: int, fused_ce: bool, results) -> None:
         with torch.no_grad():
             # numpy: a tensor in the queue would live in this process's shared memory
             mu = {n: pm.full_tensor(m).cpu().numpy() for n, m in opt.mu.items()}
-        results.put((rank, ({k: float(v) for k, v in metrics.items()}, mu, calls)))
+        results.put((rank, ({k: float(v) for k, v in metrics.items()}, mu, calls, mixed)))
     except BaseException:
         results.put((rank, traceback.format_exc()))
     finally:
@@ -1872,7 +1896,8 @@ def _fsdp_tp_rank(rank: int, port: int, fused_ce: bool, results) -> None:
 @pytest.mark.parametrize("fused_ce", [False, True], ids=["lm_ce", "fused_lm_ce"])
 def test_fsdp_tp_step_over_four_gloo_ranks_equals_the_plain_step(cuda, fused_ce):
     """One stage3 AdamW step (fp32 compute) on a data 2 x model 2 mesh with
-    FSDP over "data", four gloo ranks sharing cuda:0, equals the plain step
+    FSDP over "data" (`fsdp_min_size` 1000: tensors FSDP-sharded along dims
+    0 and 1, TP-split and whole), four gloo ranks sharing cuda:0, equals the plain step
     on the global batch: the losses on every rank, and AdamW's first moment
     of every parameter (the clipped gradient's tenth) within FSDP_TP_MU_RTOL
     (Adam's update itself does not see a gradient's scale). Each rank runs
@@ -1932,7 +1957,8 @@ def test_fsdp_tp_step_over_four_gloo_ranks_equals_the_plain_step(cuda, fused_ce)
                 p.kill()
                 p.join()
     attentions = cfg.vision.layers + 3 * cfg.llama.num_layers  # SigLIP and each flow's LLaMA
-    for rank, (metrics, mu, calls) in got.items():
+    for rank, (metrics, mu, calls, mixed) in got.items():
+        assert mixed, f"rank {rank}: no mix of FSDP dims 0 and 1 and whole tensors"
         assert calls == (attentions, attentions, 0), f"rank {rank}: K3 calls {calls}"
         for k, v in want.items():
             np.testing.assert_allclose(metrics[k], v, rtol=1e-5, err_msg=f"rank {rank} {k}")

@@ -10,7 +10,9 @@ same ranks), each joined under a timeout and killed on expiry, run:
   * one AdamW step (stage3, fp32, the clip active) on `uni` + `mmu` + `plan`
     flows whose data shards hold different numbers of valid tokens, under
     dp 2, FSDP 2, tp 2, dp 2 x tp 2, FSDP 2 x tp 2 and tp 4 (SigLIP's 2
-    heads whole on every rank), held against JAX's `make_train_step` on
+    heads whole on every rank), FSDP at `fsdp_min_size` 1000 (as JAX's own
+    tests: a mix of sharded and replicated tensors), and FSDP 2 at JAX's
+    default (nothing of tiny sharded), held against JAX's `make_train_step` on
     the global batch: the loss on every rank and every parameter, rtol 1e-5
     (fp32 on both sides; only the summation order differs); right after
     `shard_params`, every parameter gathered equals the weights it split
@@ -90,29 +92,33 @@ SAMPLED_STEPS = {2: 12, 4: 160}
 PROMPT_LEN = 6
 LORA_RANK, LORA_ALPHA = 4, 8.0
 QUANT_MODES = ("int8", "int4", "int4_a8")
-TRAIN_CASES = {  # name: (mesh shape, fsdp, world); stage3, AdamW, tiny
-    "dp2": ({"data": 2, "model": 1}, False, 2),
-    "fsdp2": ({"data": 2, "model": 1}, True, 2),
-    "tp2": ({"data": 1, "model": 2}, False, 2),
-    "dp2_tp2": ({"data": 2, "model": 2}, False, 4),
-    "fsdp2_tp2": ({"data": 2, "model": 2}, True, 4),
-    "tp4": ({"data": 1, "model": 4}, False, 4),  # SigLIP's 2 heads stay whole
+FSDP_MIN = 1000  # the `fsdp_min_size` of JAX's own tests: tiny keeps a mix
+TRAIN_CASES = {  # name: (mesh shape, fsdp_min_size or None: no FSDP, world); stage3, AdamW, tiny
+    "dp2": ({"data": 2, "model": 1}, None, 2),
+    "fsdp2": ({"data": 2, "model": 1}, FSDP_MIN, 2),
+    # JAX's default: every tiny leaf is under it, so FSDP2 manages nothing
+    "fsdp2_min_default": ({"data": 2, "model": 1}, pm.FSDP_MIN_SIZE, 2),
+    "tp2": ({"data": 1, "model": 2}, None, 2),
+    "dp2_tp2": ({"data": 2, "model": 2}, None, 4),
+    "fsdp2_tp2": ({"data": 2, "model": 2}, FSDP_MIN, 4),
+    "tp4": ({"data": 1, "model": 4}, None, 4),  # SigLIP's 2 heads stay whole
 }
-OPTION_CASES = {  # name: (mesh shape, fsdp, world, model, tuning mode, optimizer)
-    "lora_fsdp2": ({"data": 2, "model": 1}, True, 2, "tiny", "lora", "adamw"),
-    "lora_tokens_tp2": ({"data": 1, "model": 2}, False, 2, "tiny", "lora_tokens", "adamw"),
-    "lora_tokens_dp2_tp2": ({"data": 2, "model": 2}, False, 4, "tiny", "lora_tokens",
+OPTION_CASES = {  # name: (mesh shape, fsdp_min_size, world, model, tuning mode, optimizer)
+    "lora_fsdp2": ({"data": 2, "model": 1}, FSDP_MIN, 2, "tiny", "lora", "adamw"),
+    "lora_tokens_tp2": ({"data": 1, "model": 2}, None, 2, "tiny", "lora_tokens", "adamw"),
+    "lora_tokens_dp2_tp2": ({"data": 2, "model": 2}, None, 4, "tiny", "lora_tokens",
                             "adamw"),
-    "adafactor_fsdp2": ({"data": 2, "model": 1}, True, 2, "tiny_af", "stage3", "adafactor"),
-    "adafactor_tp2": ({"data": 1, "model": 2}, False, 2, "tiny_af", "stage3", "adafactor"),
-    "adafactor_dp2_tp2": ({"data": 2, "model": 2}, False, 4, "tiny_af", "stage3",
+    "adafactor_fsdp2": ({"data": 2, "model": 1}, FSDP_MIN, 2, "tiny_af", "stage3",
+                        "adafactor"),
+    "adafactor_tp2": ({"data": 1, "model": 2}, None, 2, "tiny_af", "stage3", "adafactor"),
+    "adafactor_dp2_tp2": ({"data": 2, "model": 2}, None, 4, "tiny_af", "stage3",
                           "adafactor"),
-    "adafactor_fsdp2_tp2": ({"data": 2, "model": 2}, True, 4, "tiny_af", "stage3",
+    "adafactor_fsdp2_tp2": ({"data": 2, "model": 2}, FSDP_MIN, 4, "tiny_af", "stage3",
                             "adafactor"),
 }
 FUSED_CE_CASES = {  # as OPTION_CASES: the fused lm_head CE under TP
-    "fused_ce_tp2": ({"data": 1, "model": 2}, False, 2, "tiny", "stage3", "adamw_fused_ce"),
-    "fused_ce_fsdp2_tp2": ({"data": 2, "model": 2}, True, 4, "tiny", "stage3",
+    "fused_ce_tp2": ({"data": 1, "model": 2}, None, 2, "tiny", "stage3", "adamw_fused_ce"),
+    "fused_ce_fsdp2_tp2": ({"data": 2, "model": 2}, FSDP_MIN, 4, "tiny", "stage3",
                            "adamw_fused_ce"),
 }
 CHECKPOINT_CASES = ("fsdp2_tp2", "adafactor_fsdp2_tp2")  # saved, then restored
@@ -240,7 +246,8 @@ def decode(model, ids, steps, temperature, quantized=False, rows=None, cfg=TINY)
 
 
 def _case(name):
-    """(mesh shape, fsdp, world, model, tuning mode, optimizer) of a case."""
+    """(mesh shape, fsdp_min_size or None, world, model, tuning mode,
+    optimizer) of a case."""
     if name in TRAIN_CASES:
         return TRAIN_CASES[name] + ("tiny", "stage3", "adamw")
     return {**OPTION_CASES, **FUSED_CE_CASES}[name]
@@ -253,32 +260,62 @@ def _sharded_state(name, inputs, mesh, compute_dtype=torch.float32):
     from plangen_tpu_torch.train import optim as toptim
     from plangen_tpu_torch.train import step as tstep
 
-    shape, fsdp, _, model_name, mode, optimizer = _case(name)
+    shape, fsdp_min, _, model_name, mode, optimizer = _case(name)
     model = build_model(inputs["weights"][model_name], model_name)
     if mode.startswith("lora"):
         with_lora(model, inputs["lora"])
     mask = toptim.trainable_mask(model, mode)
-    if fsdp:
+    if fsdp_min:
         for pname, trainable in mask.items():
             model.get_parameter(pname).requires_grad_(trainable)
     pm.shard_params(model, mesh, tp_axis="model" if shape["model"] > 1 else None,
-                    fsdp_axis="data" if fsdp else None, param_dtype=compute_dtype)
+                    fsdp_axis="data" if fsdp_min else None, param_dtype=compute_dtype,
+                    fsdp_min_size=fsdp_min or pm.FSDP_MIN_SIZE)
     opt, mask = toptim.make_optimizer(TCFGS[optimizer].optim, model, mode)
     return tstep.init_train_state(model, opt), mask
 
 
+def _placed(model, shape, fsdp_min) -> dict:
+    """How `shard_params` placed each parameter against the rule: {"counts":
+    {"kind dim": parameters}, kinds "fsdp" (a DTensor over "data", by its
+    dim), "tp" (over "model") and "replicated" (a plain tensor), "wrong":
+    the names placed otherwise than `param_shardings` / `fsdp_dims` say}."""
+    from torch.distributed.tensor import DTensor
+
+    tp = shape["model"] if shape["model"] > 1 else None
+    fsdp = shape["data"] if fsdp_min else None
+    kinds = pm.param_shardings(model, tp, fsdp, fsdp_min or pm.FSDP_MIN_SIZE)
+    dims = pm.fsdp_dims(model, tp, fsdp, fsdp_min) if fsdp_min else {}
+    counts, wrong = {}, []
+    for n, p in model.named_parameters():
+        if isinstance(p, DTensor):
+            placement, mesh = pm._mesh_dim(p)
+            got = ("fsdp" if mesh.mesh_dim_names == ("data",) else "tp", pm.split_dim(placement))
+        else:
+            got = ("replicated", None)
+        want = {"fsdp": ("fsdp", dims.get(n)), "replicated": ("replicated", None)}.get(
+            kinds[n], ("tp", got[1]))
+        key = f"{got[0]} {got[1]}"
+        counts[key] = counts.get(key, 0) + 1
+        if got != want:
+            wrong.append((n, got, want))
+    return {"counts": counts, "wrong": wrong}
+
+
 def _train_case(name, inputs, directory):
-    """One step of the case; right after `shard_params` the gathered
-    parameters against the weights and the sum of squares over the shards;
-    for `CHECKPOINT_CASES` the checkpoint after the step."""
+    """One step of the case; right after `shard_params` each parameter's
+    placement against the rule, the gathered parameters against the
+    weights and the sum of squares over the shards; for `CHECKPOINT_CASES`
+    the checkpoint after the step."""
     from plangen_tpu_torch.train import optim as toptim
     from plangen_tpu_torch.train import step as tstep
 
-    shape, fsdp, _, model_name, mode, optimizer = _case(name)
+    shape, fsdp_min, _, model_name, mode, optimizer = _case(name)
     tcfg, batches = TCFGS[optimizer], inputs["batches"]
     tcfg = replace(tcfg, gradient_checkpointing=name in REMAT_CASES)
     mesh = pm.create_mesh(shape, device="cpu")
     state, mask = _sharded_state(name, inputs, mesh)
+    placement = _placed(state.model, shape, fsdp_min)
     sd = inputs["weights"][model_name]
     placed = {n: pm.full_tensor(p).detach().numpy() for n, p in state.model.named_parameters()}
     unequal = [n for n, w in sd.items() if n in placed and not np.array_equal(placed[n], w)]
@@ -292,7 +329,7 @@ def _train_case(name, inputs, directory):
     state, metrics = step(state, local)
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
            "params": full_params(state.model), "unequal_after_shard": unequal,
-           "sq_after_shard": sq}
+           "sq_after_shard": sq, "placement": placement}
     if name in CHECKPOINT_CASES:
         out["checkpoint"] = _checkpoint_case(name, inputs, mesh, state, directory)
     return out
@@ -452,8 +489,8 @@ def _trainer_case(directory):
 
     sys.modules["torch.utils.tensorboard"] = fake_tensorboard()
     out_dir = os.path.join(directory, "trainer")
-    t = Trainer(toy_config(out_dir, fsdp=True, mesh_shape={"data": 2, "model": 2}),
-                device="cpu")
+    t = Trainer(toy_config(out_dir, fsdp=True, mesh_shape={"data": 2, "model": 2},
+                           fsdp_min_size=FSDP_MIN), device="cpu")
     t.fit(max_steps=1)
     t.validate(1)
     rank = dist.get_rank()
@@ -675,8 +712,13 @@ def test_mesh_that_needs_more_devices_raises_as_jax():
     assert str(got.value) == str(want.value) == f"mesh {shape} needs 16 devices, have 8"
 
 
-def _jax_kinds(name, tp, fsdp):
-    """{HF name: kind} of JAX's `param_shardings` on the 8-device mesh."""
+@functools.lru_cache(maxsize=None)
+def _jax_kinds(name, tp, data, fsdp_min=None):
+    """{HF name: (kind, port dim)} of JAX's `param_shardings` on a data x
+    model mesh of the conftest's devices, FSDP over "data" with
+    `fsdp_min_size` `fsdp_min` (None: no FSDP). The port dim is where an
+    "fsdp" leaf's index along JAX's sharded dim varies once exported to the
+    port's layout (None for the other kinds)."""
     import jax
 
     from plangen_tpu.convert.jax_to_torch import export_state_dict
@@ -685,12 +727,15 @@ def _jax_kinds(name, tp, fsdp):
 
     cfg = CONFIGS[name]
     shapes = jax.eval_shape(lambda: jvlm.init(jax.random.PRNGKey(0), cfg))
-    mesh = create_mesh({"data": 8 // tp, "model": tp})
-    specs = param_shardings(shapes, mesh, fsdp_axis="data" if fsdp else None,
-                            fsdp_min_size=1000)
+    mesh = create_mesh({"data": data, "model": tp}, devices=jax.devices()[:data * tp])
+    specs = param_shardings(shapes, mesh, fsdp_axis=None if fsdp_min is None else "data",
+                            fsdp_min_size=fsdp_min or pm.FSDP_MIN_SIZE)
+
+    def spec_of(leaf, sh):
+        return tuple(sh.spec) + (None,) * (len(leaf.shape) - len(tuple(sh.spec)))
 
     def code(leaf, sh):
-        spec = tuple(sh.spec) + (None,) * (len(leaf.shape) - len(tuple(sh.spec)))
+        spec = spec_of(leaf, sh)
         if "data" in spec:
             kind = "fsdp"
         elif "model" not in spec:
@@ -703,11 +748,27 @@ def _jax_kinds(name, tp, fsdp):
             kind = "row"
         return np.full(leaf.shape, pm.KINDS.index(kind), np.int8)
 
-    codes = jax.tree_util.tree_map(code, shapes, specs)
+    def index(leaf, sh):  # the index along the dim JAX shards over "data"
+        spec = spec_of(leaf, sh)
+        if "data" not in spec:
+            return np.zeros(leaf.shape, np.int32)
+        d = spec.index("data")
+        along = np.arange(leaf.shape[d], dtype=np.int32)
+        return np.broadcast_to(along.reshape([-1 if i == d else 1 for i in range(len(spec))]),
+                               leaf.shape).copy()
+
+    kinds = export_state_dict(jax.tree_util.tree_map(code, shapes, specs), cfg)
+    indices = export_state_dict(jax.tree_util.tree_map(index, shapes, specs), cfg)
     out = {}
-    for k, v in export_state_dict(codes, cfg).items():
+    for k, v in kinds.items():
         assert np.all(v == v.flat[0]), k
-        out[k] = pm.KINDS[int(v.flat[0])]
+        kind, dim = pm.KINDS[int(v.flat[0])], None
+        if kind == "fsdp":
+            a = np.asarray(indices[k])
+            varies = [d for d in range(a.ndim) if np.any(np.diff(a, axis=d))]
+            assert len(varies) == 1, (k, varies)  # the layer dim would vary in none
+            dim = varies[0]
+        out[k] = (kind, dim)
     return out
 
 
@@ -715,24 +776,36 @@ _ATTENTION = re.compile(r"\.self_attn\.|\.attn\.(qkv|proj)\.")
 
 
 @pytest.mark.parametrize("name", ["tiny", "tiny_7b"])
-@pytest.mark.parametrize("tp,fsdp", [(2, False), (4, False), (1, True), (2, True)],
-                         ids=["tp2", "tp4", "fsdp_min_size_1000", "tp2_fsdp"])
-def test_param_placements_match_jax(name, tp, fsdp):
-    """Every parameter of the port takes JAX's placement: the TP kinds
-    exactly (a column-parallel layer's bias is split with its output, where
-    JAX keeps it whole and lets XLA slice it); under FSDP every tensor JAX
-    shards is sharded (FSDP2 shards the small ones too), and on a data x
-    model mesh a TP-split tensor takes its TP placement alone, as in JAX.
+@pytest.mark.parametrize("tp,fsdp_min", [
+    (2, None), (4, None), (1, FSDP_MIN), (2, FSDP_MIN), (1, pm.FSDP_MIN_SIZE),
+    (2, pm.FSDP_MIN_SIZE),
+], ids=["tp2", "tp4", "fsdp_min_size_1000", "tp2_fsdp", "fsdp_min_size_default",
+        "tp2_fsdp_min_size_default"])
+def test_param_placements_match_jax(name, tp, fsdp_min):
+    """Every parameter of the port takes JAX's placement on the 8-device
+    mesh (data 8 / tp x model tp): the TP kinds exactly, and under FSDP
+    the "fsdp" and "replicated" kinds exactly (FSDP shards a leaf of
+    `fsdp_min_size` elements or more), each FSDP tensor along the port dim
+    that JAX's chosen dim of its leaf becomes; on a data x model mesh a
+    TP-split tensor takes its TP placement alone, as in JAX. At JAX's
+    default `fsdp_min_size` every leaf of these tiny models is under it,
+    so nothing is FSDP-sharded.
 
-    One departure: where a tower's heads do not split over the TP axis
-    (`tiny_7b`'s 6 LLaMA heads and both configs' 2 SigLIP heads over tp 4), the
-    port keeps that tower's attention projections whole on every rank,
-    where JAX splits them by their dim (GSPMD reshards at the head
-    reshape)."""
-    want = _jax_kinds(name, tp, fsdp)
+    Two departures: a column-parallel layer's bias is split with its
+    output, where JAX keeps it whole (or FSDP-sharded) and lets XLA slice
+    it; and where a tower's heads do not split over the TP axis (`tiny_7b`'s
+    6 LLaMA heads and both configs' 2 SigLIP heads over tp 4), the port
+    keeps that tower's attention projections out of TP, where JAX splits
+    them by their dim (GSPMD reshards at the head reshape): they then take
+    the placement JAX's FSDP rule gives them without a TP axis."""
+    fsdp = None if fsdp_min is None else 8 // tp
+    want = _jax_kinds(name, tp, 8 // tp, fsdp_min)
     model = PlanGenModel(CONFIGS[name], dtype=torch.float32, device="meta")
-    got = pm.param_shardings(model, tp=tp if tp > 1 else None,
-                             fsdp=8 // tp if fsdp else None)
+    tp_size = tp if tp > 1 else None
+    got = pm.param_shardings(model, tp=tp_size, fsdp=fsdp,
+                             fsdp_min_size=fsdp_min or pm.FSDP_MIN_SIZE)
+    dims = pm.fsdp_dims(model, tp_size, fsdp, fsdp_min) if fsdp else {}
+    assert sorted(dims) == sorted(n for n, k in got.items() if k == "fsdp")
     whole = pm.whole_attention(CONFIGS[name], tp)
     assert whole == ({"siglip"} | ({"llama"} if name == "tiny_7b" else set())
                      if tp == 4 else set())
@@ -741,30 +814,33 @@ def test_param_placements_match_jax(name, tp, fsdp):
     for pname, kind in got.items():
         tower = "siglip" if pname.startswith("vision_model") else "llama"
         if tower in whole and _ATTENTION.search(pname):
-            assert want[pname] in ("column", "row", "replicated"), pname
-            assert kind == ("fsdp" if fsdp else "replicated"), pname
-        elif kind in ("fsdp", "replicated") and want[pname] in ("fsdp", "replicated"):
-            # FSDP2 shards what JAX leaves whole under fsdp_min_size
-            assert kind == ("fsdp" if fsdp else want[pname]), pname
+            assert want[pname][0] in ("column", "row", "replicated"), pname
+            alone = _jax_kinds(name, 1, 8 // tp, fsdp_min)[pname] if fsdp else ("replicated",
+                                                                                 None)
+            assert (kind, dims.get(pname)) == alone, pname
         elif pname.endswith(".bias") and kind == "column":
-            assert want[pname] in ("fsdp", "replicated"), pname
+            assert want[pname][0] in ("fsdp", "replicated"), pname
             split += 1
         else:
-            assert kind == want[pname], pname
+            assert (kind, dims.get(pname)) == want[pname], pname
             split += kind in ("vocab", "column", "row")
     if tp > 1:
         assert {"vocab", "column", "row"} <= set(got.values())
         # lm_head [V, H] and the 7B-shaped MLP split where their dims divide
         assert got["language_model.lm_head.weight"] == "column"
         assert split > 0
-    if tp > 1 and fsdp:
-        assert "fsdp" in set(got.values())
-    for tower in whole:  # the attention whole, the MLP split
+    if fsdp_min == FSDP_MIN:  # a mix, sharded along dim 0 and 1 (JAX's [L, in, out]: in)
+        assert "replicated" in got.values() and set(dims.values()) == {0, 1}
+        if tp == 1:
+            assert dims["language_model.model.layers.0.self_attn.o_proj.weight"] == 1
+    elif fsdp:
+        assert "fsdp" not in got.values()
+    for tower in whole:  # the attention out of TP, the MLP split
         prefix, attn, mlp = {
             "siglip": ("vision_model.vision_tower.blocks.0.", "attn.qkv", "mlp.fc1"),
             "llama": ("language_model.model.layers.0.", "self_attn.q_proj", "mlp.up_proj"),
         }[tower]
-        assert got[prefix + attn + ".weight"] == ("fsdp" if fsdp else "replicated")
+        assert got[prefix + attn + ".weight"] in ("fsdp", "replicated")
         assert got[prefix + mlp + ".weight"] == "column"
 
 
@@ -789,7 +865,7 @@ def test_lora_placements(tp):
     LoRA steps hold the numbers."""
     from plangen_tpu_torch.train.lora import add_lora
 
-    want = _jax_kinds("tiny", tp, False)
+    want = {n: kind for n, (kind, _) in _jax_kinds("tiny", tp, 8 // tp).items()}
     model = add_lora(PlanGenModel(TINY, dtype=torch.float32, device="meta"), LORA_RANK,
                      LORA_ALPHA)
     got = pm.param_shardings(model, tp=tp)
@@ -835,10 +911,11 @@ def test_kernel_wrappers_refuse_a_dtensor(world1_mesh):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_train_step_on_a_mesh_matches_jax_global_batch(world):
-    """dp 2, FSDP 2 and tp 2 on 2 ranks; dp 2 x tp 2, FSDP 2 x tp 2 and tp 4
-    (SigLIP's 2 heads whole on every rank) on 4: the loss and every
-    parameter after the step, on every rank (the replicated copies too),
-    equal JAX's step on the global batch."""
+    """dp 2, FSDP 2 (`fsdp_min_size` 1000, and JAX's default, at which
+    FSDP2 manages none of tiny's parameters) and tp 2 on 2 ranks; dp 2 x
+    tp 2, FSDP 2 x tp 2 and tp 4 (SigLIP's 2 heads whole on every rank) on
+    4: the loss and every parameter after the step, on every rank (the
+    replicated copies too), equal JAX's step on the global batch."""
     want_metrics, want_params = _jax_step()
     results = _spawned(world)
     for name, (_, _, w) in TRAIN_CASES.items():
@@ -938,7 +1015,11 @@ def test_fused_lm_ce_under_tp_matches_jax_global_batch(world):
 @pytest.mark.parametrize("world", [2, 4])
 def test_parameters_gathered_right_after_sharding_equal_the_weights(world):
     """Right after `shard_params`, on every rank of every train case (TP,
-    FSDP, both on a data x model mesh, tp 4), each parameter gathered whole
+    FSDP, both on a data x model mesh, tp 4), each parameter is placed as
+    `param_shardings` and `fsdp_dims` say (a DTensor over "data" along its
+    dim, over "model", or a plain tensor), FSDP at `fsdp_min_size` 1000
+    keeps a mix of tensors sharded along dims 0 and 1 and replicated ones,
+    and at JAX's default shards none of tiny's; each parameter gathered whole
     (`full_tensor`: SigLIP's fused qkv weight and bias part by part) equals
     the weights it split bit for bit, and the sum of squares over the
     shards (`global_sq_norm`, the clip's norm) equals the whole model's:
@@ -956,19 +1037,29 @@ def test_parameters_gathered_right_after_sharding_equal_the_weights(world):
         for rank, res in results.items():
             got = res[name]
             assert got["unequal_after_shard"] == [], f"{name} rank {rank}"
+            assert got["placement"]["wrong"] == [], f"{name} rank {rank}"
+            kinds = {k.split()[0] for k in got["placement"]["counts"]}
+            fsdp_min = _case(name)[1]
+            if fsdp_min == FSDP_MIN:  # sharded along dims 0 and 1, and replicated
+                assert {"fsdp 0", "fsdp 1", "replicated None"} <= set(
+                    got["placement"]["counts"]), f"{name}: {got['placement']['counts']}"
+            elif fsdp_min is not None:  # every tiny leaf under JAX's default
+                assert "fsdp" not in kinds, f"{name}: {got['placement']['counts']}"
             assert qkv and set(qkv) <= set(got["params"]), name
             shards, whole = got["sq_after_shard"]
             np.testing.assert_allclose(shards, whole, rtol=1e-5, err_msg=f"{name} rank {rank}")
 
 
 def test_fsdp_tp_checkpoint_restores_in_one_process_and_on_the_mesh():
-    """Under FSDP 2 x tp 2 (AdamW on tiny, Adafactor on tiny_af), the
-    checkpoint saved after the step: restored into one process (a strict
-    `load_state_dict`) the model equals the sharded model on every rank,
-    bit for bit; restored onto the same mesh (`distribute_like`), the
+    """Under FSDP 2 x tp 2 (AdamW on tiny, Adafactor on tiny_af; FSDP-sharded,
+    TP-split and replicated parameters), the checkpoint saved after the
+    step: restored into one process (a strict `load_state_dict`) the model
+    equals the sharded model on every rank, bit for bit; restored onto the same mesh (`distribute_like`), the
     model and the optimizer state gathered equal the saved file."""
     results = _spawned(4)
-    for name in CHECKPOINT_CASES:
+    for name in CHECKPOINT_CASES:  # FSDP-sharded and replicated parameters both
+        assert {"fsdp", "replicated"} <= {k.split()[0] for k in
+                                          results[0][name]["placement"]["counts"]}, name
         saved = results[0][name]["checkpoint"]["saved_model"]
         model = build_model(saved, _case(name)[3])
         one = {n: p.detach().numpy() for n, p in model.named_parameters()}
@@ -984,7 +1075,9 @@ def test_fsdp_tp_trainer_validates_as_one_process(tmp_path, monkeypatch):
     data): one step, then `validate` on every rank over an unsharded copy;
     the TP-split parameters are those FSDP2 leaves to TP, every rank holds
     the same parameters, and every rank's validation tree equals a
-    one-process Trainer's `validate` on those parameters."""
+    one-process Trainer's `validate` on those parameters. The Trainer
+    passes `train.fsdp_min_size` (1000) on: FSDP2 ignores the TP-split
+    parameters and the replicated ones."""
     import sys
 
     from plangen_tpu_torch.train.trainer import Trainer
@@ -994,9 +1087,10 @@ def test_fsdp_tp_trainer_validates_as_one_process(tmp_path, monkeypatch):
     results = _spawned(4)
     lead = results[0]["trainer"]
     assert lead["mesh"] == (2, 2)
-    split = {n for n, k in pm.param_shardings(build_model(weights()), tp=2, fsdp=2).items()
-             if k in ("vocab", "column", "row")}
-    assert split and set(lead["fsdp_ignored"]) == split
+    kinds = pm.param_shardings(build_model(weights()), tp=2, fsdp=2, fsdp_min_size=FSDP_MIN)
+    ignored = {n for n, k in kinds.items() if k != "fsdp"}
+    assert {"vocab", "column", "row", "replicated", "fsdp"} <= set(kinds.values())
+    assert set(lead["fsdp_ignored"]) == ignored
     one = Trainer(toy_config(tmp_path), model=build_model(lead["params"]), device="cpu")
     one.validate(1)
     want = val_tree(tmp_path / "val")
@@ -1011,11 +1105,14 @@ def test_fsdp_tp_remat_in_bf16_equals_the_step_without_remat():
     """Under FSDP 2 x tp 2 with fp32 masters and bf16 compute, a step under
     gradient_checkpointing equals the step without, bit for bit, on every
     rank: the recompute of each FSDP2 unit runs on the bf16 casts of its
-    TP-split parameters (which FSDP2 ignores), as the forward did. (The
+    TP-split and replicated parameters (which FSDP2 ignores), as the
+    forward did. (The
     fp32 step under remat is held against JAX's in
     `test_train_step_on_a_mesh_matches_jax_global_batch[4]`.)"""
     results = _spawned(4)
     for rank, res in results.items():
+        # its placement is the fsdp2_tp2 case's: replicated parameters too
+        assert "replicated None" in res["fsdp2_tp2"]["placement"]["counts"]
         plain, remat = res["remat_bf16"]
         for what in ("params", "mu"):
             assert sorted(remat[what]) == sorted(plain[what])
